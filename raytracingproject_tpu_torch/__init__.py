@@ -1,0 +1,36 @@
+"""raytracingproject_tpu_torch — the path tracer on PyTorch and CUDA.
+
+A port of `raytracingproject_tpu` (JAX, XLA and Pallas on a TPU), which
+stays in the repository as the reference. Plain tensor code is PyTorch;
+every Pallas kernel of the ported paths is hand-written CUDA for Hopper
+(`csrc/`), with a plain PyTorch version beside it that runs on the CPU.
+This package never imports jax.
+
+So far the forward megakernel path runs end to end: scenes, camera, BVH
+and front tables, the megakernel (bounce loop with brute or front-culled
+closest hit), `render`, `render_image` and the CLI
+(`python -m raytracingproject_tpu_torch`).
+"""
+
+from raytracingproject_tpu_torch.camera import Camera
+from raytracingproject_tpu_torch.config import (
+    DIELECTRIC, LAMBERTIAN, METAL, RenderSettings,
+)
+from raytracingproject_tpu_torch.render import render, render_image
+from raytracingproject_tpu_torch.scene import Scene, SceneBuilder, make_cover_scene
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "Scene",
+    "SceneBuilder",
+    "make_cover_scene",
+    "RenderSettings",
+    "LAMBERTIAN",
+    "METAL",
+    "DIELECTRIC",
+    "render",
+    "render_image",
+    "__version__",
+]

@@ -1,0 +1,94 @@
+"""CLI entry point (counterpart of raytracingproject_tpu/__main__.py and
+the reference's src/main.cpp:11-71).
+
+Renders the RTWeekend cover scene with the reference camera (400x225,
+30 spp, depth 50, vfov 20, lookfrom (13,2,3), defocus 0.6, focus 10)
+through the megakernel with front culling, and writes P3 PPM to stdout
+(or --output) with progress on stderr.
+
+    python -m raytracingproject_tpu_torch > image.ppm
+    python -m raytracingproject_tpu_torch --scene three --spp 64 -o out.ppm
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from raytracingproject_tpu_torch.camera import Camera
+from raytracingproject_tpu_torch.color import to_u8
+from raytracingproject_tpu_torch.config import RenderSettings
+from raytracingproject_tpu_torch.ops.cuda.megakernel import LAUNCHES
+from raytracingproject_tpu_torch.render import render
+from raytracingproject_tpu_torch.scene import (
+    make_cover_scene, make_minimal_scene, make_three_sphere_scene,
+)
+from raytracingproject_tpu_torch.utils.ppm import encode_ppm
+
+SCENES = {
+    "cover": make_cover_scene,
+    "three": make_three_sphere_scene,
+    "minimal": make_minimal_scene,
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="raytracingproject_tpu_torch")
+    ap.add_argument("--scene", choices=sorted(SCENES), default="cover")
+    ap.add_argument("--width", type=int, default=400)
+    ap.add_argument("--spp", type=int, default=30,
+                    help="samples per pixel (reference default 30, src/main.cpp:58)")
+    ap.add_argument("--depth", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--use-bvh", action=argparse.BooleanOptionalAction, default=True,
+                    help="front-culled closest hit (default); --no-use-bvh scans every sphere")
+    ap.add_argument("--wavefront", action="store_true",
+                    help="stream-compaction renderer (not ported yet, ROADMAP P8)")
+    ap.add_argument("--device", default=None,
+                    help="cuda or cpu (default: cuda when a card is present)")
+    ap.add_argument("--output", "-o", default="-", help="output path ('-' = stdout)")
+    args = ap.parse_args(argv)
+    if args.wavefront:
+        ap.error("--wavefront is not ported to the PyTorch package yet (ROADMAP P8)")
+
+    cover = args.scene == "cover"
+    camera = Camera(
+        aspect_ratio=16.0 / 9.0,
+        image_width=args.width,
+        samples_per_pixel=args.spp,
+        max_depth=args.depth,
+        vfov=20.0 if cover else 90.0,
+        lookfrom=(13.0, 2.0, 3.0) if cover else (0.0, 0.0, 0.0),
+        lookat=(0.0, 0.0, 0.0) if cover else (0.0, 0.0, -1.0),
+        defocus_angle=0.6 if cover else 0.0,
+        focus_dist=10.0 if cover else 1.0,
+    )
+    scene = SCENES[args.scene](seed=args.seed) if cover else SCENES[args.scene]()
+    settings = RenderSettings(use_bvh=args.use_bvh, device=args.device)
+    device = settings.resolved_device()
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    print(f"Rendering {args.scene} {camera.image_width}x{camera.image_height} "
+          f"spp={args.spp} depth={args.depth} on {device}", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    img = to_u8(render(scene, camera, generator, settings))
+    data = encode_ppm(img.cpu().numpy())
+    elapsed = time.perf_counter() - t0
+    rays = camera.image_width * camera.image_height * args.spp
+    print("Done.", file=sys.stderr)
+    print(f"{rays} rays in {elapsed:.2f}s = {rays / elapsed / 1e6:.2f} Mrays/s "
+          f"(kernel launches: brute={LAUNCHES['brute']} front={LAUNCHES['front']})",
+          file=sys.stderr)
+    if args.output == "-":
+        sys.stdout.write(data)
+    else:
+        with open(args.output, "w") as f:
+            f.write(data)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

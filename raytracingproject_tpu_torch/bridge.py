@@ -1,0 +1,51 @@
+"""The JAX package's state carried across, as numpy arrays.
+
+Takes the arrays of a JAX `Scene`, `FlatBVH` or `FrontTables` (fetched by
+the caller with `np.asarray`) and builds the port's objects on a given
+device, so both packages can compute on the same data. Never imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytracingproject_tpu_torch.bvh import FlatBVH
+from raytracingproject_tpu_torch.ops.cuda.megakernel import FrontTables
+from raytracingproject_tpu_torch.scene import Scene
+
+
+def _t(x, dtype, device):
+    return torch.from_numpy(np.array(x)).to(dtype).to(device)  # a writable copy
+
+
+def scene_from_arrays(center0, center_delta, radius, mat_type, albedo, fuzz, ior,
+                      device="cpu") -> Scene:
+    """Scene from the seven arrays of a JAX Scene (in field order)."""
+    f = torch.float32
+    return Scene(
+        center0=_t(center0, f, device), center_delta=_t(center_delta, f, device),
+        radius=_t(radius, f, device), mat_type=_t(mat_type, torch.int32, device),
+        albedo=_t(albedo, f, device), fuzz=_t(fuzz, f, device), ior=_t(ior, f, device),
+    )
+
+
+def bvh_from_arrays(node_min, node_max, miss_link, leaf_start, leaf_count,
+                    prim_order) -> FlatBVH:
+    """FlatBVH (host tensors) from the six arrays of a JAX FlatBVH."""
+    f, i = torch.float32, torch.int32
+    return FlatBVH(
+        node_min=_t(node_min, f, "cpu"), node_max=_t(node_max, f, "cpu"),
+        miss_link=_t(miss_link, i, "cpu"), leaf_start=_t(leaf_start, i, "cpu"),
+        leaf_count=_t(leaf_count, i, "cpu"), prim_order=_t(prim_order, i, "cpu"),
+    )
+
+
+def front_from_arrays(sph, ff, fi, wf, sf, remap, repack: int, device="cpu") -> FrontTables:
+    """FrontTables from the arrays of a JAX FrontTables and its `repack`."""
+    f, i = torch.float32, torch.int32
+    return FrontTables(
+        sph=_t(sph, f, device), ff=_t(ff, f, device), fi=_t(fi, i, device),
+        wf=_t(wf, f, device), sf=_t(sf, f, device), remap=_t(remap, i, device),
+        repack=int(repack),
+    )

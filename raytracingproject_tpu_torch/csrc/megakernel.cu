@@ -1,0 +1,445 @@
+// Path-tracing megakernel for NVIDIA Hopper (sm_90a): the whole bounce loop
+// of a ray in one thread, from camera ray to radiance.
+//
+// Replaces (raytracingproject_tpu/ops/pallas/megakernel.py):
+//   K1  _bounce_loop (532-817) with _uniform/_unit_vector/_ball_radius (61-87)
+//   K2  _closest_hit_brute (159) + _sphere_test_ld (98), kernel _megakernel (832)
+//   K3  _closest_hit_front (335-529) + _slab_factory (273), kernel
+//       _megakernel_front (869); all called through pallas_trace_paths (1362).
+// The plain PyTorch versions of the same three functions live in
+// ops/cuda/megakernel.py; ops/rng.py specifies the random numbers.
+//
+// What bounds it on an H100: FP32 issue and latency, not memory. Each sphere
+// test is ~25 FP32 operations plus one IEEE sqrt on data that every lane of a
+// warp reads from the same shared-memory address (a broadcast), and a ray
+// reads and writes device memory only at its start and end (28 B in, 12 B
+// out). The limits are (a) the number of sphere tests per ray, (b) warps
+// that idle because one lane of the warp is still bouncing, and (c) the
+// IEEE sqrt/div/transcendentals this build keeps for exact parity.
+//
+// What the design does about it:
+// - Tables live in dynamic shared memory, staged once per block; every
+//   sphere or box read is a broadcast. Past 48 KB the entry point raises the
+//   kernel's dynamic shared-memory limit (up to the card's 227 KB).
+// - Culling (K3) is decided per warp: each lane slab-tests up to 24 boxes
+//   against its own ray and `__reduce_or_sync` ORs the bits into the live
+//   word directly (the TPU's f32 bit-packing in _pack_any_bits existed only
+//   because its scalar unit could not read vector bits). Subtrees culled for
+//   every lane of the warp are never scanned. Stage 1 (word / super-word
+//   lists) walks the set bits in ascending order instead of building a list
+//   in scratch memory; the visit order (word -> chunk -> subtree -> sphere)
+//   and the strict `<` update are the TPU kernel's, so the result equals the
+//   brute scan up to last-ulp ties.
+// - The bounce loop runs while any lane of the warp is alive
+//   (`__any_sync`), so culling votes always see all 32 lanes. Dead lanes keep
+//   their parked rays (o = 1e18, d = (1,1,1)) and miss every box.
+// - The winner index is not needed by the forward pass, so the TPU's
+//   `mat + 4*idx` fold is dropped; the material is its own register.
+// - Built without --use_fast_math and with -fmad=false: IEEE sqrtf, logf,
+//   division and no contracted FMAs, so the kernel reproduces its plain
+//   PyTorch version on the card ray for ray. A later PR can trade that
+//   parity for speed.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TPB = 256;  // rays per block (ops/cuda/megakernel.py TILE)
+constexpr int N_ROWS = 16;
+constexpr int WORD = 24;
+constexpr unsigned FULL = 0xffffffffu;
+
+enum {
+  ROW_CX, ROW_CY, ROW_CZ, ROW_MX, ROW_MY, ROW_MZ, ROW_RAD, ROW_MAT,
+  ROW_AR, ROW_AG, ROW_AB, ROW_FUZZ, ROW_IOR
+};
+
+struct Params {
+  const float* origin;     // [R, 3]
+  const float* direction;  // [R, 3]
+  const float* time;       // [R]
+  float* out;              // [R, 3] radiance
+  const float* sph;        // [16, n_cols] sphere table (JAX row layout)
+  const float* ff;         // [8, n_front] subtree boxes
+  const int* fi;           // [2, n_front] (start, padded count)
+  const float* wf;         // [8, n_words_pad] word union boxes
+  const float* sf;         // [8, n_super] super-word union boxes
+  int n_cols, n_front, n_words_pad, n_super, repack;
+  uint32_t seed;
+  int max_depth;
+  float t_min;
+  int zero_draws;
+};
+
+// ---- random numbers: Philox-4x32-10 (ops/rng.py) ----
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0; c[1] = lo1; c[2] = n2; c[3] = lo0;
+  }
+}
+
+__device__ __forceinline__ void bounce_bits(uint32_t seed, uint32_t ray, uint32_t bounce,
+                                            uint32_t w[4]) {
+  w[0] = ray; w[1] = bounce; w[2] = 0u; w[3] = 0u;
+  philox4x32_10(w, seed, 0u);
+}
+
+__device__ __forceinline__ float bits_to_uniform(uint32_t b) {
+  return (float)(b >> 8) * (1.0f / 16777216.0f);
+}
+
+// ---- closest hit ----
+struct Hit {
+  float bt, hx, hy, hz, hrad, har, hag, hab, hfz, hio;
+  int hmat;
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tm, a, inv_a;
+};
+
+// _sphere_test_ld: exact reference quadratic (src/sphere.h:30-57), open
+// interval (t_min, best_t), moving-sphere centre lerp.
+__device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, int s,
+                                            const Ray& r, float t_min, Hit& h) {
+  const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
+  const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
+  const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
+  const float rad = S[ROW_RAD * n + s];
+  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = half_b * half_b - r.a * cq;
+  const bool dpos = disc > 0.0f;
+  const float sq = sqrtf(dpos ? disc : 1.0f);
+  const float r0 = (-half_b - sq) * r.inv_a;
+  const float r1 = (-half_b + sq) * r.inv_a;
+  const bool in0 = (r0 > t_min) && (r0 < h.bt);
+  const bool in1 = (r1 > t_min) && (r1 < h.bt);
+  if (dpos && (in0 || in1)) {
+    h.bt = in0 ? r0 : r1;
+    h.hx = ccx; h.hy = ccy; h.hz = ccz;
+    h.hrad = rad;
+    h.hmat = (int)S[ROW_MAT * n + s];
+    h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
+    h.hfz = S[ROW_FUZZ * n + s];
+    h.hio = S[ROW_IOR * n + s];
+  }
+}
+
+__device__ __forceinline__ void closest_hit_brute(const float* S, int n, const Ray& r,
+                                                  float t_min, Hit& h) {
+#pragma unroll 8
+  for (int s = 0; s < n; ++s) sphere_test(S, n, s, r, t_min, h);
+}
+
+struct InvDir { float x, y, z; };
+
+// _slab_factory: does this lane's ray enter box `f` of an (8, n) table
+// within (t_min, far]? `far` = +inf for the unclamped stage-1 tests.
+__device__ __forceinline__ bool slab(const float* __restrict__ B, int n, int f, const Ray& r,
+                                     const InvDir& inv, float t_min, float far) {
+  float t0 = (B[0 * n + f] - r.ox) * inv.x;
+  float t1 = (B[3 * n + f] - r.ox) * inv.x;
+  float tn = fminf(t0, t1);
+  float tf = fmaxf(t0, t1);
+  t0 = (B[1 * n + f] - r.oy) * inv.y;
+  t1 = (B[4 * n + f] - r.oy) * inv.y;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = (B[2 * n + f] - r.oz) * inv.z;
+  t1 = (B[5 * n + f] - r.oz) * inv.z;
+  tn = fmaxf(tn, fmaxf(fminf(t0, t1), t_min));
+  tf = fminf(tf, fmaxf(t0, t1));
+  tf = fminf(tf, far);
+  return tf > tn;
+}
+
+// Warp-wide "any lane enters box base+k" bits for k < cnt (cnt <= 24).
+__device__ __forceinline__ unsigned live_bits(const float* B, int n, int base, int cnt,
+                                              const Ray& r, const InvDir& inv, float t_min,
+                                              float far) {
+  unsigned m = 0u;
+  for (int k = 0; k < cnt; ++k)
+    if (slab(B, n, base + k, r, inv, t_min, far)) m |= 1u << k;
+  return __reduce_or_sync(FULL, m);
+}
+
+struct FrontSmem {
+  const float* sph; const float* ff; const int* fi; const float* wf; const float* sf;
+};
+
+// Stage 2 of _closest_hit_front for one live word: `repack` chunks, each
+// re-slab-tested against the per-lane best t so far, live subtrees scanned
+// in ascending order.
+__device__ __forceinline__ void front_word(const FrontSmem& T, const Params& p, int w,
+                                           const Ray& r, const InvDir& inv, Hit& h) {
+  const int per = WORD / p.repack;
+  for (int c = 0; c < p.repack; ++c) {
+    const int base = w * WORD + c * per;
+    unsigned m = live_bits(T.ff, p.n_front, base, per, r, inv, p.t_min, h.bt);
+    while (m) {
+      const int k = __ffs(m) - 1;
+      m &= m - 1u;
+      const int start = T.fi[base + k];
+      const int cnt = T.fi[p.n_front + base + k];
+#pragma unroll 8
+      for (int s = start; s < start + cnt; ++s) sphere_test(T.sph, p.n_cols, s, r, p.t_min, h);
+    }
+  }
+}
+
+__device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Params& p,
+                                                  const Ray& r, Hit& h) {
+  InvDir inv;
+  inv.x = 1.0f / (fabsf(r.dx) > 1e-20f ? r.dx : 1e-20f);
+  inv.y = 1.0f / (fabsf(r.dy) > 1e-20f ? r.dy : 1e-20f);
+  inv.z = 1.0f / (fabsf(r.dz) > 1e-20f ? r.dz : 1e-20f);
+  const float inf = __int_as_float(0x7f800000);
+  const int n_words = p.n_front / WORD;
+  const int n_super = (n_words + WORD - 1) / WORD;
+  if (n_words == 1) {  // one word: trivially live
+    front_word(T, p, 0, r, inv, h);
+  } else if (n_super == 1) {  // <= 576 subtrees: one word-box pack
+    unsigned wm = live_bits(T.wf, p.n_words_pad, 0, n_words, r, inv, p.t_min, inf);
+    while (wm) {
+      const int w = __ffs(wm) - 1;
+      wm &= wm - 1u;
+      front_word(T, p, w, r, inv, h);
+    }
+  } else {  // super-words of 24 words
+    unsigned sm = live_bits(T.sf, p.n_super, 0, n_super, r, inv, p.t_min, inf);
+    while (sm) {
+      const int sw = __ffs(sm) - 1;
+      sm &= sm - 1u;
+      unsigned wm = live_bits(T.wf, p.n_words_pad, sw * WORD, WORD, r, inv, p.t_min, inf);
+      while (wm) {
+        const int k = __ffs(wm) - 1;
+        wm &= wm - 1u;
+        front_word(T, p, sw * WORD + k, r, inv, h);
+      }
+    }
+  }
+}
+
+// ---- the bounce loop (K1) ----
+template <bool FRONT>
+__global__ void __launch_bounds__(TPB) trace_kernel(Params p) {
+  extern __shared__ float smem[];
+  FrontSmem T;
+  {
+    float* s_sph = smem;
+    float* s_ff = s_sph + N_ROWS * p.n_cols;
+    float* s_wf = s_ff + 8 * p.n_front;
+    float* s_sf = s_wf + 8 * p.n_words_pad;
+    int* s_fi = reinterpret_cast<int*>(s_sf + 8 * p.n_super);
+    for (int q = threadIdx.x; q < N_ROWS * p.n_cols; q += TPB) s_sph[q] = p.sph[q];
+    if (FRONT) {
+      for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
+      for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
+      for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
+      for (int q = threadIdx.x; q < 2 * p.n_front; q += TPB) s_fi[q] = p.fi[q];
+    }
+    T.sph = s_sph; T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
+  }
+  __syncthreads();
+
+  const int ray = blockIdx.x * TPB + threadIdx.x;  // the wrapper pads R to TPB
+  Ray r;
+  r.ox = p.origin[3 * ray + 0]; r.oy = p.origin[3 * ray + 1]; r.oz = p.origin[3 * ray + 2];
+  r.dx = p.direction[3 * ray + 0]; r.dy = p.direction[3 * ray + 1];
+  r.dz = p.direction[3 * ray + 2];
+  r.tm = p.time[ray];
+  float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
+  float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+  bool alive = true;
+  const float inf = __int_as_float(0x7f800000);
+
+  for (int dep = 0; dep < p.max_depth && __any_sync(FULL, alive); ++dep) {
+    r.a = fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f);
+    r.inv_a = 1.0f / r.a;
+
+    Hit h;  // _hit_init
+    h.bt = inf; h.hx = 0.0f; h.hy = 0.0f; h.hz = 0.0f; h.hrad = 1.0f; h.hmat = 0;
+    h.har = 0.0f; h.hag = 0.0f; h.hab = 0.0f; h.hfz = 0.0f; h.hio = 1.0f;
+    if (FRONT) closest_hit_front(T, p, r, h);
+    else closest_hit_brute(T.sph, p.n_cols, r, p.t_min, h);
+
+    const bool hit = h.bt < inf;
+    const float t_safe = hit ? h.bt : 1.0f;
+    const float px = r.ox + t_safe * r.dx;
+    const float py = r.oy + t_safe * r.dy;
+    const float pz = r.oz + t_safe * r.dz;
+    const float inv_r = 1.0f / (h.hrad != 0.0f ? h.hrad : 1.0f);
+    float nx = (px - h.hx) * inv_r;
+    float ny = (py - h.hy) * inv_r;
+    float nz = (pz - h.hz) * inv_r;
+    const float d_dot_n = r.dx * nx + r.dy * ny + r.dz * nz;
+    const bool front = d_dot_n < 0.0f;
+    const float sgn = front ? 1.0f : -1.0f;
+    nx = nx * sgn; ny = ny * sgn; nz = nz * sgn;
+
+    // sky on a miss (src/camera_cpu.h:23-25)
+    const float inv_len = 1.0f / sqrtf(fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f));
+    const float m = (alive && !hit) ? 1.0f : 0.0f;
+    const float sky_a = 0.5f * (r.dy * inv_len + 1.0f);
+    rad_r = rad_r + m * thr_r * (1.0f - sky_a + sky_a * 0.5f);
+    rad_g = rad_g + m * thr_g * (1.0f - sky_a + sky_a * 0.7f);
+    rad_b = rad_b + m * thr_b * (1.0f - sky_a + sky_a * 1.0f);
+
+    // scatter (src/material.h)
+    const float udx = r.dx * inv_len, udy = r.dy * inv_len, udz = r.dz * inv_len;
+    float u1 = 0.0f, u2 = 0.0f, u3 = 0.0f, u4 = 0.0f;
+    if (!p.zero_draws) {
+      uint32_t w[4];
+      bounce_bits(p.seed, (uint32_t)ray, (uint32_t)dep, w);
+      u1 = bits_to_uniform(w[0]); u2 = bits_to_uniform(w[1]);
+      u3 = bits_to_uniform(w[2]); u4 = bits_to_uniform(w[3]);
+    }
+    // lambertian: normal + unit vector (cylinder map)
+    const float z = 2.0f * u1 - 1.0f;
+    const float s = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+    const float th = 6.283185307179586f * u2;
+    const float uvx = s * cosf(th), uvy = s * sinf(th), uvz = z;
+    const float lam_x = nx + uvx, lam_y = ny + uvy, lam_z = nz + uvz;
+    // metal: reflect + fuzz * ball point (same unit vector, radius u^(1/3))
+    const float u_dot_n = udx * nx + udy * ny + udz * nz;
+    const float rfl_x = udx - 2.0f * u_dot_n * nx;
+    const float rfl_y = udy - 2.0f * u_dot_n * ny;
+    const float rfl_z = udz - 2.0f * u_dot_n * nz;
+    const float br = expf(logf(fmaxf(u3, 1e-30f)) * 0.3333333333333333f);
+    const float fx = uvx * br, fy = uvy * br, fz = uvz * br;
+    const float met_x = rfl_x + h.hfz * fx, met_y = rfl_y + h.hfz * fy;
+    const float met_z = rfl_z + h.hfz * fz;
+    const bool met_ok = (met_x * nx + met_y * ny + met_z * nz) > 0.0f;
+    // dielectric: refract or reflect with Schlick (src/material.h:55-71)
+    const float ratio = front ? 1.0f / h.hio : h.hio;
+    const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+    const float s2 = 1.0f - cos_t * cos_t;
+    const float sin_t = sqrtf(fmaxf(s2, 0.0f));
+    const bool cannot = ratio * sin_t > 1.0f;
+    float r0s = (1.0f - ratio) / (1.0f + ratio);
+    r0s = r0s * r0s;
+    const float one_m = 1.0f - cos_t;
+    const float schlick = r0s + (1.0f - r0s) * one_m * one_m * one_m * one_m * one_m;
+    const bool do_refl = cannot || (schlick > u4);
+    const float perp_x = ratio * (udx + cos_t * nx);
+    const float perp_y = ratio * (udy + cos_t * ny);
+    const float perp_z = ratio * (udz + cos_t * nz);
+    const float k = fabsf(1.0f - (perp_x * perp_x + perp_y * perp_y + perp_z * perp_z));
+    const float spar = -sqrtf(k);
+    const float die_x = do_refl ? rfl_x : perp_x + spar * nx;
+    const float die_y = do_refl ? rfl_y : perp_y + spar * ny;
+    const float die_z = do_refl ? rfl_z : perp_z + spar * nz;
+
+    const bool is_lam = h.hmat == 0, is_met = h.hmat == 1, is_die = h.hmat == 2;
+    const float sx = is_lam ? lam_x : (is_met ? met_x : die_x);
+    const float sy = is_lam ? lam_y : (is_met ? met_y : die_y);
+    const float sz = is_lam ? lam_z : (is_met ? met_z : die_z);
+    const bool scattered = !is_met || met_ok;
+
+    const bool hit_live = alive && hit;
+    if (hit_live) {
+      thr_r = thr_r * (is_die ? 1.0f : h.har);
+      thr_g = thr_g * (is_die ? 1.0f : h.hag);
+      thr_b = thr_b * (is_die ? 1.0f : h.hab);
+      r.ox = px; r.oy = py; r.oz = pz;
+      r.dx = sx; r.dy = sy; r.dz = sz;
+    }
+    alive = hit_live && scattered;
+    if (!alive) {  // park: every later slab and sphere test misses
+      r.ox = 1e18f; r.oy = 1e18f; r.oz = 1e18f;
+      r.dx = 1.0f; r.dy = 1.0f; r.dz = 1.0f;
+    }
+  }
+  p.out[3 * ray + 0] = rad_r;
+  p.out[3 * ray + 1] = rad_g;
+  p.out[3 * ray + 2] = rad_b;
+}
+
+__global__ void philox_kernel(uint32_t* out, int n, uint32_t seed, uint32_t bounce) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t w[4];
+  bounce_bits(seed, (uint32_t)i, bounce, w);
+  for (int q = 0; q < 4; ++q) out[4 * i + q] = w[q];
+}
+
+template <bool FRONT>
+int launch(const Params& p, int n_rays, cudaStream_t stream) {
+  if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * (size_t)N_ROWS * p.n_cols;
+  if (FRONT)
+    smem += sizeof(float) * (8 * (size_t)p.n_front + 8 * (size_t)p.n_words_pad +
+                             8 * (size_t)p.n_super + 2 * (size_t)p.n_front);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<FRONT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  trace_kernel<FRONT><<<n_rays / TPB, TPB, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+Params base_params(const float* origin, const float* direction, const float* time, float* out,
+                   const float* sph, int n_cols, unsigned seed, int max_depth, float t_min,
+                   int zero_draws) {
+  Params p{};
+  p.origin = origin; p.direction = direction; p.time = time; p.out = out;
+  p.sph = sph; p.n_cols = n_cols;
+  p.seed = seed; p.max_depth = max_depth; p.t_min = t_min; p.zero_draws = zero_draws;
+  p.repack = 1;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rtp_rays_per_block() { return TPB; }
+
+const char* rtp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// K1 + K2: brute closest hit over a [16, n_spheres] table.
+int rtp_trace_brute(const float* origin, const float* direction, const float* time, float* out,
+                    int n_rays, const float* sph, int n_spheres, unsigned seed, int max_depth,
+                    float t_min, int zero_draws, void* stream) {
+  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
+                         zero_draws);
+  return launch<false>(p, n_rays, (cudaStream_t)stream);
+}
+
+// K1 + K3: front-culled closest hit over the front tables.
+int rtp_trace_front(const float* origin, const float* direction, const float* time, float* out,
+                    int n_rays, const float* sph, int n_cols, const float* ff, const int* fi,
+                    int n_front, const float* wf, int n_words_pad, const float* sf,
+                    int n_super, int repack, unsigned seed, int max_depth, float t_min,
+                    int zero_draws, void* stream) {
+  if (n_front <= 0 || n_front % WORD != 0 || repack <= 0 || WORD % repack != 0)
+    return (int)cudaErrorInvalidValue;
+  Params p = base_params(origin, direction, time, out, sph, n_cols, seed, max_depth, t_min,
+                         zero_draws);
+  p.ff = ff; p.fi = fi; p.n_front = n_front;
+  p.wf = wf; p.n_words_pad = n_words_pad;
+  p.sf = sf; p.n_super = n_super;
+  p.repack = repack;
+  return launch<true>(p, n_rays, (cudaStream_t)stream);
+}
+
+// The generator alone: the four words of `bounce` for ray slots [0, n),
+// written as out[4*i + q]. Lets a check hold it against ops/rng.py.
+int rtp_philox(unsigned* out, int n, unsigned seed, int bounce, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  philox_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(out, n, seed,
+                                                                   (uint32_t)bounce);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,130 @@
+"""The port's BVH build, scene reorder, subtree front and front tables
+against the JAX package: equal arrays."""
+
+import numpy as np
+import pytest
+import torch
+
+from raytracingproject_tpu import bvh as jbvh, scene as jscene
+from raytracingproject_tpu.ops.pallas import megakernel as jmk
+
+from raytracingproject_tpu_torch import bvh as pbvh, scene as pscene
+from raytracingproject_tpu_torch.ops.cuda import megakernel as pmk
+
+EYE = (13.0, 2.0, 3.0)
+SCENES = {
+    "cover": (lambda m: m.make_cover_scene(seed=0), 8),
+    "three": (lambda m: m.make_three_sphere_scene(), 2),
+    "random150": (lambda m: m.make_random_scene(150, seed=3), 2),
+}
+
+
+def _pair(name):
+    make, leaf = SCENES[name]
+    return make(jscene), make(pscene), leaf
+
+
+def _assert_bvh_equal(jb, pb):
+    for f in jb._fields:
+        np.testing.assert_array_equal(getattr(pb, f).numpy(), np.asarray(getattr(jb, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_build_bvh_native_and_reorder_equal(name):
+    js, ps, leaf = _pair(name)
+    jb, pb = jbvh.build_bvh(js, leaf_size=leaf), pbvh.build_bvh(ps, leaf_size=leaf)
+    _assert_bvh_equal(jb, pb)
+    jr, pr = jbvh.reorder_scene(js, jb), pbvh.reorder_scene(ps, pb)
+    for f in jr._fields:
+        np.testing.assert_array_equal(getattr(pr, f).numpy(), np.asarray(getattr(jr, f)))
+
+
+def test_build_bvh_python_equal():
+    js, ps = jscene.make_random_scene(60, seed=2), pscene.make_random_scene(60, seed=2)
+    _assert_bvh_equal(jbvh._build_bvh_python(js, 3), pbvh._build_bvh_python(ps, 3))
+
+
+@pytest.mark.parametrize("kw", [
+    {"max_nodes": 24}, {"max_nodes": 48, "order_point": EYE}, {"max_nodes": 30, "max_count": 6},
+])
+def test_bvh_front_equal(kw):
+    js, ps, leaf = _pair("random150")
+    jf = jbvh.bvh_front(jbvh.build_bvh(js, leaf_size=leaf), **kw)
+    pf = pbvh.bvh_front(pbvh.build_bvh(ps, leaf_size=leaf), **kw)
+    for f in jf._fields:
+        np.testing.assert_array_equal(getattr(pf, f), getattr(jf, f), err_msg=f)
+
+
+def _front_pair(name, smem_budget=pmk.SMEM_BUDGET_BYTES, **kw):
+    js, ps, leaf = _pair(name)
+    jb, pb = jbvh.build_bvh(js, leaf_size=leaf), pbvh.build_bvh(ps, leaf_size=leaf)
+    jt = jmk.front_tables(jbvh.reorder_scene(js, jb), jb, **kw)
+    pt = pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, smem_budget=smem_budget, **kw)
+    for f in ("sph", "ff", "fi", "wf", "sf", "remap"):
+        np.testing.assert_array_equal(getattr(pt, f).numpy(), np.asarray(getattr(jt, f)),
+                                      err_msg=f)
+    assert pt.repack == jt.repack
+    return pt
+
+
+@pytest.mark.parametrize("repack", [1, 2])
+def test_front_tables_cover_equal(repack):
+    pt = _front_pair("cover", order_point=EYE, repack=repack)
+    assert pt.ff.shape == (8, 24) and pt.sph.shape == (16, 568)
+
+
+def test_front_tables_two_words_equal():
+    pt = _front_pair("random150", max_nodes=48, order_point=EYE)
+    assert pt.wf.shape == (8, 2)
+
+
+def test_front_tables_super_words_equal():
+    """More than 576 subtrees: word boxes padded to a 24 multiple and
+    super-word boxes. Tables only: such a front exceeds the kernel's shared
+    memory, which front_tables reports."""
+    js = jscene.make_random_scene(1300, seed=4)
+    ps = pscene.make_random_scene(1300, seed=4)
+    jb, pb = jbvh.build_bvh(js, leaf_size=2), pbvh.build_bvh(ps, leaf_size=2)
+    jt = jmk.front_tables(jbvh.reorder_scene(js, jb), jb, max_nodes=600)
+    pt = pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, max_nodes=600, smem_budget=None)
+    for f in ("sph", "ff", "fi", "wf", "sf", "remap"):
+        np.testing.assert_array_equal(getattr(pt, f).numpy(), np.asarray(getattr(jt, f)),
+                                      err_msg=f)
+    assert pt.ff.shape[1] == 600 and pt.wf.shape[1] == 48 and pt.sf.shape[1] == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, max_nodes=600)
+
+
+def test_front_tables_unported_options_raise():
+    _, ps, leaf = _pair("three")
+    pb = pbvh.build_bvh(ps, leaf_size=leaf)
+    for kw in ({"sub_block": True}, {"word_earlyout": True}):
+        with pytest.raises(NotImplementedError):
+            pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, **kw)
+    with pytest.raises(ValueError):
+        pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, repack=5)
+
+
+def test_default_front_nodes_equal():
+    for n in (4, 150, 487, 5000, 10**6):
+        assert pmk.default_front_nodes(n) == jmk.default_front_nodes(n)
+
+
+def test_super_word_front_twin_matches_brute_twin():
+    """The plain front closest hit on a three-level front gives the brute
+    scan's radiance (zero draws, so only culling can differ)."""
+    ps = pscene.make_random_scene(1300, seed=4)
+    pb = pbvh.build_bvh(ps, leaf_size=2)
+    rs = pbvh.reorder_scene(ps, pb)
+    pt = pmk.front_tables(rs, pb, max_nodes=600, order_point=EYE, smem_budget=None)
+    g = torch.Generator().manual_seed(0)
+    n = 512
+    o = torch.tensor(EYE).expand(n, 3).contiguous()
+    target = torch.rand((n, 3), generator=g) * torch.tensor([20.0, 0.5, 20.0]) - \
+        torch.tensor([10.0, 0.0, 10.0])
+    d = (target - o).contiguous()
+    t = torch.rand(n, generator=g)
+    brute = pmk.trace_paths(o, d, t, rs, 3, 4, zero_draws=True)
+    front = pmk.trace_paths(o, d, t, rs, 3, 4, front=pt, zero_draws=True)
+    torch.testing.assert_close(front, brute, rtol=0, atol=0)

@@ -1,0 +1,96 @@
+"""The port's CUDA kernels on the card, held against their plain PyTorch
+versions. Every test here needs an NVIDIA card: it carries the `cuda`
+marker and skips when torch.cuda.is_available() is false. This file
+imports no jax, so it also runs where only PyTorch is installed:
+
+    RTP_BACKEND=cuda python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import pytest
+import torch
+
+from raytracingproject_tpu_torch.camera import Camera
+from raytracingproject_tpu_torch.config import RenderSettings
+from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+from raytracingproject_tpu_torch.ops.rng import bounce_bits
+from raytracingproject_tpu_torch.render import _slot_rays, prepare_scene, render_image
+from raytracingproject_tpu_torch.scene import make_cover_scene
+
+pytestmark = pytest.mark.cuda
+
+COVER = dict(aspect_ratio=16.0 / 9.0, image_width=160, samples_per_pixel=1, max_depth=16,
+             vfov=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
+             defocus_angle=0.6, focus_dist=10.0)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _cover_rays(device):
+    camera = Camera(**COVER)
+    settings = RenderSettings(device=device)
+    scene, front = prepare_scene(make_cover_scene(0), camera, settings)
+    w, h = camera.image_size()
+    gen = torch.Generator(device=device).manual_seed(5)
+    rays = _slot_rays(camera.derive(torch.float32, device), w, h, 1, gen, None)
+    return scene, front, rays
+
+
+@pytest.mark.parametrize("path", ["brute", "front"])
+@pytest.mark.parametrize("zero_draws", [True, False])
+def test_kernel_matches_twin(cuda_device, path, zero_draws):
+    """At least 99.9% of rays within 1e-3 and a mean difference below 1e-5
+    (built without FMA contraction, the two should agree exactly except
+    on ties)."""
+    scene, front, (o, d, t) = _cover_rays(cuda_device)
+    f = front if path == "front" else None
+    before = mk.LAUNCHES[path]
+    k = mk.trace_paths(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[path] == before + 1
+    p = mk.trace_paths_twin(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
+    diff = torch.abs(k - p)
+    assert torch.isfinite(k).all()
+    assert (diff <= 1e-3).all(dim=1).double().mean().item() >= 0.999
+    assert diff.mean().item() < 1e-5
+
+
+def test_front_kernel_matches_brute_kernel(cuda_device):
+    scene, front, (o, d, t) = _cover_rays(cuda_device)
+    b = mk.trace_paths(o, d, t, scene, 17, 16)
+    f = mk.trace_paths(o, d, t, scene, 17, 16, front=front)
+    differ = (torch.abs(b - f) > 1e-3).any(dim=1).double().mean().item()
+    assert differ <= 1e-3
+
+
+def test_philox_kernel_matches_spec(cuda_device):
+    n = 4096
+    for bounce in (0, 1, 49):
+        got = mk.philox_bits(n, 77, bounce, cuda_device).cpu()
+        want = torch.stack(bounce_bits(77, torch.arange(n, dtype=torch.int64), bounce), dim=1)
+        assert torch.equal(got, want)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    scene, front, (o, d, t) = _cover_rays(cuda_device)
+    with pytest.raises(ValueError):
+        mk.trace_paths(o.double(), d, t, scene, 1, 4)
+    with pytest.raises(ValueError):
+        mk.trace_paths(o, d[:, :2], t, scene, 1, 4)
+    with pytest.raises(ValueError):
+        mk.trace_paths(o, d, t, scene, 1, 4, front=front.to("cpu"))
+
+
+def test_render_image_goes_through_the_kernels(cuda_device):
+    camera = Camera(**dict(COVER, samples_per_pixel=2, max_depth=8))
+    mk.reset_launches()
+    img = render_image(make_cover_scene(0), camera, settings=RenderSettings(device="cuda"))
+    img_b = render_image(make_cover_scene(0), camera,
+                         settings=RenderSettings(device="cuda", use_bvh=False))
+    assert mk.LAUNCHES["front"] > 0 and mk.LAUNCHES["brute"] > 0
+    assert img.shape == (90, 160, 3) and img.dtype == torch.uint8
+    assert abs(img.float().mean().item() - img_b.float().mean().item()) < 1.0
