@@ -6,10 +6,12 @@ every Pallas kernel of the ported paths is hand-written CUDA for Hopper
 (`csrc/`), with a plain PyTorch version beside it that runs on the CPU.
 This package never imports jax.
 
-So far the forward megakernel path runs end to end: scenes, camera, BVH
-and front tables, the megakernel (bounce loop with brute or front-culled
-closest hit), `render`, `render_image` and the CLI
-(`python -m raytracingproject_tpu_torch`).
+So far two paths run end to end. Serving: scenes, camera, BVH and front
+tables, the megakernel (bounce loop with brute or front-culled closest
+hit), `render`, `render_image` and the CLI
+(`python -m raytracingproject_tpu_torch`). Training: the fast
+inverse-rendering step (`grad.fast.make_fast_train_step`), with the
+recording megakernel forward and the path-replay backward.
 """
 
 from raytracingproject_tpu_torch.camera import Camera

@@ -1,8 +1,11 @@
 """The JAX package's state carried across, as numpy arrays.
 
-Takes the arrays of a JAX `Scene`, `FlatBVH` or `FrontTables` (fetched by
-the caller with `np.asarray`) and builds the port's objects on a given
-device, so both packages can compute on the same data. Never imports jax.
+Takes the arrays of a JAX `Scene`, `FlatBVH`, `FrontTables`, `SceneParams`
+or `PathResiduals` (fetched by the caller with `np.asarray`) and builds the
+port's objects on a given device, so both packages can compute on the same
+data: the same scene and culling tables for the forward, the same
+parameters and recorded path decisions for the replay backward. Never
+imports jax.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ import numpy as np
 import torch
 
 from raytracingproject_tpu_torch.bvh import FlatBVH
+from raytracingproject_tpu_torch.grad.inverse import SceneParams
+from raytracingproject_tpu_torch.grad.replay import PathResiduals
 from raytracingproject_tpu_torch.ops.cuda.megakernel import FrontTables
 from raytracingproject_tpu_torch.scene import Scene
 
@@ -49,3 +54,18 @@ def front_from_arrays(sph, ff, fi, wf, sf, remap, repack: int, device="cpu") -> 
         wf=_t(wf, f, device), sf=_t(sf, f, device), remap=_t(remap, i, device),
         repack=int(repack),
     )
+
+
+def params_from_arrays(center0, center_delta, radius, albedo, fuzz, ior, device="cpu",
+                       dtype=torch.float32) -> SceneParams:
+    """SceneParams from the six arrays of a JAX SceneParams (in field
+    order)."""
+    return SceneParams(*(_t(x, dtype, device)
+                         for x in (center0, center_delta, radius, albedo, fuzz, ior)))
+
+
+def residuals_from_arrays(idx, ndir, refl, device="cpu") -> PathResiduals:
+    """PathResiduals from the three arrays of a JAX PathResiduals: idx
+    [D, R] int32, ndir [D, R, 3] float32, refl [D, R] bool."""
+    return PathResiduals(idx=_t(idx, torch.int32, device), ndir=_t(ndir, torch.float32, device),
+                         refl=_t(refl, torch.bool, device))

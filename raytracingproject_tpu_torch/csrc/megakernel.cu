@@ -39,6 +39,29 @@
 //   division and no contracted FMAs, so the kernel reproduces its plain
 //   PyTorch version on the card ray for ray. A later PR can trade that
 //   parity for speed.
+//
+// K5, the recording kernel (trace_kernel<FRONT, true>), replaces
+// pallas_trace_record (megakernel.py:1511, pallas_call at 1637; brute core
+// 1599, front core 1568): the same bounce loop, which also stores each
+// bounce's path decisions for the path-replay backward (grad/replay.py).
+// - What bounds it on an H100, beyond K1's limits: the residual stores,
+//   17 B per ray per bounce (idx int32, three direction floats, a refl
+//   byte), written for every bounce up to max_depth: a depth-50 train step
+//   of 180,000 rays writes 153 MB, against 40 B of ray traffic per ray.
+// - What the design does: planes are ray-minor ([max_depth, n_rays]), so
+//   the 32 lanes of a warp store one bounce's values to 32 neighbouring
+//   addresses (one coalesced transaction per plane); the winner is its own
+//   int register, set beside the material in both closest hits (the TPU's
+//   f32 `mat + 4*idx` fold avoided a vector spill there and is not needed
+//   here); idx, direction and refl bit are stored apart, not packed into
+//   one float, so the wrapper decodes nothing but the front's column
+//   remap; rows after a warp's last live bounce are filled DEAD in one
+//   tight loop after the bounce loop.
+// - RECORD=false compiles to the same forward kernels as before K5 was
+//   added, instruction for instruction: the residual pointers and the
+//   winner live in their own types (RecordParams, RecordHit), because
+//   growing Params or Hit alone changed the forward kernels' register
+//   allocation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +72,8 @@ constexpr int TPB = 256;  // rays per block (ops/cuda/megakernel.py TILE)
 constexpr int N_ROWS = 16;
 constexpr int WORD = 24;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MISS = -1;  // residual idx of a live miss (grad/replay.py)
+constexpr int DEAD = -2;  // residual idx of a ray already terminated
 
 enum {
   ROW_CX, ROW_CY, ROW_CZ, ROW_MX, ROW_MY, ROW_MZ, ROW_RAD, ROW_MAT,
@@ -71,6 +96,20 @@ struct Params {
   float t_min;
   int zero_draws;
 };
+
+// K5's parameters: K1's and the residual planes, [max_depth, n_rays] each
+// (ray-minor, so a warp's stores of one bounce coalesce). A separate type,
+// so that the forward kernels keep their parameter block and code.
+struct RecordParams : Params {
+  int* res_idx;
+  float* res_ndx;
+  float* res_ndy;
+  float* res_ndz;
+  uint8_t* res_refl;
+};
+
+template <bool RECORD> struct KernelParams { using type = Params; };
+template <> struct KernelParams<true> { using type = RecordParams; };
 
 // ---- random numbers: Philox-4x32-10 (ops/rng.py) ----
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -100,14 +139,24 @@ struct Hit {
   int hmat;
 };
 
+// The recording kernel's hit also carries the winner column.
+struct RecordHit : Hit {
+  int hidx;
+};
+
+template <bool RECORD> struct HitOf { using type = Hit; };
+template <> struct HitOf<true> { using type = RecordHit; };
+
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tm, a, inv_a;
 };
 
 // _sphere_test_ld: exact reference quadratic (src/sphere.h:30-57), open
 // interval (t_min, best_t), moving-sphere centre lerp.
+template <bool RECORD>
 __device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, int s,
-                                            const Ray& r, float t_min, Hit& h) {
+                                            const Ray& r, float t_min,
+                                            typename HitOf<RECORD>::type& h) {
   const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
   const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
   const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
@@ -127,16 +176,18 @@ __device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, 
     h.hx = ccx; h.hy = ccy; h.hz = ccz;
     h.hrad = rad;
     h.hmat = (int)S[ROW_MAT * n + s];
+    if constexpr (RECORD) h.hidx = s;
     h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
     h.hfz = S[ROW_FUZZ * n + s];
     h.hio = S[ROW_IOR * n + s];
   }
 }
 
+template <bool RECORD>
 __device__ __forceinline__ void closest_hit_brute(const float* S, int n, const Ray& r,
-                                                  float t_min, Hit& h) {
+                                                  float t_min, typename HitOf<RECORD>::type& h) {
 #pragma unroll 8
-  for (int s = 0; s < n; ++s) sphere_test(S, n, s, r, t_min, h);
+  for (int s = 0; s < n; ++s) sphere_test<RECORD>(S, n, s, r, t_min, h);
 }
 
 struct InvDir { float x, y, z; };
@@ -178,8 +229,10 @@ struct FrontSmem {
 // Stage 2 of _closest_hit_front for one live word: `repack` chunks, each
 // re-slab-tested against the per-lane best t so far, live subtrees scanned
 // in ascending order.
+template <bool RECORD>
 __device__ __forceinline__ void front_word(const FrontSmem& T, const Params& p, int w,
-                                           const Ray& r, const InvDir& inv, Hit& h) {
+                                           const Ray& r, const InvDir& inv,
+                                           typename HitOf<RECORD>::type& h) {
   const int per = WORD / p.repack;
   for (int c = 0; c < p.repack; ++c) {
     const int base = w * WORD + c * per;
@@ -190,13 +243,16 @@ __device__ __forceinline__ void front_word(const FrontSmem& T, const Params& p, 
       const int start = T.fi[base + k];
       const int cnt = T.fi[p.n_front + base + k];
 #pragma unroll 8
-      for (int s = start; s < start + cnt; ++s) sphere_test(T.sph, p.n_cols, s, r, p.t_min, h);
+      for (int s = start; s < start + cnt; ++s)
+        sphere_test<RECORD>(T.sph, p.n_cols, s, r, p.t_min, h);
     }
   }
 }
 
+template <bool RECORD>
 __device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Params& p,
-                                                  const Ray& r, Hit& h) {
+                                                  const Ray& r,
+                                                  typename HitOf<RECORD>::type& h) {
   InvDir inv;
   inv.x = 1.0f / (fabsf(r.dx) > 1e-20f ? r.dx : 1e-20f);
   inv.y = 1.0f / (fabsf(r.dy) > 1e-20f ? r.dy : 1e-20f);
@@ -205,13 +261,13 @@ __device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Para
   const int n_words = p.n_front / WORD;
   const int n_super = (n_words + WORD - 1) / WORD;
   if (n_words == 1) {  // one word: trivially live
-    front_word(T, p, 0, r, inv, h);
+    front_word<RECORD>(T, p, 0, r, inv, h);
   } else if (n_super == 1) {  // <= 576 subtrees: one word-box pack
     unsigned wm = live_bits(T.wf, p.n_words_pad, 0, n_words, r, inv, p.t_min, inf);
     while (wm) {
       const int w = __ffs(wm) - 1;
       wm &= wm - 1u;
-      front_word(T, p, w, r, inv, h);
+      front_word<RECORD>(T, p, w, r, inv, h);
     }
   } else {  // super-words of 24 words
     unsigned sm = live_bits(T.sf, p.n_super, 0, n_super, r, inv, p.t_min, inf);
@@ -222,15 +278,15 @@ __device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Para
       while (wm) {
         const int k = __ffs(wm) - 1;
         wm &= wm - 1u;
-        front_word(T, p, sw * WORD + k, r, inv, h);
+        front_word<RECORD>(T, p, sw * WORD + k, r, inv, h);
       }
     }
   }
 }
 
-// ---- the bounce loop (K1) ----
-template <bool FRONT>
-__global__ void __launch_bounds__(TPB) trace_kernel(Params p) {
+// ---- the bounce loop (K1; K5 with RECORD) ----
+template <bool FRONT, bool RECORD>
+__global__ void __launch_bounds__(TPB) trace_kernel(typename KernelParams<RECORD>::type p) {
   extern __shared__ float smem[];
   FrontSmem T;
   {
@@ -261,15 +317,18 @@ __global__ void __launch_bounds__(TPB) trace_kernel(Params p) {
   bool alive = true;
   const float inf = __int_as_float(0x7f800000);
 
+  int dep_end = 0;  // K5: bounces this warp ran; the DEAD fill starts here
   for (int dep = 0; dep < p.max_depth && __any_sync(FULL, alive); ++dep) {
+    if constexpr (RECORD) dep_end = dep + 1;
     r.a = fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f);
     r.inv_a = 1.0f / r.a;
 
-    Hit h;  // _hit_init
+    typename HitOf<RECORD>::type h;  // _hit_init
     h.bt = inf; h.hx = 0.0f; h.hy = 0.0f; h.hz = 0.0f; h.hrad = 1.0f; h.hmat = 0;
     h.har = 0.0f; h.hag = 0.0f; h.hab = 0.0f; h.hfz = 0.0f; h.hio = 1.0f;
-    if (FRONT) closest_hit_front(T, p, r, h);
-    else closest_hit_brute(T.sph, p.n_cols, r, p.t_min, h);
+    if constexpr (RECORD) h.hidx = 0;
+    if (FRONT) closest_hit_front<RECORD>(T, p, r, h);
+    else closest_hit_brute<RECORD>(T.sph, p.n_cols, r, p.t_min, h);
 
     const bool hit = h.bt < inf;
     const float t_safe = hit ? h.bt : 1.0f;
@@ -345,6 +404,14 @@ __global__ void __launch_bounds__(TPB) trace_kernel(Params p) {
     const bool scattered = !is_met || met_ok;
 
     const bool hit_live = alive && hit;
+    if constexpr (RECORD) {  // megakernel.py:732-742; absorbed metal rays included
+      const size_t q = (size_t)dep * gridDim.x * TPB + ray;
+      p.res_idx[q] = hit_live ? h.hidx : (alive ? MISS : DEAD);
+      p.res_ndx[q] = hit_live ? sx : 0.0f;
+      p.res_ndy[q] = hit_live ? sy : 0.0f;
+      p.res_ndz[q] = hit_live ? sz : 0.0f;
+      p.res_refl[q] = (hit_live && is_die && do_refl) ? 1 : 0;
+    }
     if (hit_live) {
       thr_r = thr_r * (is_die ? 1.0f : h.har);
       thr_g = thr_g * (is_die ? 1.0f : h.hag);
@@ -356,6 +423,16 @@ __global__ void __launch_bounds__(TPB) trace_kernel(Params p) {
     if (!alive) {  // park: every later slab and sphere test misses
       r.ox = 1e18f; r.oy = 1e18f; r.oz = 1e18f;
       r.dx = 1.0f; r.dy = 1.0f; r.dz = 1.0f;
+    }
+  }
+  if constexpr (RECORD) {  // bounces after the warp's last live one (megakernel.py:796-806)
+    for (int dep = dep_end; dep < p.max_depth; ++dep) {
+      const size_t q = (size_t)dep * gridDim.x * TPB + ray;
+      p.res_idx[q] = DEAD;
+      p.res_ndx[q] = 0.0f;
+      p.res_ndy[q] = 0.0f;
+      p.res_ndz[q] = 0.0f;
+      p.res_refl[q] = 0;
     }
   }
   p.out[3 * ray + 0] = rad_r;
@@ -371,20 +448,24 @@ __global__ void philox_kernel(uint32_t* out, int n, uint32_t seed, uint32_t boun
   for (int q = 0; q < 4; ++q) out[4 * i + q] = w[q];
 }
 
-template <bool FRONT>
-int launch(const Params& p, int n_rays, cudaStream_t stream) {
+template <bool FRONT, bool RECORD>
+int launch(const typename KernelParams<RECORD>::type& p, int n_rays, cudaStream_t stream) {
   if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
+  if constexpr (RECORD) {
+    if (p.max_depth > 0 && !(p.res_idx && p.res_ndx && p.res_ndy && p.res_ndz && p.res_refl))
+      return (int)cudaErrorInvalidValue;
+  }
   size_t smem = sizeof(float) * (size_t)N_ROWS * p.n_cols;
   if (FRONT)
     smem += sizeof(float) * (8 * (size_t)p.n_front + 8 * (size_t)p.n_words_pad +
                              8 * (size_t)p.n_super + 2 * (size_t)p.n_front);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<FRONT>,
+    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<FRONT, RECORD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  trace_kernel<FRONT><<<n_rays / TPB, TPB, smem, stream>>>(p);
+  trace_kernel<FRONT, RECORD><<<n_rays / TPB, TPB, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -396,6 +477,26 @@ Params base_params(const float* origin, const float* direction, const float* tim
   p.sph = sph; p.n_cols = n_cols;
   p.seed = seed; p.max_depth = max_depth; p.t_min = t_min; p.zero_draws = zero_draws;
   p.repack = 1;
+  return p;
+}
+
+bool front_ok(int n_front, int repack) {
+  return n_front > 0 && n_front % WORD == 0 && repack > 0 && WORD % repack == 0;
+}
+
+void set_front(Params& p, const float* ff, const int* fi, int n_front, const float* wf,
+               int n_words_pad, const float* sf, int n_super, int repack) {
+  p.ff = ff; p.fi = fi; p.n_front = n_front;
+  p.wf = wf; p.n_words_pad = n_words_pad;
+  p.sf = sf; p.n_super = n_super;
+  p.repack = repack;
+}
+
+RecordParams record_params(const Params& base, int* idx, float* ndx, float* ndy, float* ndz,
+                           unsigned char* refl) {
+  RecordParams p;
+  static_cast<Params&>(p) = base;
+  p.res_idx = idx; p.res_ndx = ndx; p.res_ndy = ndy; p.res_ndz = ndz; p.res_refl = refl;
   return p;
 }
 
@@ -413,7 +514,7 @@ int rtp_trace_brute(const float* origin, const float* direction, const float* ti
                     float t_min, int zero_draws, void* stream) {
   Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
                          zero_draws);
-  return launch<false>(p, n_rays, (cudaStream_t)stream);
+  return launch<false, false>(p, n_rays, (cudaStream_t)stream);
 }
 
 // K1 + K3: front-culled closest hit over the front tables.
@@ -422,15 +523,40 @@ int rtp_trace_front(const float* origin, const float* direction, const float* ti
                     int n_front, const float* wf, int n_words_pad, const float* sf,
                     int n_super, int repack, unsigned seed, int max_depth, float t_min,
                     int zero_draws, void* stream) {
-  if (n_front <= 0 || n_front % WORD != 0 || repack <= 0 || WORD % repack != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!front_ok(n_front, repack)) return (int)cudaErrorInvalidValue;
   Params p = base_params(origin, direction, time, out, sph, n_cols, seed, max_depth, t_min,
                          zero_draws);
-  p.ff = ff; p.fi = fi; p.n_front = n_front;
-  p.wf = wf; p.n_words_pad = n_words_pad;
-  p.sf = sf; p.n_super = n_super;
-  p.repack = repack;
-  return launch<true>(p, n_rays, (cudaStream_t)stream);
+  set_front(p, ff, fi, n_front, wf, n_words_pad, sf, n_super, repack);
+  return launch<true, false>(p, n_rays, (cudaStream_t)stream);
+}
+
+// K5 (brute): K1 + K2 recording the residual planes, each [max_depth,
+// n_rays]: idx (winner column / MISS / DEAD), ndx/ndy/ndz (scattered
+// direction of a live hit, else 0), refl (dielectric reflect branch).
+int rtp_record_brute(const float* origin, const float* direction, const float* time,
+                     float* out, int n_rays, const float* sph, int n_spheres, unsigned seed,
+                     int max_depth, float t_min, int zero_draws, int* res_idx, float* res_ndx,
+                     float* res_ndy, float* res_ndz, unsigned char* res_refl, void* stream) {
+  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
+                         zero_draws);
+  return launch<false, true>(record_params(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl),
+                             n_rays, (cudaStream_t)stream);
+}
+
+// K5 (front): K1 + K3 recording the same planes; idx holds columns of the
+// front's padded table (the wrapper maps them through front.remap).
+int rtp_record_front(const float* origin, const float* direction, const float* time,
+                     float* out, int n_rays, const float* sph, int n_cols, const float* ff,
+                     const int* fi, int n_front, const float* wf, int n_words_pad,
+                     const float* sf, int n_super, int repack, unsigned seed, int max_depth,
+                     float t_min, int zero_draws, int* res_idx, float* res_ndx, float* res_ndy,
+                     float* res_ndz, unsigned char* res_refl, void* stream) {
+  if (!front_ok(n_front, repack)) return (int)cudaErrorInvalidValue;
+  Params p = base_params(origin, direction, time, out, sph, n_cols, seed, max_depth, t_min,
+                         zero_draws);
+  set_front(p, ff, fi, n_front, wf, n_words_pad, sf, n_super, repack);
+  return launch<true, true>(record_params(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl),
+                            n_rays, (cudaStream_t)stream);
 }
 
 // The generator alone: the four words of `bounce` for ray slots [0, n),

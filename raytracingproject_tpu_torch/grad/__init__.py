@@ -1,0 +1,39 @@
+"""Differentiable rendering: parameter packing, path replay and the fast
+inverse-rendering train step (counterpart of raytracingproject_tpu/grad).
+
+The state a train step carries is `SceneParams` (the six differentiable
+scene fields) and, between the forward and the backward, `PathResiduals`
+(the recorded path decisions). `render_loss` and `make_train_step` differ-
+entiate the XLA-style renderer and raise until it is ported (ROADMAP P2).
+"""
+
+from raytracingproject_tpu_torch.grad.fast import (
+    GEOMETRY_FIELDS,
+    make_fast_radiance,
+    make_fast_train_step,
+)
+from raytracingproject_tpu_torch.grad.inverse import (
+    SceneParams,
+    apply_params,
+    extract_params,
+    make_train_step,
+    render_loss,
+    trainable_mask,
+)
+from raytracingproject_tpu_torch.grad.replay import DEAD, MISS, PathResiduals, replay_radiance
+
+__all__ = [
+    "SceneParams",
+    "extract_params",
+    "apply_params",
+    "render_loss",
+    "make_train_step",
+    "trainable_mask",
+    "PathResiduals",
+    "MISS",
+    "DEAD",
+    "replay_radiance",
+    "GEOMETRY_FIELDS",
+    "make_fast_radiance",
+    "make_fast_train_step",
+]

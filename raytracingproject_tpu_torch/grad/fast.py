@@ -1,0 +1,220 @@
+"""Fast differentiable rendering: the recording megakernel forward and the
+path-replay backward (counterpart of raytracingproject_tpu/grad/fast.py).
+
+  forward  - the megakernel with in-kernel residual recording
+             (ops/cuda/megakernel.py `trace_record`, K5 on the card);
+  backward - PyTorch autograd through the O(depth)-per-ray path replay
+             (grad/replay.py), which never re-intersects the scene.
+
+Gradients flow to SceneParams only; rays and the seed get none (camera
+parameters are not trained, as in the JAX package).
+
+A front (FrontTables) is built over fixed geometry: its culling boxes go
+stale when centres or radii move, so a front with trainable geometry is
+refused. Materials are read afresh on every forward (`front_with_params`),
+so a materials-only step with a front renders with the current albedo,
+fuzz and ior. (The JAX package's front forward reads the table copied at
+build time instead.)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from raytracingproject_tpu_torch.camera import camera_uniforms, rays_from_uniforms
+from raytracingproject_tpu_torch.grad.inverse import (
+    SceneParams, apply_params, extract_params, trainable_mask,
+)
+from raytracingproject_tpu_torch.grad.replay import check_gather, replay_radiance
+from raytracingproject_tpu_torch.ops.cuda.megakernel import (
+    FrontTables, front_with_params, trace_record,
+)
+from raytracingproject_tpu_torch.scene import Scene
+
+GEOMETRY_FIELDS = ("center0", "center_delta", "radius")
+
+
+class _Config(NamedTuple):
+    scene: Scene
+    max_depth: int
+    front: FrontTables | None
+    replay_groups: int
+    replay_skip_dead: bool | None
+    zero_draws: bool
+    tracer: Callable
+
+
+class _FastRadiance(torch.autograd.Function):
+    """forward = trace_record, backward = autograd through replay_radiance
+    on the recorded residuals (the custom VJP of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, cfg: _Config, origin, direction, time, seed: int, *leaves):
+        scene = apply_params(cfg.scene, SceneParams(*leaves))
+        front = None if cfg.front is None else front_with_params(cfg.front, scene)
+        rad, res = cfg.tracer(origin, direction, time, scene, seed, cfg.max_depth,
+                              front=front, zero_draws=cfg.zero_draws)
+        ctx.save_for_backward(origin, direction, time, *leaves)
+        ctx.cfg = cfg
+        ctx.res = res
+        return rad
+
+    @staticmethod
+    def backward(ctx, g):
+        origin, direction, time, *leaves = ctx.saved_tensors
+        cfg = ctx.cfg
+        needs = ctx.needs_input_grad[5:]
+        grads = [None] * len(leaves)
+        if any(needs):
+            with torch.enable_grad():
+                params = SceneParams(*(x.detach().requires_grad_(n)
+                                       for x, n in zip(leaves, needs)))
+                rad = replay_radiance(params, cfg.scene, origin, direction, time, ctx.res,
+                                      n_groups=cfg.replay_groups,
+                                      skip_dead=cfg.replay_skip_dead)
+                wanted = [k for k, n in enumerate(needs) if n]
+                # a replay that reaches no parameter (every path misses at
+                # once) has no graph: its gradient is zero
+                got = (torch.autograd.grad(rad, [params[k] for k in wanted], g,
+                                           allow_unused=True)
+                       if rad.requires_grad else [None] * len(wanted))
+            for k, gk in zip(wanted, got):
+                grads[k] = torch.zeros_like(leaves[k]) if gk is None else gk
+        return (None, None, None, None, None, *grads)
+
+
+def make_fast_radiance(scene: Scene, max_depth: int, front: FrontTables | None = None,
+                       replay_groups: int = 1, replay_skip_dead: bool | None = None,
+                       zero_draws: bool = False, tracer: Callable = trace_record):
+    """radiance_fn(params, origin, direction, time, seed) -> [R, 3], with
+    the recording-megakernel forward and the replay backward.
+
+    `scene` supplies the non-differentiable topology (mat_type, sphere
+    order); with `front` it must already be in BVH leaf order
+    (bvh.reorder_scene) and `params` in the same order. `seed` is a plain
+    int (the Philox key). `zero_draws` makes every draw 0.0, the TPU
+    interpreter's PRNG. `replay_groups` and `replay_skip_dead` are
+    replay_radiance's `n_groups` and `skip_dead`. `tracer` is the recording
+    forward (the kernel wrapper; a check may pass its plain version,
+    `trace_record_twin`, to hold the kernel against it on the card)."""
+    cfg = _Config(scene, max_depth, front, replay_groups, replay_skip_dead, zero_draws, tracer)
+
+    def radiance_fn(params: SceneParams, origin, direction, time, seed: int):
+        return _FastRadiance.apply(cfg, origin, direction, time, int(seed), *params)
+
+    return radiance_fn
+
+
+def _optimizer_params(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def apply_updates(optimizer: torch.optim.Optimizer, params: SceneParams, grads: SceneParams,
+                  mask: SceneParams) -> None:
+    """One optimizer step on the trainable fields of `params`, in place;
+    frozen fields are not touched (optax's `set_to_zero` in the JAX
+    package). `optimizer` must have been built over exactly those
+    tensors."""
+    trained = [getattr(params, f) for f in SceneParams._fields if getattr(mask, f)]
+    held = _optimizer_params(optimizer)
+    if len(held) != len(trained) or any(a is not b for a, b in zip(held, trained)):
+        raise ValueError("params are not the tensors the optimizer holds: pass the "
+                         "SceneParams returned by make_fast_train_step or by the last step "
+                         "(the optimizer updates them in place)")
+    for f in SceneParams._fields:
+        if getattr(mask, f):
+            getattr(params, f).grad = getattr(grads, f)
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+
+
+def make_fast_train_step(
+    scene: Scene,
+    camera,
+    optimizer=None,
+    *,
+    spp: int = 8,
+    learning_rate: float = 2e-2,
+    trainable: tuple[str, ...] | None = None,
+    front: FrontTables | None = None,
+    bvh=None,
+    replay_groups: int = 1,
+    replay_skip_dead: bool | None = None,
+    replay_gather: str | None = None,
+    two_phase: int | None = None,
+    device=None,
+    generator: torch.Generator | None = None,
+):
+    """Inverse-rendering train step on the fast path (make_fast_train_step
+    of the JAX package).
+
+    `front` (FrontTables over `scene`, which must be in BVH leaf order)
+    runs the front-culled closest hit in the recording forward: the fast
+    path for materials-only training. With a front, any of GEOMETRY_FIELDS
+    trainable raises (the culling boxes would be stale).
+
+    `optimizer` is a callable that takes the list of trainable tensors and
+    returns a torch.optim.Optimizer (default: torch.optim.Adam at
+    `learning_rate`, with optax.adam's b1, b2 and eps; PyTorch keeps the
+    bias corrections in float64 where optax rounds them to float32, 6e-6
+    relative after ten steps). It updates the trainable fields in place;
+    frozen fields stay bit-unchanged.
+
+    Returns (params0, opt_state0, step) with
+    step(params, opt_state, generator, target [H, W, 3]) ->
+        (params, opt_state, loss, grads).
+    Each step draws the camera rays, in the JAX order [spp, H, W], and
+    then the path seed from `generator` (default: the one given here, else
+    a generator on `device` seeded with 0)."""
+    if bvh is not None:
+        raise NotImplementedError("the BVH-walking recording kernel is not ported yet "
+                                  "(ROADMAP K8); use front= or the brute forward")
+    if two_phase is not None:
+        raise NotImplementedError("two-phase tracing is not ported yet (ROADMAP P8)")
+    check_gather(replay_gather)
+    if front is not None:
+        geo = set(GEOMETRY_FIELDS if trainable is None else trainable) & set(GEOMETRY_FIELDS)
+        if geo:
+            raise ValueError(
+                f"front snapshots FIXED geometry but {sorted(geo)} are trainable; train "
+                "materials only, or pass front=None for geometry training")
+    mask = trainable_mask(trainable)
+    device = scene.device if device is None else torch.device(device)
+    scene = scene.to(device)
+    if front is not None:
+        front = front.to(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    width, height = camera.image_size()
+    dtype = scene.center0.dtype
+    cam = camera.derive(dtype, device)
+    radiance_fn = make_fast_radiance(scene, camera.max_depth, front=front,
+                                     replay_groups=replay_groups,
+                                     replay_skip_dead=replay_skip_dead)
+    pix = torch.arange(height * width, device=device).repeat(spp)
+    i_idx = (pix % width).to(torch.int32)
+    j_idx = (pix // width).to(torch.int32)
+
+    def loss_fn(params: SceneParams, gen: torch.Generator, target: torch.Tensor):
+        o, d, t = rays_from_uniforms(
+            cam, i_idx, j_idx, *camera_uniforms(pix.shape[0], gen, device, dtype))
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device))
+        rad = radiance_fn(params, o, d, t, seed)
+        img = rad.reshape(spp, height, width, 3).mean(dim=0)
+        return torch.mean((img - target) ** 2)
+
+    def step(params: SceneParams, opt_state, gen: torch.Generator | None, target):
+        loss = loss_fn(params, generator if gen is None else gen, target)
+        grads = SceneParams(*torch.autograd.grad(loss, list(params)))
+        apply_updates(opt_state, params, grads, mask)
+        return params, opt_state, loss.detach(), grads
+
+    params0 = SceneParams(*(x.detach().clone().requires_grad_(True)
+                            for x in extract_params(scene)))
+    trained = [getattr(params0, f) for f in SceneParams._fields if getattr(mask, f)]
+    opt_state0 = (optimizer(trained) if optimizer is not None
+                  else torch.optim.Adam(trained, lr=learning_rate))
+    return params0, opt_state0, step

@@ -1,0 +1,243 @@
+"""Path-replay backpropagation: an O(depth) backward pass for path tracing
+(counterpart of raytracingproject_tpu/grad/replay.py).
+
+The recording megakernel (ops/cuda/megakernel.py `trace_record`) stores
+each bounce's discrete path decisions: the sphere hit (or MISS / DEAD),
+the scattered direction and the dielectric reflect bit. `replay_radiance`
+re-evaluates those paths as a differentiable function of the scene
+parameters: per bounce only the known winner's quadratic is re-solved,
+and the random scatter offsets are rebuilt from the recorded direction as
+constants:
+
+    lambertian  u = detach(dir_rec - n)           dir(p) = n(p) + u
+    metal       f = detach((dir_rec - refl) / fz)  dir(p) = refl(p) + fz(p) * f
+    dielectric  branch = recorded bit              dir(p) = reflect/refract(p)
+
+PyTorch autograd through this replay gives the JAX package's replay
+gradient: the same estimator (draws and discrete topology are constants),
+evaluated in the same order. The attribute gather is `index_select`,
+whose backward is `index_add_`. The JAX package's one-hot and ray-minor
+("colT") gathers are TPU matrix-unit layouts of the same values and are
+not ported.
+
+Known estimator properties (as in the JAX package): the fuzz gradient at
+fuzz == 0 is taken as 0, and discrete events (Schlick branch, metal
+absorption) carry no score-function term.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from raytracingproject_tpu_torch.config import DIELECTRIC, LAMBERTIAN, METAL, T_MIN
+from raytracingproject_tpu_torch.grad.inverse import SceneParams, apply_params
+# idx codes (per bounce): >= 0 hit that sphere; MISS = sky then retire;
+# DEAD = ray already terminated (nothing happens).
+from raytracingproject_tpu_torch.ops.cuda.megakernel import DEAD, MISS
+from raytracingproject_tpu_torch.ops.vecmath import dot, refract
+from raytracingproject_tpu_torch.render import sky_color
+from raytracingproject_tpu_torch.scene import Scene
+
+
+class PathResiduals(NamedTuple):
+    """Recorded path decisions; leading axis = bounce depth. All leaves are
+    constants of the replay."""
+
+    idx: torch.Tensor   # [D, R] int32: hit sphere / MISS / DEAD
+    ndir: torch.Tensor  # [D, R, 3] float: scattered direction (0 unless hit)
+    refl: torch.Tensor  # [D, R] bool: dielectric reflect branch taken
+
+
+def _attr_table(scene_p: Scene, scene: Scene) -> torch.Tensor:
+    """[N, 13] attribute table (differentiable leaves as columns)."""
+    return torch.cat(
+        [
+            scene_p.center0,                                   # 0:3
+            scene_p.center_delta,                              # 3:6
+            scene_p.radius[:, None],                           # 6
+            scene_p.albedo,                                    # 7:10
+            scene_p.fuzz[:, None],                             # 10
+            scene_p.ior[:, None],                              # 11
+            scene.mat_type.to(scene_p.center0.dtype)[:, None],  # 12 (non-diff)
+        ],
+        dim=1,
+    )
+
+
+def _make_live_step(table: torch.Tensor):
+    """One differentiable replay bounce: carry (o, d, thr, L), residual row
+    r = (idx, ndir, refl). The quadratic re-solve is src/sphere.h:30-57 on
+    the known winner."""
+
+    def _live_step(time, carry, r):
+        o, d, thr, L = carry
+        idx, ndir, refl = r
+        # Degenerate-direction gradient guard: a lambertian scatter can
+        # record ndir ~ 0 (u ~ -n, the case src/vec3.h's near_zero flags
+        # and src/material.h:19-25 leaves unfixed). The carried direction
+        # is then ~0 and every 1/|d| derivative near-singular; the values
+        # stay exact, only the gradient through such a row's direction is
+        # stopped.
+        d_ok = (torch.sum(d * d, dim=-1) > 1e-12)[:, None]
+        d = torch.where(d_ok, d, d.detach())
+        hit = idx >= 0
+        miss = idx == MISS
+        i = torch.clamp_min(idx, 0).long()
+
+        attrs = table.index_select(0, i)
+        c0 = attrs[:, 0:3]
+        cd = attrs[:, 3:6]
+        rad = attrs[:, 6]
+        alb = attrs[:, 7:10]
+        fz = attrs[:, 10]
+        ior = attrs[:, 11]
+        mat = attrs[:, 12].to(torch.int32)
+
+        # re-solve the winner's quadratic (src/sphere.h:30-57): the closest
+        # root is r0 when r0 > t_min, else r1 (r0 <= r1 always)
+        cc = c0 + time[:, None] * cd
+        oc = o - cc
+        a = torch.clamp_min(dot(d, d), 1e-20)
+        hb = dot(oc, d)
+        cq = dot(oc, oc) - rad * rad
+        disc = hb * hb - a * cq
+        dpos = disc > 0.0
+        sq = torch.sqrt(torch.where(dpos, disc, 1.0))
+        r0 = (-hb - sq) / a
+        r1 = (-hb + sq) / a
+        t = torch.where(r0 > T_MIN, r0, r1)
+        t = torch.where(hit, t, 1.0)
+
+        p = o + t[:, None] * d
+        r_safe = torch.where(rad != 0.0, rad, 1.0)
+        outward = (p - cc) / r_safe[:, None]
+        front = dot(d, outward) < 0.0
+        nrm = torch.where(front[:, None], outward, -outward)
+
+        L = L + torch.where(miss[:, None], thr * sky_color(d), 0.0)
+        att = torch.where((mat == DIELECTRIC)[:, None], 1.0, alb)
+        thr = torch.where(hit[:, None], thr * att, thr)
+
+        # grad-safe unit direction: the clamp sends the zero-length branch's
+        # gradient to the constant
+        ud = d * torch.rsqrt(torch.clamp_min(dot(d, d), 1e-24))[:, None]
+        # lambertian: recorded dir = n + u, u parameter-independent
+        u_const = ndir - nrm.detach()
+        lam_dir = nrm + u_const
+
+        # metal: recorded dir = reflect + fuzz * f
+        rfl = ud - 2.0 * dot(ud, nrm)[:, None] * nrm
+        fz_obs = fz.detach()
+        f_const = torch.where(
+            (fz_obs > 1e-6)[:, None],
+            (ndir - rfl.detach()) / torch.clamp_min(fz_obs, 1e-6)[:, None],
+            0.0,
+        )
+        met_dir = rfl + fz[:, None] * f_const
+
+        # dielectric: recorded branch bit
+        ratio = torch.where(front, 1.0 / ior, ior)
+        die_dir = torch.where(refl[:, None], rfl, refract(ud, nrm, ratio))
+
+        nd = torch.where(
+            (mat == LAMBERTIAN)[:, None],
+            lam_dir,
+            torch.where((mat == METAL)[:, None], met_dir, die_dir),
+        )
+        o = torch.where(hit[:, None], p, o)
+        d = torch.where(hit[:, None], nd, d)
+        return o, d, thr, L
+
+    return _live_step
+
+
+def check_gather(gather: str | None) -> None:
+    """Raise for a replay gather other than the default (None)."""
+    if gather is not None:
+        raise ValueError(
+            f"gather={gather!r}: the one-hot and colT replay gathers are TPU "
+            "matrix-unit layouts of the same values and are not ported; the "
+            "port gathers with index_select (backward index_add_)")
+
+
+def _live_depth(idx: torch.Tensor) -> int:
+    """Bounces up to and including the last one at which any ray is not
+    DEAD (one host read). Later bounces change nothing: a DEAD row leaves
+    every carried value as it is."""
+    live = torch.nonzero((idx != DEAD).any(dim=1))
+    return int(live[-1]) + 1 if live.numel() else 0
+
+
+def _replay(step, origin, direction, time, idx, ndir, refl, skip_dead: bool):
+    """One replay over a ray slice; `skip_dead` stops after the slice's
+    last live bounce."""
+    n = origin.shape[0]
+    depth = _live_depth(idx) if skip_dead else idx.shape[0]
+    dtype, dev = origin.dtype, origin.device
+    carry = (origin, direction, torch.ones((n, 3), dtype=dtype, device=dev),
+             torch.zeros((n, 3), dtype=dtype, device=dev))
+    for k in range(depth):
+        carry = step(time, carry, (idx[k], ndir[k], refl[k]))
+    return carry[3]
+
+
+def replay_radiance(
+    params: SceneParams,
+    scene: Scene,
+    origin: torch.Tensor,     # [R, 3]
+    direction: torch.Tensor,  # [R, 3]
+    time: torch.Tensor,       # [R]
+    res: PathResiduals,
+    n_groups: int = 1,
+    skip_dead: bool | None = None,
+    gather: str | None = None,
+) -> torch.Tensor:
+    """Differentiable replay of recorded paths: radiance [R, 3] as a
+    function of `params`, with every discrete decision frozen to `res`.
+
+    At the recording parameters this reproduces the forward radiance to
+    float precision. Cost per bounce: one sphere quadratic per ray.
+
+    The bounce loop runs in Python and stops after the last bounce at
+    which any ray is not DEAD (`skip_dead`, default on; False replays all
+    `res.idx.shape[0]` bounces without the host read). `n_groups > 1`
+    sorts rays by death depth (a permutation outside the graph: parameter
+    gradients are sums over rays), replays `n_groups` equal slices, DEAD-
+    padded, each only while its deepest ray lives, and unpermutes the
+    radiance. Both are exact: a skipped bounce changes nothing.
+
+    `gather` exists for the JAX signature: its "colT" value selects a TPU
+    matrix-unit layout of the same gather, which the port has no use for,
+    and any value but None raises."""
+    check_gather(gather)
+    skip = skip_dead is not False
+    table = _attr_table(apply_params(scene, params), scene)
+    step = _make_live_step(table)
+    if n_groups <= 1:
+        return _replay(step, origin, direction, time, res.idx, res.ndir, res.refl, skip)
+
+    n = origin.shape[0]
+    depth_of = (res.idx != DEAD).sum(dim=0)  # [R]: death is permanent
+    perm = torch.argsort(-depth_of, stable=True)
+    pad = (-n) % n_groups
+    idx_s = res.idx[:, perm]
+    if pad:
+        # padding slots replay all-DEAD copies of ray 0; they land in the
+        # shallow tail slice and are dropped before the unpermute
+        perm = torch.cat([perm, perm.new_zeros(pad)])
+        dead = torch.full((res.idx.shape[0], pad), DEAD, dtype=res.idx.dtype,
+                          device=res.idx.device)
+        idx_s = torch.cat([idx_s, dead], dim=1)
+    o_s, d_s, t_s = origin[perm], direction[perm], time[perm]
+    nd_s, rf_s = res.ndir[:, perm], res.refl[:, perm]
+    g = (n + pad) // n_groups
+    parts = [
+        _replay(step, o_s[k * g:(k + 1) * g], d_s[k * g:(k + 1) * g],
+                t_s[k * g:(k + 1) * g], idx_s[:, k * g:(k + 1) * g],
+                nd_s[:, k * g:(k + 1) * g], rf_s[:, k * g:(k + 1) * g], skip)
+        for k in range(n_groups)
+    ]
+    sorted_rad = torch.cat(parts)[:n]
+    return sorted_rad[torch.argsort(perm[:n])]

@@ -46,6 +46,13 @@ _SIGNATURES = {
     "rtp_trace_front": (
         [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I, _P], _I,
     ),
+    "rtp_record_brute": (
+        [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
+    ),
+    "rtp_record_front": (
+        [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I,
+         _P, _P, _P, _P, _P, _P], _I,
+    ),
     "rtp_philox": ([_P, _I, _U, _I, _P], _I),
 }
 

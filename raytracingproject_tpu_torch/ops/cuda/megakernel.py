@@ -2,11 +2,13 @@
 plain PyTorch versions of its kernels.
 
 Counterpart of raytracingproject_tpu/ops/pallas/megakernel.py. The kernels
-(K1 bounce loop, K2 brute closest hit, K3 front-culled closest hit) are
-hand-written CUDA in csrc/megakernel.cu. `trace_paths` is the one public
-entry: for CUDA tensors it launches a kernel or raises; for CPU tensors it
-runs the plain versions ("the twin") defined here, which the tests hold
-against the JAX package and which chip_smoke.py holds against the kernels.
+(K1 bounce loop, K2 brute closest hit, K3 front-culled closest hit, and K5,
+the bounce loop that records path residuals) are hand-written CUDA in
+csrc/megakernel.cu. `trace_paths` and `trace_record` are the public
+entries: for CUDA tensors they launch a kernel or raise; for CPU tensors
+they run the plain versions ("the twin") defined here, which the tests
+hold against the JAX package and which chip_smoke.py holds against the
+kernels.
 """
 
 from __future__ import annotations
@@ -45,9 +47,14 @@ SMEM_BUDGET_BYTES = 232448
 # Intra-word re-pack count of the JAX package's front tables.
 DEFAULT_REPACK = 2
 
+# Residual idx codes of the recording kernel (K5) besides a hit's winner
+# (csrc/megakernel.cu MISS / DEAD; grad/replay.py re-exports them).
+MISS = -1
+DEAD = -2
+
 # Kernel launches per entry point, counted by the wrapper after each
 # successful launch (and nowhere else).
-LAUNCHES = {"brute": 0, "front": 0}
+LAUNCHES = {"brute": 0, "front": 0, "record_brute": 0, "record_front": 0}
 
 
 def reset_launches() -> None:
@@ -55,8 +62,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def scene_table(scene: Scene) -> torch.Tensor:
-    """(16, N) float32 sphere table (megakernel.py:1345 of the JAX package)."""
+def scene_table(scene: Scene, dtype=torch.float32) -> torch.Tensor:
+    """(16, N) sphere table (megakernel.py:1345 of the JAX package); the
+    kernels take float32, the plain versions any float type."""
     rows = [
         scene.center0[:, 0], scene.center0[:, 1], scene.center0[:, 2],
         scene.center_delta[:, 0], scene.center_delta[:, 1], scene.center_delta[:, 2],
@@ -65,7 +73,7 @@ def scene_table(scene: Scene) -> torch.Tensor:
         scene.fuzz, scene.ior,
     ]
     rows += [torch.zeros_like(scene.radius)] * (N_ROWS - len(rows))
-    return torch.stack(rows).to(torch.float32).contiguous()
+    return torch.stack(rows).to(dtype).contiguous()
 
 
 @dataclasses.dataclass
@@ -196,6 +204,22 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     )
 
 
+def front_with_params(front: FrontTables, scene: Scene) -> FrontTables:
+    """`front` with its padded sphere table rebuilt from `scene` (the
+    leaf-ordered scene it was built over, at its current parameters):
+    sph = scene_table(scene)[:, remap]. At the parameters the front was
+    built from this is bit-equal to `front.sph`.
+
+    The JAX package's recording and plain forwards read the table copied
+    when the front was built, so a materials-only train step there renders
+    with the initial albedo, fuzz and ior while its replay differentiates
+    the current ones; the port's fast radiance calls this on every
+    forward. Geometry rows refresh too, but the culling boxes do not:
+    geometry training with a front stays refused."""
+    sph = scene_table(scene).index_select(1, front.remap.to(scene.device, torch.long))
+    return dataclasses.replace(front, sph=sph.contiguous())
+
+
 # ---------------------------------------------------------------------------
 # The plain PyTorch versions ("twin") of K2, K3 and K1
 # ---------------------------------------------------------------------------
@@ -273,19 +297,34 @@ def closest_hit_front_twin(front: FrontTables, col_subtree: torch.Tensor,
 
 
 def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_depth: int,
-                     ray0: int = 0, t_min: float = T_MIN, zero_draws: bool = False):
+                     ray0: int = 0, t_min: float = T_MIN, zero_draws: bool = False,
+                     record: bool = False):
     """K1's plain version: the per-ray bounce loop of the JAX package's
     _bounce_loop, operation for operation. `tab` is the (16, C) table the
     winner columns index; `ray0` is the global slot of the first ray (the
-    RNG counter)."""
-    dev = origin.device
+    RNG counter).
+
+    Returns the radiance [R, 3]; with `record` (K5's plain version) also
+    the residual planes (idx, ndx, ndy, ndz, refl), each [max_depth, R],
+    as the recording kernel writes them: idx is the winner column of `tab`
+    on a live hit, MISS on a live miss and DEAD otherwise; nd* is the
+    scattered direction on a live hit, else 0; refl is the dielectric
+    reflect branch of a live hit.
+
+    Values are float32 as in the kernel; float64 rays and table give the
+    same loop in float64 (tests take finite differences through it)."""
+    dev, dt = origin.device, origin.dtype
     n = origin.shape[0]
+    if record:
+        res_idx = torch.full((max_depth, n), DEAD, dtype=torch.int32, device=dev)
+        res_nd = [torch.zeros((max_depth, n), dtype=dt, device=dev) for _ in range(3)]
+        res_refl = torch.zeros((max_depth, n), dtype=torch.uint8, device=dev)
     ox, oy, oz = (origin[:, q].clone() for q in range(3))
     dx, dy, dz = (direction[:, q].clone() for q in range(3))
     tm = time
-    one = torch.ones(n, dtype=torch.float32, device=dev)
+    one = torch.ones(n, dtype=dt, device=dev)
     thr_r, thr_g, thr_b = one, one, one
-    rad_r = rad_g = rad_b = torch.zeros(n, dtype=torch.float32, device=dev)
+    rad_r = rad_g = rad_b = torch.zeros(n, dtype=dt, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     ray = torch.arange(ray0, ray0 + n, dtype=torch.int64, device=dev)
     where = torch.where
@@ -367,6 +406,11 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
         scattered = ~is_met | met_ok
 
         hit_live = alive & hit
+        if record:
+            res_idx[dep] = where(hit_live, win, where(alive & ~hit, MISS, DEAD)).to(torch.int32)
+            for plane, v in zip(res_nd, (sx, sy, sz)):
+                plane[dep] = where(hit_live, v, 0.0)
+            res_refl[dep] = (hit_live & is_die & do_refl).to(torch.uint8)
         thr_r = thr_r * where(hit_live & ~is_die, har, 1.0)
         thr_g = thr_g * where(hit_live & ~is_die, hag, 1.0)
         thr_b = thr_b * where(hit_live & ~is_die, hab, 1.0)
@@ -376,7 +420,10 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
         # park dead rays where every later slab and sphere test misses
         ox, oy, oz = (where(alive, v, 1e18) for v in (ox, oy, oz))
         dx, dy, dz = (where(alive, v, 1.0) for v in (dx, dy, dz))
-    return torch.stack([rad_r, rad_g, rad_b], dim=1)
+    rad = torch.stack([rad_r, rad_g, rad_b], dim=1)
+    if record:
+        return rad, (res_idx, *res_nd, res_refl)
+    return rad
 
 
 def _twin_chunk(n_cols: int) -> int:
@@ -388,6 +435,22 @@ def trace_paths_twin(origin, direction, time, scene: Scene | None, seed: int, ma
                      t_min: float = T_MIN, front: FrontTables | None = None,
                      zero_draws: bool = False) -> torch.Tensor:
     """Plain PyTorch `trace_paths` on any device, in ray chunks."""
+    return _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
+                 record=False)
+
+
+def trace_record_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
+                      t_min: float = T_MIN, front: FrontTables | None = None,
+                      zero_draws: bool = False):
+    """Plain PyTorch `trace_record` on any device: (radiance [R, 3],
+    PathResiduals)."""
+    rad, planes = _twin(origin, direction, time, scene, seed, max_depth, t_min, front,
+                        zero_draws, record=True)
+    return rad, decode_residuals(planes, origin.shape[0], front)
+
+
+def _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
+          record: bool):
     if front is not None:
         tab = front.sph
         owner = front.column_subtree()
@@ -402,11 +465,32 @@ def trace_paths_twin(origin, direction, time, scene: Scene | None, seed: int, ma
 
     chunk = _twin_chunk(tab.shape[1])
     outs = []
-    for r0 in range(0, origin.shape[0], chunk):
+    for r0 in range(0, max(origin.shape[0], 1), chunk):  # one empty chunk for 0 rays
         sl = slice(r0, r0 + chunk)
         outs.append(bounce_loop_twin(origin[sl], direction[sl], time[sl], tab, hit, seed,
-                                     max_depth, ray0=r0, t_min=t_min, zero_draws=zero_draws))
-    return torch.cat(outs) if outs else origin.new_zeros((0, 3))
+                                     max_depth, ray0=r0, t_min=t_min, zero_draws=zero_draws,
+                                     record=record))
+    if not record:
+        return torch.cat(outs)
+    rad = torch.cat([r for r, _ in outs])
+    planes = tuple(torch.cat([p[q] for _, p in outs], dim=1) for q in range(5))
+    return rad, planes
+
+
+def decode_residuals(planes, n: int, front: FrontTables | None):
+    """PathResiduals from the residual planes (idx, ndx, ndy, ndz, refl),
+    each [max_depth, >= n], of the recording kernel or its plain version
+    (`_decode_res` of the JAX package). Front winners are columns of the
+    front's padded table; `front.remap` maps them to the leaf-ordered
+    scene the replay differentiates."""
+    from raytracingproject_tpu_torch.grad.replay import PathResiduals
+
+    idx, ndx, ndy, ndz, refl = (x[:, :n] for x in planes)
+    if front is not None:
+        remap = front.remap.to(idx.device, torch.int32)
+        idx = torch.where(idx >= 0, remap[torch.clamp_min(idx, 0).long()], idx)
+    return PathResiduals(idx=idx.contiguous(), ndir=torch.stack([ndx, ndy, ndz], dim=-1),
+                         refl=refl.bool())
 
 
 # ---------------------------------------------------------------------------
@@ -449,8 +533,43 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
     if dev.type == "cpu":
         return trace_paths_twin(origin, direction, time, scene, seed, max_depth, t_min,
                                 front, zero_draws)
+    rad, _ = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
+                     zero_draws, record=False)
+    return rad
+
+
+def trace_record(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor,
+                 scene: Scene | None, seed: int, max_depth: int, t_min: float = T_MIN,
+                 front: FrontTables | None = None, zero_draws: bool = False, bvh=None):
+    """`trace_paths` that also records the path residuals for the replay
+    backward (pallas_trace_record of the JAX package, K5): returns
+    (radiance [R, 3], grad.replay.PathResiduals) with idx [D, R] int32 (a
+    sphere of `scene`'s order, in leaf order with `front`; MISS; DEAD),
+    ndir [D, R, 3] and refl [D, R] bool. The radiance equals
+    `trace_paths`'s for the same rays, seed and closest hit.
+
+    CUDA tensors launch the recording kernel (or raise); CPU tensors run
+    its plain PyTorch version."""
+    if bvh is not None:
+        raise NotImplementedError(
+            "the BVH-walking recording kernel is not ported yet (ROADMAP K8)")
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_record_twin(origin, direction, time, scene, seed, max_depth, t_min,
+                                 front, zero_draws)
+    rad, planes = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
+                          zero_draws, record=True)
+    return rad, decode_residuals(planes, origin.shape[0], front)
+
+
+def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
+            record: bool):
+    """Check the inputs and launch K1+K2 / K1+K3 (or, with `record`, K5)
+    on CUDA tensors: (radiance [R, 3], residual planes [D, R_pad] or
+    None)."""
+    dev = origin.device
     if dev.type != "cuda":
-        raise ValueError(f"trace_paths runs on cuda or cpu tensors, not {dev}")
+        raise ValueError(f"the megakernel runs on cuda or cpu tensors, not {dev}")
     from raytracingproject_tpu_torch.ops.cuda import build
 
     n = origin.shape[0]
@@ -459,10 +578,20 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
     _require(time, "time", (n,), torch.float32, dev)
     if not 0 <= int(seed) < 2**32:
         raise ValueError(f"seed {seed} is not a 32-bit unsigned value")
-    if n == 0:
-        return origin.new_zeros((0, 3))
-    lib = build.load_library()
+    if max_depth < 0:
+        raise ValueError(f"max_depth {max_depth} < 0")
     r_pad = -(-n // TILE) * TILE
+    planes = None
+    res_args = []
+    if record:
+        planes = (torch.empty((max_depth, r_pad), dtype=torch.int32, device=dev),
+                  *(torch.empty((max_depth, r_pad), dtype=torch.float32, device=dev)
+                    for _ in range(3)),
+                  torch.empty((max_depth, r_pad), dtype=torch.uint8, device=dev))
+        res_args = [x.data_ptr() for x in planes]
+    if n == 0:
+        return origin.new_zeros((0, 3)), planes
+    lib = build.load_library()
     o, d, t = _pad_rays(origin, r_pad), _pad_rays(direction, r_pad), _pad_rays(time, r_pad)
     out = torch.empty((r_pad, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -479,24 +608,25 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
         if smem > SMEM_BUDGET_BYTES:
             raise ValueError(f"front tables need {smem} B of shared memory "
                              f"(> {SMEM_BUDGET_BYTES})")
-        err = lib.rtp_trace_front(
-            p(o), p(d), p(t), p(out), r_pad, p(front.sph), n_cols, p(front.ff), p(front.fi),
-            n_front, p(front.wf), front.wf.shape[1], p(front.sf), front.sf.shape[1],
-            front.repack, int(seed), max_depth, t_min, int(zero_draws), stream)
-        build.check(err, "front megakernel launch")
-        LAUNCHES["front"] += 1
+        fn, key = ((lib.rtp_record_front, "record_front") if record
+                   else (lib.rtp_trace_front, "front"))
+        err = fn(p(o), p(d), p(t), p(out), r_pad, p(front.sph), n_cols, p(front.ff),
+                 p(front.fi), n_front, p(front.wf), front.wf.shape[1], p(front.sf),
+                 front.sf.shape[1], front.repack, int(seed), max_depth, t_min,
+                 int(zero_draws), *res_args, stream)
     else:
         tab = scene_table(scene)
         _require(tab, "sphere table", (N_ROWS, scene.num_spheres), torch.float32, dev)
         if 4 * tab.numel() > SMEM_BUDGET_BYTES:
             raise ValueError(f"{scene.num_spheres} spheres exceed the brute kernel's "
                              f"shared-memory budget ({SMEM_BUDGET_BYTES} B)")
-        err = lib.rtp_trace_brute(
-            p(o), p(d), p(t), p(out), r_pad, p(tab), tab.shape[1], int(seed), max_depth,
-            t_min, int(zero_draws), stream)
-        build.check(err, "brute megakernel launch")
-        LAUNCHES["brute"] += 1
-    return out[:n]
+        fn, key = ((lib.rtp_record_brute, "record_brute") if record
+                   else (lib.rtp_trace_brute, "brute"))
+        err = fn(p(o), p(d), p(t), p(out), r_pad, p(tab), tab.shape[1], int(seed), max_depth,
+                 t_min, int(zero_draws), *res_args, stream)
+    build.check(err, f"{key} megakernel launch")
+    LAUNCHES[key] += 1
+    return out[:n], planes
 
 
 def philox_bits(n: int, seed: int, bounce: int, device) -> torch.Tensor:

@@ -19,7 +19,24 @@ from raytracingproject_tpu_torch.camera import (
 )
 from raytracingproject_tpu_torch.config import RenderSettings
 from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE, trace_paths
+from raytracingproject_tpu_torch.ops.vecmath import normalize
 from raytracingproject_tpu_torch.scene import Scene
+
+SKY_WHITE = (1.0, 1.0, 1.0)
+SKY_BLUE = (0.5, 0.7, 1.0)
+
+
+def sky_color(direction: torch.Tensor, sky_tex=None) -> torch.Tensor:
+    """Background radiance of a miss ray: the reference's gradient
+    (src/camera_cpu.h:23-25), lerp(white, (0.5, 0.7, 1.0)) by
+    0.5 * (unit_dir.y + 1)."""
+    if sky_tex is not None:
+        raise _not_ported("sky textures (record_miss)", "K1 record_miss")
+    unit = normalize(direction, eps=1e-12)
+    a = 0.5 * (unit[..., 1] + 1.0)
+    white = torch.tensor(SKY_WHITE, dtype=direction.dtype, device=direction.device)
+    blue = torch.tensor(SKY_BLUE, dtype=direction.dtype, device=direction.device)
+    return (1.0 - a)[..., None] * white + a[..., None] * blue
 
 
 @lru_cache(maxsize=None)

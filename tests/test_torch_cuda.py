@@ -59,6 +59,60 @@ def test_kernel_matches_twin(cuda_device, path, zero_draws):
     assert diff.mean().item() < 1e-5
 
 
+@pytest.mark.parametrize("path", ["brute", "front"])
+@pytest.mark.parametrize("zero_draws", [True, False])
+def test_record_kernel_matches_twin(cuda_device, path, zero_draws):
+    """K5 against its plain version: radiance bit-equal to the forward
+    kernel's (recording changes no value) and within the forward's bounds
+    of the twin's; residual idx equal on >= 99.9% of entries, ndir and
+    refl equal wherever idx is."""
+    scene, front, (o, d, t) = _cover_rays(cuda_device)
+    f = front if path == "front" else None
+    key = f"record_{path}"
+    before = mk.LAUNCHES[key]
+    rad, res = mk.trace_record(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    assert torch.equal(rad, mk.trace_paths(o, d, t, scene, 4242, 16, front=f,
+                                           zero_draws=zero_draws))
+    prad, pres = mk.trace_record_twin(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
+    diff = torch.abs(rad - prad)
+    assert (diff <= 1e-3).all(dim=1).double().mean().item() >= 0.999
+    assert diff.mean().item() < 1e-5
+    eq = res.idx == pres.idx
+    assert eq.double().mean().item() >= 0.999
+    assert torch.equal(res.ndir[eq], pres.ndir[eq])
+    assert torch.equal(res.refl[eq], pres.refl[eq])
+    assert res.idx.shape == (16, o.shape[0]) and res.ndir.shape == (16, o.shape[0], 3)
+
+
+def test_fast_radiance_kernel_gradients_match_twin(cuda_device):
+    """The fast radiance with the recording kernel forward and with its
+    plain version forward, both on the card, give the same gradients
+    (relative norm 1e-5 per field). index_add_ on the card sums in no fixed
+    order, which alone moves a field of cancelling terms (ior) by up to
+    1e-4 between two runs of one forward, so both run with PyTorch's
+    deterministic algorithms."""
+    from raytracingproject_tpu_torch.grad import SceneParams, extract_params, make_fast_radiance
+
+    scene, _, (o, d, t) = _cover_rays(cuda_device)
+    w = torch.rand((o.shape[0], 3), generator=torch.Generator(device=cuda_device).manual_seed(2),
+                   device=cuda_device)
+    grads = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for tracer in (mk.trace_record, mk.trace_record_twin):
+            pp = SceneParams(*(x.clone().requires_grad_(True) for x in extract_params(scene)))
+            rad = make_fast_radiance(scene, 8, tracer=tracer)(pp, o, d, t, 99)
+            grads.append(torch.autograd.grad((rad * w).sum(), list(pp)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, a, b in zip(SceneParams._fields, *grads):
+        a, b = a.double(), b.double()
+        rel = (torch.linalg.norm(a - b) / (torch.linalg.norm(b) + 1e-6)).item()
+        assert rel <= 1e-5, (name, rel)
+
+
 def test_front_kernel_matches_brute_kernel(cuda_device):
     scene, front, (o, d, t) = _cover_rays(cuda_device)
     b = mk.trace_paths(o, d, t, scene, 17, 16)
