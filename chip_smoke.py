@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/ with nvcc, holds each against its plain
-PyTorch version on the card, and drives the port's two main paths, each
-checked to have gone through its kernels:
+Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
+started together), holds each against its plain PyTorch version on the
+card, and drives the port's three main paths, each checked to have gone
+through its kernels:
 
 - serving: the cover scene through `render_image`, `render` and the CLI
   at the reference configuration (400x225, 30 spp, depth 50), on the
@@ -15,10 +16,23 @@ checked to have gone through its kernels:
   kernel, materials on the front one), the recording megakernel (K5)
   forward and the path-replay backward, plus a descent check on the
   three-sphere scene. K5 is held against its plain version both at the
-  bench shape and on one step's rays at the step's own shapes.
+  bench shape and on one step's rays at the step's own shapes;
+- the oracle: `render_image` and `render` with
+  `RenderSettings(use_megakernel=False, use_pallas=True)` at the same
+  reference configuration, the bounce loop in PyTorch with the fused
+  closest hit (K4) once a bounce; K4 against its plain version and
+  against `ops.intersect.closest_hit`, `use_pallas` on against off, the
+  BVH walk against the brute scan; and `grad.make_train_step` (autograd
+  through the oracle) at 200 px wide, depth 8, on the cover and the
+  three-sphere scene (a CPU scene and no device given: the step runs on
+  the card), its geometry gradient against central differences of the
+  loss, a descent check, and the oracle's radiance and gradients against
+  the path replay of its own record in float64 and float32.
 
 It then times kernels and plain versions at the bench shape (400x225,
-4 spp, depth 16) and the train steps at full width. Any failed check
+4 spp, depth 16; K4 at one pass of 90,000 rays) and the train steps, and
+works out each kernel's bound from the tests this run's rays need (counted
+in the plain versions) and the card's data-sheet rates. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1 and
 prints no result.
 
@@ -28,6 +42,7 @@ kernel; the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -39,7 +54,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "raytracingproject_tpu_torch/csrc/megakernel.cu"
+K4_SOURCE = "raytracingproject_tpu_torch/csrc/closest_hit.cu"
 REPLACES = {
+    "closest_hit": "raytracingproject_tpu/ops/pallas/trace.py:136",
     "brute": "raytracingproject_tpu/ops/pallas/megakernel.py:832",
     "front": "raytracingproject_tpu/ops/pallas/megakernel.py:869",
     "record_brute": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
@@ -55,6 +72,37 @@ TRAIN_STEPS = 7  # per full-width configuration: 2 warm-up, 5 timed
 # below this. Measured 0.218 on an H100 80GB HBM3 at 700 W; the limit
 # leaves that run a margin of 1.8x.
 DESCENT_RATIO = 0.4
+# Float32 gradients of the oracle against the replay of its own record
+# (65,536 cover rays, depth 8), relative norm per field. Measured on an
+# H100 80GB HBM3 at 700 W: <= 4.4e-6 in all six fields (radius), the
+# replay's radiance bit-equal to the oracle's. With the replay's dot
+# products as reductions, whose order differs on the card, it was 1e-2 to
+# 0.7 in the geometry fields.
+GRAD32_TOL = 1e-4
+
+# The card's data-sheet rates (NVIDIA H100 SXM at its full 700 W limit):
+# float32 outside the tensor cores, which counts a fused multiply-add as
+# two operations, and HBM3. The kernels are built without FMA contraction,
+# so each of their operations is one instruction and the issue rate alone
+# (half of PEAK_FP32 a second, at the 1.98 GHz the data sheet assumes)
+# keeps them at or above twice an operations bound.
+PEAK_FP32 = 67e12   # operations per second
+PEAK_BYTES = 3.35e12  # bytes per second
+# Floating-point operations of one test, counted line by line in the plain
+# versions (one per multiply, add, subtract, negate, compare, select, sqrt).
+# A ray against a sphere, `_sphere_t` and `_first_min`: the moving centre 6
+# (3 mul, 3 add), o - c 3, half_b 5 (3 mul, 2 add), c 7 (4 mul, 2 add,
+# 1 sub), disc 3, its test, guard and sqrt 3, the two roots 5 (1 neg, 2 add,
+# 2 mul), the interval tests and selects 5, the strict-< best 3 (compare,
+# select t, select idx): 40. A ray against a box, `subtree_slab_mask`: 6 an
+# axis (2 sub, 2 mul, min, max) = 18, the y axis folded in 2, the z axis
+# with its t_min clamp 3, the final compare 1: 24 (the reciprocals of the
+# direction are per ray, not per box). The rest of a bounce (hit geometry,
+# sky, the Philox draws' integer work, the scatter rules) is left out: the
+# bound counts the tests alone, which makes it lower, so a kernel's share
+# of it is if anything understated.
+OPS_PER_PAIR = 40
+OPS_PER_BOX = 24
 
 
 def check(cond: bool, what: str) -> None:
@@ -190,6 +238,577 @@ def replay_on_card(mk, scene, front, o, d, t) -> None:
         check(max(same.values()) <= 1e-5, f"{path}: kernel and twin forward gradients agree")
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(milliseconds, what bounds it): the least time the card could take
+    for `ops` float32 operations on `nbytes` bytes moved once."""
+    t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def count_tests(mk, o, d, t, scene, front, seed: int, depth: int) -> dict:
+    """What these rays need, counted in the plain version of the bounce
+    loop: live ray-bounces, ray-sphere pair tests (brute: every sphere a
+    live bounce; front: the columns of the subtrees whose box the ray
+    enters, padding columns included) and ray-box tests (front: every
+    subtree a live bounce). Dead rays are parked where every test misses
+    and count nothing."""
+    import torch
+
+    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
+    if front is not None:
+        tab, owner = front.sph, front.column_subtree()
+
+        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
+            live = ox < 1e17
+            entered = mk.subtree_slab_mask(front.ff, ox, oy, oz, dx, dy, dz, t_min)[:, owner]
+            n_live = int(live.sum())
+            counts["bounces"] += n_live
+            counts["boxes"] += n_live * front.ff.shape[1]
+            counts["pairs"] += int((entered & live[:, None]).sum())
+            return mk.closest_hit_front_twin(front, owner, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
+                                             t_min)
+    else:
+        tab = mk.scene_table(scene).to(o.device)
+
+        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
+            n_live = int((ox < 1e17).sum())
+            counts["bounces"] += n_live
+            counts["pairs"] += n_live * tab.shape[1]
+            return mk.closest_hit_brute_twin(tab, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
+
+    chunk = mk._twin_chunk(tab.shape[1])
+    for r0 in range(0, o.shape[0], chunk):
+        sl = slice(r0, r0 + chunk)
+        mk.bounce_loop_twin(o[sl], d[sl], t[sl], tab, hit, seed, depth, ray0=r0)
+    torch.cuda.synchronize()
+    return counts
+
+
+def megakernel_bound(counts: dict, n_rays: int, depth: int, tab_bytes: int,
+                     record: bool) -> tuple[float, str]:
+    """Bound of one megakernel call: the counted tests at their
+    operations each, against the rays read (28 B), the table, the
+    radiance written (12 B) and, recording, the residual planes
+    (17 B a ray and bounce)."""
+    ops = counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX
+    nbytes = n_rays * 40 + tab_bytes + (n_rays * depth * 17 if record else 0)
+    return bound(ops, nbytes)
+
+
+def sass_instructions_per_pair(library: Path) -> float | None:
+    """Instructions of K4's sphere loop per ray-sphere pair, read from
+    `cuobjdump -sass`: the shortest backward-branch loop that holds the
+    square root's MUFU.RSQ, over the number of them in it (the compiler
+    may unroll). None where cuobjdump is missing or the loop is not found;
+    the figure is printed beside the bound and used nowhere."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True)
+    code = [(int(m.group(1), 16), m.group(2)) for m in
+            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", out.stdout)]
+    best = None
+    for k, (addr, text) in enumerate(code):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m is None or int(m.group(1), 16) >= addr:
+            continue
+        body = [t for a, t in code[:k + 1] if a >= int(m.group(1), 16)]
+        roots = sum("MUFU.RSQ" in t for t in body)
+        if roots and (best is None or len(body) / roots < best):
+            best = len(body) / roots
+    return best
+
+
+def hold_closest_hit(trace, what: str, o, d, t, scene) -> float:
+    """K4 against its plain version, and against ops.intersect.closest_hit,
+    on one set of rays. Against the plain version: hit mask equal, idx
+    equal on >= 99.9% of hits, t within 1e-6 relative. Against
+    closest_hit (ties aside): hit masks differ on <= 0.01% of rays, idx
+    equal on >= 99.9% of common hits, t within 1e-5 relative where idx is.
+    Returns max |t diff| against the plain version over the hits."""
+    import torch
+
+    from raytracingproject_tpu_torch.ops.intersect import closest_hit
+
+    tab = trace.sphere_table(scene)
+    kt, ki = trace.closest_hit_fused(o, d, t, tab)
+    torch.cuda.synchronize()
+    pt, pi = trace.closest_hit_fused_twin(o, d, t, tab)
+    hit = torch.isfinite(pt)
+    mask_eq = torch.equal(torch.isfinite(kt), hit)
+    idx_frac = (ki == pi)[hit].double().mean().item()
+    t_diff = torch.abs(kt - pt)[hit]
+    t_ok = bool((t_diff <= 1e-6 * torch.abs(pt)[hit]).all())
+    bit_equal = torch.equal(kt, pt) and torch.equal(ki, pi)
+    rec = trace.pallas_closest_hit(o, d, t, scene)
+    ref = closest_hit(o, d, t, scene.center0, scene.center_delta, scene.radius)
+    mask_diff = (rec.hit != ref.hit).double().mean().item()
+    both = rec.hit & ref.hit
+    same = both & (rec.idx == ref.idx)
+    ref_idx_frac = same.double().sum().item() / max(both.double().sum().item(), 1.0)
+    ref_rel = (torch.abs(rec.t - ref.t)[same] / torch.abs(ref.t)[same]).max().item()
+    n_diff = (torch.abs(rec.normal - ref.normal)[same]).max().item()
+    print(f"closest_hit kernel vs twin ({what}, {o.shape[0]} rays x {tab.shape[1]} spheres, "
+          f"{int(hit.sum())} hits): bit-equal {bit_equal}, hit mask equal {mask_eq}, idx equal "
+          f"{idx_frac:.6f}, max |t diff| {t_diff.max().item():.3e}; vs ops.intersect."
+          f"closest_hit: hit masks differ {mask_diff:.2e}, idx equal {ref_idx_frac:.6f}, max "
+          f"relative t diff {ref_rel:.3e}, max |normal diff| {n_diff:.3e}, bit-equal t "
+          f"{torch.equal(rec.t, ref.t)}")
+    check(bool(hit.any()) and not bool(hit.all()), f"closest_hit ({what}): hits and misses")
+    check(mask_eq, f"closest_hit ({what}): hit mask equal to the twin's")
+    check(idx_frac >= 0.999, f"closest_hit ({what}): idx equal on >= 99.9% of hits")
+    check(t_ok, f"closest_hit ({what}): t within 1e-6 relative of the twin's")
+    check(bool((ki[~hit] == 0).all()), f"closest_hit ({what}): idx 0 on a miss")
+    check(mask_diff <= 1e-4, f"closest_hit ({what}): hit mask of ops.intersect.closest_hit")
+    check(ref_idx_frac >= 0.999 and ref_rel <= 1e-5,
+          f"closest_hit ({what}): idx and t of ops.intersect.closest_hit")
+    return t_diff.max().item()
+
+
+def pass_rays(cam, gen):
+    """The camera rays of one oracle pass: the image once, row-major."""
+    import dataclasses
+
+    return step_rays(dataclasses.replace(cam, samples_per_pixel=1), gen, seed=False)
+
+
+def closest_hit_against_twin(trace, card: str) -> tuple[float, float, float, tuple[float, str]]:
+    """K4 on the card: against its plain version on the cover scene's
+    90,000 primary rays of one 400x225 pass, on the same rays after one
+    scatter (incoherent) and on 65,536 random rays with random times over
+    2,000 random spheres, most of them moving (two shared-memory chunks);
+    then both timed at the main path's shape (CUDA events, warm). Returns
+    (max |t diff|, ms, plain ms, bound)."""
+    import torch
+
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.materials import draw_scatter
+    from raytracingproject_tpu_torch.render import _bounce, _PathState
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cover = make_cover_scene(0, device=dev)
+    o, d, t = pass_rays(Camera(**COVER_CAMERA, samples_per_pixel=1, max_depth=50), gen)
+    err = hold_closest_hit(trace, "cover, primary rays", o, d, t, cover)
+    n = o.shape[0]
+    state = _PathState(o, d, torch.ones((n, 3), device=dev), torch.zeros((n, 3), device=dev),
+                       torch.ones((n,), dtype=torch.bool, device=dev))
+    state = _bounce(cover, t, state, draw_scatter(gen, (n,)), use_pallas=True)
+    o2, d2 = state.origin.contiguous(), state.direction.contiguous()
+    err = max(err, hold_closest_hit(trace, "cover, after one scatter", o2, d2, t, cover))
+    rnd = make_random_scene(2000, seed=4, device=dev)
+    ro = torch.rand((N_CMP, 3), generator=gen, device=dev) * torch.tensor(
+        [22.0, 3.0, 22.0], device=dev) - torch.tensor([11.0, 0.0, 11.0], device=dev)
+    rd = torch.randn((N_CMP, 3), generator=gen, device=dev)
+    rt = torch.rand((N_CMP,), generator=gen, device=dev)
+    err = max(err, hold_closest_hit(trace, "random scene, random rays", ro, rd, rt, rnd))
+
+    tab = trace.sphere_table(cover)
+
+    def kern():
+        trace.closest_hit_fused(o, d, t, tab)
+
+    def twin():
+        trace.closest_hit_fused_twin(o, d, t, tab)
+
+    kern()
+    twin()  # warm both
+    ms = cuda_ms(kern, 50)
+    plain_ms = cuda_ms(twin, 5)
+    ms2 = cuda_ms(lambda: trace.closest_hit_fused(o2, d2, t, tab), 50)
+    pairs = n * tab.shape[1]
+    b_ms, b_by = bound(pairs * OPS_PER_PAIR, n * 36 + tab.numel() * 4)
+    print(f"closest_hit: kernel {ms:.4f} ms (primary rays; {ms2:.4f} ms after one scatter) = "
+          f"{pairs / ms / 1e6:.1f} G pair tests/s; twin {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
+          f"by {b_by}, the kernel reaches {b_ms / ms:.3f} of it ({n} rays x {tab.shape[1]} "
+          f"spheres) on {card}")
+    from raytracingproject_tpu_torch.ops.cuda import build
+
+    per_pair = sass_instructions_per_pair(build.library("closest_hit"))
+    if per_pair is None:
+        print("closest_hit SASS: instructions per pair not measured")
+    else:
+        issue_ms = 1e3 * pairs * per_pair / (PEAK_FP32 / 2)
+        print(f"closest_hit SASS: {per_pair:.1f} instructions per pair in the sphere loop; at "
+              f"one instruction per lane and cycle ({PEAK_FP32 / 2:.3g}/s, 132 SMs x 128 lanes "
+              f"at 1.98 GHz) they alone take {issue_ms:.4f} ms, {issue_ms / ms:.3f} of the "
+              "kernel's time")
+    return err, ms, plain_ms, (b_ms, b_by)
+
+
+@contextlib.contextmanager
+def counted_bounces():
+    """Counts the bounces `render.ray_color` runs (calls of its `_bounce`)."""
+    import importlib
+
+    # the package exports the function `render` under the module's name
+    render_mod = importlib.import_module("raytracingproject_tpu_torch.render")
+    count = [0]
+    original = render_mod._bounce
+
+    def counting(*args, **kwargs):
+        count[0] += 1
+        return original(*args, **kwargs)
+
+    render_mod._bounce = counting
+    try:
+        yield count
+    finally:
+        render_mod._bounce = original
+
+
+def oracle_frame(trace, card: str, megakernel_mean: float) -> int:
+    """The oracle's serving path through the normal entry points at the
+    reference configuration with the fused closest hit, then K4 end to end
+    (`use_pallas` on against off at 2 spp) and the BVH walk against the
+    brute scan. Returns K4's launches on the main path."""
+    import torch
+
+    from raytracingproject_tpu_torch import bvh as bvh_mod
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.color import to_u8
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.ops.intersect import closest_hit
+    from raytracingproject_tpu_torch.render import render, render_image
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    dev = torch.device("cuda")
+    cover = make_cover_scene(0)
+    ref_cam = Camera(**COVER_CAMERA, samples_per_pixel=30, max_depth=50)
+    fused = RenderSettings(device="cuda", use_megakernel=False, use_pallas=True, use_bvh=False)
+    plain = RenderSettings(device="cuda", use_megakernel=False, use_pallas=False, use_bvh=False)
+    trace.reset_launches()
+    with counted_bounces() as bounces:
+        img_u8 = render_image(cover, ref_cam, settings=fused)
+        img, frame_s = synced_s(lambda: render(cover, ref_cam, settings=fused))
+    launches = trace.LAUNCHES["closest_hit"]
+    print(f"oracle main path: render_image + render (use_megakernel=False, use_pallas=True) at "
+          f"400x225, 30 spp, depth 50: closest_hit launches {launches}, bounces run "
+          f"{bounces[0]}")
+    check(launches > 0 and launches == bounces[0], "K4 ran once for every bounce of the oracle")
+    check(tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
+          "oracle image finite, 225x400x3")
+    check(torch.equal(img_u8, to_u8(img)), "oracle render_image == to_u8(render) (same seed)")
+    mean = img.mean().item()
+    print(f"image means: oracle {mean:.5f}, front megakernel {megakernel_mean:.5f}")
+    check(abs(mean - megakernel_mean) <= 0.05 * megakernel_mean,
+          "oracle mean within 5% of the megakernel render's")
+    print(f"seconds per oracle frame (K4, 400x225, 30 spp, depth 50, {bounces[0] // 2} bounces): "
+          f"{frame_s:.4f} s on {card}")
+
+    # K4 end to end: equal seeds consume equal draws
+    cam2 = Camera(**COVER_CAMERA, samples_per_pixel=2, max_depth=50)
+    a = render(cover, cam2, torch.Generator(device=dev).manual_seed(6), fused)
+    b, plain_s = synced_s(lambda: render(cover, cam2, torch.Generator(device=dev).manual_seed(6),
+                                         plain))
+    frac = (torch.abs(a - b) <= 1e-4).all(dim=-1).double().mean().item()
+    print(f"oracle, use_pallas on vs off (2 spp, depth 50, equal seeds): {frac:.6f} of pixels "
+          f"within 1e-4, bit-equal {torch.equal(a, b)}; the plain-selection render took "
+          f"{plain_s:.4f} s")
+    check(frac >= 0.999, "use_pallas on and off agree on >= 99.9% of pixels")
+
+    # the BVH walk against the brute scan, one bounce of cover rays
+    o, d, t = (x[:N_CMP] for x in pass_rays(ref_cam, torch.Generator(device=dev).manual_seed(8)))
+    tree = bvh_mod.build_bvh(cover, leaf_size=4)
+    rs = bvh_mod.reorder_scene(cover, tree).to(dev)
+    got = bvh_mod.bvh_closest_hit(o, d, t, rs, tree)
+    ref = closest_hit(o, d, t, rs.center0, rs.center_delta, rs.radius)
+    tie = torch.abs(got.t - ref.t) <= 1e-6 * torch.abs(ref.t)
+    ok = ((got.idx == ref.idx) | tie)[ref.hit]
+    print(f"bvh_closest_hit vs closest_hit ({N_CMP} cover rays, leaf size 4): hit mask equal "
+          f"{torch.equal(got.hit, ref.hit)}, idx equal or t tied {ok.double().mean().item():.6f}")
+    check(torch.equal(got.hit, ref.hit) and bool(ok.all()), "the BVH walk equals the brute scan")
+    return launches
+
+
+def oracle_profile(trace, card: str) -> None:
+    """Where an oracle pass's time goes: one 400x225 pass of the cover
+    scene at 1 spp, depth 50, with K4. Host seconds with the early exit
+    (one host read of `alive.any()` a bounce) and without it, then one
+    pass under torch.profiler: device events, their time, K4's part, and
+    the share of the wall the card was busy."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.render import render_pass
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    dev = torch.device("cuda")
+    cam = Camera(**COVER_CAMERA, samples_per_pixel=1, max_depth=50)
+    scene, derived = make_cover_scene(0, device=dev), cam.derive(torch.float32, dev)
+    w, h = cam.image_size()
+
+    def one_pass(early_exit: bool):
+        return render_pass(scene, derived, torch.Generator(device=dev).manual_seed(5), width=w,
+                           height=h, max_depth=50, spp_chunk=1, early_exit=early_exit,
+                           use_pallas=True, use_megakernel=False)
+
+    one_pass(True)  # warm
+    with counted_bounces() as bounces:
+        one_pass(True)
+    secs = {e: statistics.median(synced_s(lambda: one_pass(e))[1] for _ in range(5))  # noqa: B023
+            for e in (True, False)}
+    print(f"oracle pass (400x225, 1 spp, depth 50, K4): {bounces[0]} bounces with the early "
+          f"exit, {secs[True]:.4f} s; all 50 without it, {secs[False]:.4f} s (medians of 5); "
+          f"{1e3 * secs[True] / bounces[0]:.3f} and {1e3 * secs[False] / 50:.3f} ms a bounce on "
+          f"{card}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_s(lambda: one_pass(True))
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) * 1e-6
+    k4 = [e for e in device if "closest_hit_kernel" in e.name]
+    if not device or busy == 0.0:
+        print("oracle pass profile: no device time in the trace; not measured")
+        return
+    print(f"oracle pass profile: wall {wall:.4f} s (profiler on), {len(device)} device events = "
+          f"{len(device) / bounces[0]:.1f} a bounce, device time {busy:.4f} s, busy share "
+          f"{busy / wall:.3f}; closest_hit_kernel {len(k4)} launches, "
+          f"{1e3 * sum(e.time_range.elapsed_us() for e in k4) * 1e-6:.3f} ms "
+          f"({sum(e.time_range.elapsed_us() for e in k4) * 1e-6 / busy:.3f} of the device time) "
+          f"on {card}")
+
+
+def geometry_probe(name: str, start, cam, spp: int, target, hold: bool) -> None:
+    """What one geometry step of the oracle does to the loss, in float64
+    on one fixed set of draws: the gradient in (center0, radius) against
+    the central difference of the loss along it, and Adam's first step
+    (every coordinate by the learning rate against its gradient's sign).
+
+    With `hold` the difference at a step of 1e-8 or 1e-7 must equal the
+    gradient's norm within 1e-4 (measured 2.4e-7 on the three-sphere
+    scene): the gradient is the derivative of the loss while no path
+    changes its branch. The estimator holds no term for the paths that do
+    (silhouettes, hit or miss, reflect or refract); at Adam's step of 2e-3
+    they outweigh the smooth part, and from the true geometry the loss
+    rises, as it does in the JAX package (tests/test_torch_inverse.py).
+    The cover scene is printed only: a few near-grazing rays, whose
+    radiance goes as the square root of the distance to their silhouette,
+    make its difference quotient depend on the step."""
+    import dataclasses
+
+    import torch
+
+    from raytracingproject_tpu_torch.grad import SceneParams, extract_params, render_loss
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    scene = dataclasses.replace(start.to(dev), **{f: getattr(start, f).to(dev, f64)
+                                                  for f in SceneParams._fields})
+    w, h = cam.image_size()
+    cam64, target = cam.derive(f64, dev), target.to(f64)
+
+    def loss(p):
+        return render_loss(p, scene, cam64, torch.Generator(device=dev).manual_seed(7), target,
+                           width=w, height=h, max_depth=cam.max_depth, spp_chunk=spp)
+
+    p0 = SceneParams(*(x.clone().requires_grad_(True) for x in extract_params(scene)))
+    l0 = loss(p0)
+    g = SceneParams(*torch.autograd.grad(l0, list(p0)))
+    norm = torch.sqrt((g.center0 ** 2).sum() + (g.radius ** 2).sum())
+
+    def moved(dc, dr):
+        with torch.no_grad():
+            return loss(p0._replace(center0=p0.center0.detach() + dc,
+                                    radius=p0.radius.detach() + dr)).item()
+
+    quotients = {eps: (moved(eps * g.center0 / norm, eps * g.radius / norm)
+                       - moved(-eps * g.center0 / norm, -eps * g.radius / norm)) / (2 * eps)
+                 for eps in (1e-8, 1e-7, 1e-5, 1e-3)}
+    lr = 2e-3
+    adam = moved(-lr * torch.sign(g.center0), -lr * torch.sign(g.radius)) - l0.item()
+    first_order = -lr * (g.center0.abs().sum() + g.radius.abs().sum()).item()
+    print(f"oracle geometry gradient, {name} (float64, fixed draws): |grad| {norm.item():.6e}; "
+          "central difference along it at step "
+          + ", ".join(f"{eps:.0e}: {q:.6e}" for eps, q in quotients.items())
+          + f"; Adam's first step of {lr}: loss {adam:+.3e}, first order predicts "
+          f"{first_order:+.3e}")
+    if hold:
+        dev_rel = min(abs(quotients[eps] - norm.item()) for eps in (1e-8, 1e-7)) / norm.item()
+        check(dev_rel <= 1e-4, f"oracle {name}: the geometry gradient is the loss's derivative "
+              f"(relative deviation {dev_rel:.2e})")
+
+
+def oracle_train(trace, card: str) -> None:
+    """`grad.make_train_step` (autograd through the oracle, the winner
+    selected by the plain scan, not K4) at the widths of bench_grad.py's
+    `xla` rows: cover and three-sphere at 200 px, depth 8. Seven steps
+    each, held to finite values and to moving exactly the trainable
+    fields; `geometry_probe` holds the geometry gradient against the
+    loss's derivative and says why these losses need not fall."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.grad import SceneParams, make_train_step
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_three_sphere_scene
+
+    dev = torch.device("cuda")
+    trainable = ("albedo", "center0", "radius")
+    three = make_three_sphere_scene()
+    three_cam = dict(aspect_ratio=16.0 / 9.0, image_width=200, vfov=90.0,
+                     lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0))
+    configs = {  # true scene, start, camera, spp
+        "cover_200px_d8": (make_cover_scene(0), perturbed_cover("geometry"),
+                           dict(COVER_CAMERA, image_width=200), 2),
+        "three_sphere_200px_d8": (
+            three, dataclasses.replace(three, albedo=torch.full_like(three.albedo, 0.5)),
+            three_cam, 4),
+    }
+    trace.reset_launches()
+    for name, (true, start, cam_kw, spp) in configs.items():
+        cam = Camera(**cam_kw, samples_per_pixel=spp, max_depth=8)
+        target = render(true, dataclasses.replace(cam, samples_per_pixel=16),
+                        torch.Generator(device=dev).manual_seed(5), RenderSettings(device="cuda"))
+        # a scene built on the CPU and no device asked for: the step runs on the card
+        params, opt, step = make_train_step(start, cam, spp=spp, learning_rate=2e-3,
+                                            trainable=trainable,
+                                            generator=torch.Generator(device=dev).manual_seed(3))
+        check(params.albedo.is_cuda, f"oracle {name}: the train step runs on the card by default")
+        p0 = SceneParams(*(x.detach().clone() for x in params))
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_STEPS):
+            (params, opt, loss, grads), sec = synced_s(
+                lambda: step(params, opt, None, target))  # noqa: B023
+            losses.append(loss.item())
+            times.append(sec)
+            check(torch.isfinite(loss).item(), f"oracle {name}: finite loss")
+            check(all(torch.isfinite(g).all().item() for g in grads),
+                  f"oracle {name}: finite grads")
+        peak = torch.cuda.max_memory_allocated()
+        for f in SceneParams._fields:
+            moved = not torch.equal(getattr(params, f).detach(), getattr(p0, f))
+            check(moved == (f in trainable), f"oracle {name}: {f} "
+                  f"{'moves' if f in trainable else 'stays bit-unchanged'}")
+        geometry_probe(name, start, cam, spp, target, hold=name.startswith("three"))
+        w, h = cam.image_size()
+        print(f"oracle train step, {name} ({w}x{h}, {spp} spp, depth 8, {w * h * spp} rays, "
+              f"{start.num_spheres} spheres): losses " + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; seconds per step (median of {len(times) - 2} warm) "
+              f"{statistics.median(times[2:]):.4f} s, peak memory {peak / 2**20:.1f} MiB on {card}")
+    check(trace.LAUNCHES["closest_hit"] == 0, "the oracle's train step selects with the plain scan")
+
+
+def oracle_against_replay(card: str) -> None:
+    """Autograd through `ray_color` against `replay_radiance` on
+    `xla_trace_record`'s residuals, for the same rays and draws, on the
+    card (cover, 65,536 rays spread over the image, depth 8), in float64
+    and in float32 (the float64 draws, rounded).
+
+    Within one precision they are one function differentiated twice, and
+    the replay re-solves each winner's quadratic in the recorder's own
+    operation order, so it lands on the recorded hit points. Held, per
+    precision: the replay's radiance against the oracle's, and per field
+    the relative-norm difference of the gradients of a weighted radiance
+    sum (fuzz where fuzz > 0, where the replay can recover the fuzz
+    offset). float64: radiance 1e-10, gradients 1e-7 (measured 1.3e-12 and
+    <= 2.3e-10). float32: radiance within 1e-5 on >= 99.9% of rays,
+    gradients GRAD32_TOL (measured: see there).
+
+    Printed, not held: how far each float32 gradient lies from the float64
+    one. That distance is of order 1 in the geometry fields for both
+    routes alike, because about 1% of the float32 paths take another
+    branch than the float64 ones and because a few near-grazing rays
+    (1 / sqrt(disc) in the root's derivative) carry nearly all of the
+    gradient: the share of the radiance's sensitivity to a random geometry
+    direction (central differences in float64) that the top 0.1% of rays
+    carry is printed beside it."""
+    import dataclasses
+
+    import torch
+
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.grad import (
+        SceneParams, apply_params, extract_params, replay_radiance, xla_trace_record,
+    )
+    from raytracingproject_tpu_torch.materials import draw_scatter
+    from raytracingproject_tpu_torch.render import ray_color
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    dev = torch.device("cuda")
+    depth = 8
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cover = make_cover_scene(0, device=dev)
+    rays = pass_rays(Camera(**COVER_CAMERA, samples_per_pixel=1, max_depth=depth), gen)
+    pick = torch.arange(N_CMP, device=dev) * rays[0].shape[0] // N_CMP  # spread over the image
+    draws64 = [draw_scatter(gen, (N_CMP,), torch.float64) for _ in range(depth)]
+    w64 = torch.rand((N_CMP, 3), generator=gen, device=dev, dtype=torch.float64)
+    grads, records = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        scene = dataclasses.replace(cover, **{f: getattr(cover, f).to(dtype)
+                                              for f in SceneParams._fields})
+        o, d, t = (x[pick].to(dtype) for x in rays)
+        draws = [type(dr)(*(x.to(dtype) for x in dr)) for dr in draws64]
+        w = w64.to(dtype)
+        pp = SceneParams(*(x.clone().requires_grad_(True) for x in extract_params(scene)))
+        rad = ray_color(apply_params(scene, pp), o, d, t, None, depth, draws=draws)
+        g_oracle = torch.autograd.grad((rad * w).sum(), list(pp))
+        rad_rec, res = xla_trace_record(scene, o, d, t, None, depth, draws=draws)
+        rad_rep = replay_radiance(pp, scene, o, d, t, res)
+        g_replay = torch.autograd.grad((rad_rep * w).sum(), list(pp))
+        torch.cuda.synchronize()
+        grads[dtype], records[dtype] = (g_oracle, g_replay), res
+        diff = torch.abs(rad_rep - rad).max(dim=1).values
+        frac = (diff <= 1e-5).double().mean().item()
+        lit = scene.fuzz > 0
+
+        def errs(ga, gb):
+            return {f: rel_err(a[lit] if f == "fuzz" else a, b[lit] if f == "fuzz" else b)
+                    for f, a, b in zip(SceneParams._fields, ga, gb)}
+
+        show = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())  # noqa: E731
+        err = errs(g_replay, g_oracle)
+        name = str(dtype).removeprefix("torch.")
+        print(f"oracle vs replay of its record ({N_CMP} cover rays, depth {depth}, {name}): "
+              f"recorder radiance == ray_color {torch.equal(rad_rec, rad.detach())}; replay "
+              f"within 1e-5 on {frac:.6f} of rays, max |diff| {diff.max().item():.3e}; gradient "
+              f"relative errors {show(err)}; on {card}")
+        check(torch.isfinite(rad).all().item()
+              and all(torch.isfinite(g).all().item() for g in g_oracle + g_replay),
+              f"oracle and replay gradients finite ({name})")
+        check(torch.equal(rad_rec, rad.detach()),
+              f"xla_trace_record returns ray_color's radiance ({name})")
+        if dtype == torch.float64:
+            check(diff.max().item() <= 1e-10, "float64: replay radiance equals the oracle's")
+            check(max(err.values()) <= 1e-7, "float64: oracle and replay gradients agree")
+            continue
+        check(frac >= 0.999, "float32: >= 99.9% of rays within 1e-5 of the replay")
+        check(max(err.values()) <= GRAD32_TOL,
+              f"float32: oracle and replay gradients agree within {GRAD32_TOL}")
+        g64 = grads[torch.float64][0]
+        r64 = records[torch.float64]
+        same = ((res.idx == r64.idx) & (res.refl == r64.refl)).all(dim=0).double().mean().item()
+        # per-ray sensitivity to one random geometry direction, float64
+        scene64 = dataclasses.replace(cover, **{f: getattr(cover, f).double()
+                                                for f in SceneParams._fields})
+        vc = torch.randn(cover.center0.shape, generator=gen, device=dev, dtype=torch.float64)
+        vr = torch.randn(cover.radius.shape, generator=gen, device=dev, dtype=torch.float64)
+        o64, d64, t64 = (x[pick].double() for x in rays)
+        h = 1e-7
+        with torch.no_grad():
+            up, down = (ray_color(dataclasses.replace(
+                scene64, center0=scene64.center0 + sgn * h * vc,
+                radius=scene64.radius + sgn * h * vr), o64, d64, t64, None, depth, draws=draws64)
+                for sgn in (1.0, -1.0))
+        sens = torch.sort(((up - down).abs() * w64).sum(dim=1), descending=True).values
+        top = max(1, N_CMP // 1000)
+        print(f"float32 against float64 gradients: oracle {show(errs(g_oracle, g64))}; replay "
+              f"{show(errs(g_replay, g64))}; the float32 record equals the float64 one on "
+              f"{same:.6f} of rays; the top {top} rays carry "
+              f"{(sens[:top].sum() / sens.sum()).item():.4f} of the radiance's sensitivity to a "
+              f"random geometry direction")
+
+
 def perturbed_cover(kind: str, seed: int = 11):
     """The cover scene with its trainable fields moved off the truth:
     `geometry` moves albedo, the small spheres' centres (sigma 0.01) and
@@ -219,10 +838,11 @@ def perturbed_cover(kind: str, seed: int = 11):
     return dataclasses.replace(s, albedo=albedo, fuzz=fuzz, ior=ior)
 
 
-def step_rays(cam, gen):
+def step_rays(cam, gen, seed: bool = True):
     """One train step's camera rays (400x225 at the camera's spp, in the
     [spp, H, W] order) and path seed, drawn from `gen` as
-    make_fast_train_step's step draws them."""
+    make_fast_train_step's step draws them; without `seed` the rays
+    alone."""
     import torch
 
     from raytracingproject_tpu_torch.camera import camera_uniforms, rays_from_uniforms
@@ -233,8 +853,9 @@ def step_rays(cam, gen):
     o, d, t = rays_from_uniforms(cam.derive(torch.float32, dev), (pix % w).to(torch.int32),
                                  (pix // w).to(torch.int32),
                                  *camera_uniforms(pix.shape[0], gen, dev))
-    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=dev))
-    return o, d, t, seed
+    if not seed:
+        return o, d, t
+    return o, d, t, int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=dev))
 
 
 def train_full_width(mk, card: str) -> tuple[dict, dict, dict]:
@@ -310,16 +931,16 @@ def train_full_width(mk, card: str) -> tuple[dict, dict, dict]:
     return launches, step_s, rec_err
 
 
-def descent(card: str) -> None:
-    """Phase 11: albedo-only descent on the three-sphere scene (128x72,
-    4 spp, depth 8, 40 steps of Adam(5e-2) from albedo 0.5)."""
+def descent(make_step, what: str) -> None:
+    """Albedo-only descent on the three-sphere scene (128x72, 4 spp,
+    depth 8, 40 steps of Adam(5e-2) from albedo 0.5) with `make_step`
+    (make_fast_train_step in phase 11, make_train_step for the oracle)."""
     import dataclasses
 
     import torch
 
     from raytracingproject_tpu_torch.camera import Camera
     from raytracingproject_tpu_torch.config import RenderSettings
-    from raytracingproject_tpu_torch.grad import make_fast_train_step
     from raytracingproject_tpu_torch.render import render
     from raytracingproject_tpu_torch.scene import make_three_sphere_scene
 
@@ -330,20 +951,20 @@ def descent(card: str) -> None:
     target = render(true, dataclasses.replace(cam, samples_per_pixel=64),
                     torch.Generator(device=dev).manual_seed(1),
                     RenderSettings(device="cuda", use_bvh=False))
-    start = dataclasses.replace(true, albedo=torch.full_like(true.albedo, 0.5)).to(dev)
-    params, opt, step = make_fast_train_step(start, cam, spp=4, learning_rate=5e-2,
-                                             trainable=("albedo",),
-                                             generator=torch.Generator(device=dev).manual_seed(2))
+    start = dataclasses.replace(true, albedo=torch.full_like(true.albedo, 0.5))  # on the CPU
+    params, opt, step = make_step(start, cam, spp=4, learning_rate=5e-2, trainable=("albedo",),
+                                  generator=torch.Generator(device=dev).manual_seed(2))
+    check(params.albedo.is_cuda, f"descent, {what}: the train step runs on the card by default")
     losses = []
     for _ in range(40):
         params, opt, loss, _ = step(params, opt, None, target)
         losses.append(loss.item())
     ratio = (sum(losses[-5:]) / 5) / (sum(losses[:5]) / 5)
     err = torch.abs(params.albedo.detach().cpu() - true.albedo)[:2].max().item()
-    print(f"descent (three spheres, 128x72, 4 spp, depth 8, albedo, 40 steps): loss "
+    print(f"descent, {what} (three spheres, 128x72, 4 spp, depth 8, albedo, 40 steps): loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}, last-5 / first-5 mean ratio {ratio:.4f} "
           f"(limit {DESCENT_RATIO}); max |albedo - truth| over the two diffuse spheres {err:.4f}")
-    check(ratio < DESCENT_RATIO, "descent: the loss falls")
+    check(ratio < DESCENT_RATIO, f"descent, {what}: the loss falls")
 
 
 def time_training(mk, scene, front, o, d, t, card: str) -> dict:
@@ -448,7 +1069,9 @@ def main() -> int:
     from raytracingproject_tpu_torch.color import to_u8
     from raytracingproject_tpu_torch.config import RenderSettings
     from raytracingproject_tpu_torch.ops.cuda import build
+    from raytracingproject_tpu_torch.grad import make_fast_train_step, make_train_step
     from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+    from raytracingproject_tpu_torch.ops.cuda import trace
     from raytracingproject_tpu_torch.ops.rng import bounce_bits
     from raytracingproject_tpu_torch.render import (
         _slot_rays, prepare_scene, render, render_image,
@@ -465,11 +1088,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. build ----
-    build.build()
-    build.load_library()
-    print(f"build: nvcc {build.BUILD_INFO['seconds']:.1f} s")
+    build.build()  # every source under csrc/, one nvcc each, started together
+    for name in build.LIBRARIES:
+        build.load_library(name)
+    print(f"build: nvcc {build.BUILD_INFO['seconds']:.1f} s for {len(build.LIBRARIES)} sources")
     for line in str(build.BUILD_INFO["log"]).splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or line.startswith("==")):
             print(f"  ptxas: {line.strip()}")
 
     # ---- 2. the generator: kernel against ops/rng.py, bit for bit ----
@@ -561,6 +1186,7 @@ def main() -> int:
     # ---- 7. times at the bench shape (400x225, 4 spp, depth 16) ----
     n_rays = w * h * 4
     kernels = []
+    counts = {}
     for path in ("brute", "front"):
         f = front if path == "front" else None
 
@@ -577,10 +1203,17 @@ def main() -> int:
         print(f"{path}: kernel {ms:.3f} ms = {n_rays / ms / 1e3:.3f} Mrays/s; twin "
               f"{plain_ms:.3f} ms = {n_rays / plain_ms / 1e3:.3f} Mrays/s "
               f"({n_rays} camera rays, depth 16) on {card}")
+        counts[path] = count_tests(mk, o, d, t, scene, f, 99, 16)
+        tab_bytes = 4 * (scene.num_spheres * mk.N_ROWS if f is None
+                         else f.sph.numel() + f.ff.numel())
+        b_ms, b_by = megakernel_bound(counts[path], n_rays, 16, tab_bytes, record=False)
+        print(f"{path}: these rays need {counts[path]}; bound {b_ms:.4f} ms by {b_by}, the "
+              f"kernel reaches {b_ms / ms:.3f} of it")
         kernels.append({
             "name": f"megakernel_{path}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[path], "launches": launches[path],
             "max_abs_err": max_err[path], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
 
     # ---- 8. K5 (brute and front) against its plain version ----
@@ -593,7 +1226,7 @@ def main() -> int:
     train_launches, step_s, train_err = train_full_width(mk, card)
 
     # ---- 11. descent ----
-    descent(card)
+    descent(make_fast_train_step, "fast path")
 
     # ---- 12. times: K5 and the replay at the bench shape, the step's split ----
     rec_times = time_training(mk, scene, front, o, d, t, card)
@@ -604,11 +1237,41 @@ def main() -> int:
     for path in ("brute", "front"):
         key = f"record_{path}"
         ms, plain_ms = rec_times[path]
+        f = front if path == "front" else None
+        tab_bytes = 4 * (scene.num_spheres * mk.N_ROWS if f is None
+                         else f.sph.numel() + f.ff.numel())
+        b_ms, b_by = megakernel_bound(counts[path], n_rays, 16, tab_bytes, record=True)
+        print(f"record_{path}: bound {b_ms:.4f} ms by {b_by}, the kernel reaches "
+              f"{b_ms / ms:.3f} of it")
         kernels.append({
             "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[key], "launches": train_launches[key],
             "max_abs_err": max(rec_err[path], train_err[path]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+
+    # ---- 13. K4 against its plain version, and its time at the main path's shape ----
+    k4_err, k4_ms, k4_plain_ms, (k4_bound_ms, k4_bound_by) = closest_hit_against_twin(trace, card)
+
+    # ---- 14. the oracle's main path (render_image, render with K4), K4 end to end, the BVH walk
+    k4_launches = oracle_frame(trace, card, m_k)
+    kernels.append({
+        "name": "closest_hit", "route": "cuda", "source": K4_SOURCE,
+        "replaces": REPLACES["closest_hit"], "launches": k4_launches, "max_abs_err": k4_err,
+        "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
+        "bound_by": k4_bound_by, "library_ms": None,
+    })
+
+    oracle_profile(trace, card)
+
+    # ---- 15. the oracle's train step at 200 px, depth 8 (cover and three-sphere) ----
+    oracle_train(trace, card)
+
+    # ---- 16. descent through the oracle ----
+    descent(make_train_step, "oracle")
+
+    # ---- 17. the oracle's gradients against the replay of its own record ----
+    oracle_against_replay(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

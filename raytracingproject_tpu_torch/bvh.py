@@ -1,15 +1,17 @@
 """BVH: host-side build and the subtree front (counterpart of
 raytracingproject_tpu/bvh.py).
 
-- `build_bvh`: the JAX package's native binned-SAH builder
-  (native/bvh_builder.cpp, loaded by path), else the same Python
-  median-split build. Flattened in DFS pre-order with miss links.
+- `build_bvh`: the native binned-SAH builder (native/bvh_builder.cpp),
+  else the same Python median-split build. Flattened in DFS pre-order with miss links.
 - `bvh_front`: a disjoint cut of subtrees covering every sphere, the
   culling structure of the front-culled megakernel (K3).
 - `reorder_scene`: permute the scene into leaf order.
 
-The tree lives on the host as CPU tensors; the per-ray traversal
-`bvh_closest_hit` waits for ROADMAP item P2.
+- `bvh_closest_hit`: the per-ray stackless walk, a forward-only oracle
+  for the culled kernels (plain PyTorch ops, not a kernel).
+
+`build_bvh` returns the tree as CPU tensors; `bvh_closest_hit` takes it on
+the rays' device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from raytracingproject_tpu_torch.config import T_MAX, T_MIN
+from raytracingproject_tpu_torch.ops.intersect import HitRecord, dot3, hit_geometry
 from raytracingproject_tpu_torch.scene import Scene
 
 LEAF_SIZE = 4
@@ -234,3 +238,81 @@ def bvh_front(bvh: FlatBVH, max_nodes: int = 32, max_count: int | None = None,
 def reorder_scene(scene: Scene, bvh: FlatBVH) -> Scene:
     """Permute the sphere arrays into BVH leaf order."""
     return scene.take(bvh.prim_order)
+
+
+def bvh_closest_hit(
+    origin: torch.Tensor,     # [R, 3]
+    direction: torch.Tensor,  # [R, 3]
+    time: torch.Tensor,       # [R]
+    scene: Scene,             # must be reorder_scene(scene, bvh)
+    bvh: FlatBVH,
+    t_min: float = T_MIN,
+) -> HitRecord:
+    """Stackless closest-hit traversal, vectorised over rays: equals
+    ops.intersect.closest_hit on the reordered scene up to ties (indices
+    are into the reordered arrays). Forward only: no gradient.
+
+    Every ray holds a node pointer; the loop runs until every pointer is
+    the sentinel (one host read per iteration). An iteration is one box
+    test and, on leaf lanes, a window of sphere tests. The window is the
+    largest `leaf_count` of the tree it is given, so any `leaf_size` of
+    `build_bvh` is covered (the JAX function's window is its LEAF_SIZE)."""
+    dev = origin.device
+    bvh = FlatBVH(*(x.to(dev) for x in bvh))
+    with torch.no_grad():
+        c0, cd, radius = scene.center0, scene.center_delta, scene.radius
+        n_rays, n_prims = origin.shape[0], radius.shape[0]
+        inv_d = 1.0 / torch.where(torch.abs(direction) > 1e-20, direction, 1e-20)
+        a_quad = torch.clamp_min(dot3(direction, direction), 1e-20)[:, None]
+        inv_a = 1.0 / a_quad
+        window = max(int(bvh.leaf_count.max()), 1)
+        offsets = torch.arange(window, device=dev)
+        miss_link, leaf_start = bvh.miss_link.long(), bvh.leaf_start.long()
+        leaf_count = bvh.leaf_count.long()
+
+        ptr = torch.zeros((n_rays,), dtype=torch.int64, device=dev)
+        best_t = torch.full((n_rays,), T_MAX, dtype=origin.dtype, device=dev)
+        best_idx = torch.zeros((n_rays,), dtype=torch.int64, device=dev)
+        while bool((ptr != SENTINEL).any()):
+            active = ptr != SENTINEL
+            node = torch.where(active, ptr, 0)
+            t0 = (bvh.node_min[node] - origin) * inv_d
+            t1 = (bvh.node_max[node] - origin) * inv_d
+            tn = torch.clamp_min(torch.amax(torch.minimum(t0, t1), dim=-1), t_min)
+            tf = torch.minimum(torch.amin(torch.maximum(t0, t1), dim=-1), best_t)
+            box_hit = active & (tf > tn)
+            lcount = leaf_count[node]
+            is_leaf = lcount > 0
+
+            prim = torch.clamp_max(leaf_start[node][:, None] + offsets[None, :], n_prims - 1)
+            pvalid = (offsets[None, :] < lcount[:, None]) & (box_hit & is_leaf)[:, None]
+            center = c0[prim] + time[:, None, None] * cd[prim]   # [R, L, 3]
+            rad = radius[prim]                                   # [R, L]
+            oc = origin[:, None, :] - center
+            half_b = dot3(oc, direction[:, None, :])
+            cq = dot3(oc, oc) - rad * rad
+            disc = half_b * half_b - a_quad * cq
+            dpos = disc > 0.0
+            sq = torch.sqrt(torch.where(dpos, disc, 1.0))
+            r0 = (-half_b - sq) * inv_a
+            r1 = (-half_b + sq) * inv_a
+            in0 = (r0 > t_min) & (r0 < best_t[:, None])
+            in1 = (r1 > t_min) & (r1 < best_t[:, None])
+            root = torch.where(pvalid & dpos & (in0 | in1), torch.where(in0, r0, r1), T_MAX)
+
+            lane = torch.argmin(root, dim=-1, keepdim=True)
+            lane_t = torch.gather(root, 1, lane)[:, 0]
+            better = lane_t < best_t
+            best_t = torch.where(better, lane_t, best_t)
+            best_idx = torch.where(better, torch.gather(prim, 1, lane)[:, 0], best_idx)
+
+            # an inner node that was hit descends to its first child
+            # (ptr + 1); a leaf, or any miss, skips along the miss link
+            nxt = torch.where(box_hit & ~is_leaf, node + 1, miss_link[node])
+            ptr = torch.where(active, nxt, SENTINEL)
+
+        hit = torch.isfinite(best_t)
+        p, normal, front_face = hit_geometry(origin, direction, time, c0, cd, radius,
+                                             best_t, best_idx, hit)
+    return HitRecord(t=best_t, idx=best_idx.to(torch.int32), hit=hit, p=p, normal=normal,
+                     front_face=front_face)

@@ -5,9 +5,11 @@ exceptions:
 
 - `dtype` is a torch dtype;
 - `device` is added: the device the render runs on;
-- `use_megakernel` and `use_bvh` default to True. The port's only renderer
-  so far is the megakernel (K1 with the brute K2 or the front-culled K3
-  closest hit); the XLA-style oracle path arrives with ROADMAP item P2.
+- `use_megakernel` and `use_bvh` default to True: the port renders on the
+  megakernel (K1 with the brute K2 or the front-culled K3 closest hit)
+  unless asked for the oracle loop, the JAX package's default
+  (`use_megakernel=False`; with `use_pallas` its closest hit is the fused
+  kernel K4, with `use_bvh` alone the per-ray BVH walk).
 """
 
 from __future__ import annotations
@@ -28,6 +30,18 @@ T_MIN = 1e-3
 T_MAX = math.inf
 
 
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an entry point runs on: the one asked for, else the card
+    when there is one, else the CPU. Asking for "cuda" without a card
+    raises."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Renderer settings (reference: src/common_objects.h:9-15)."""
@@ -45,23 +59,24 @@ class RenderSettings:
     device: str | torch.device | None = None
     # Rays per sample chunk; pixels*spp are chunked to this size.
     rays_per_batch: int = 1 << 17
-    # The XLA path's fused closest-hit kernel (K4); not ported yet.
+    # The oracle loop's fused closest-hit kernel (K4); needs
+    # use_megakernel=False and wins over the BVH walk.
     use_pallas: bool = False
-    # Whole bounce loop in one kernel (K1). The only renderer of the port.
+    # Whole bounce loop in one kernel (K1). False renders on the oracle
+    # loop (render.ray_color), the path autograd differentiates.
     use_megakernel: bool = True
     # With the megakernel: front-culled closest hit (K3) instead of the
-    # brute scan (K2).
+    # brute scan (K2). With the oracle loop: the per-ray BVH walk instead
+    # of the brute scan.
     use_bvh: bool = True
     # Max primitives per BVH leaf; the megakernel raises it to 8.
     bvh_leaf_size: int = 4
     # Kept for parity with the JAX settings; the port synchronises only at
-    # the end of a render.
+    # the end of a render (and once a bounce for the oracle's early exit).
     sync_every: int = 4
     # Depth-tail pipelines (ROADMAP P8); not ported yet.
     depth_segment: int | None = None
     two_phase: int | None = None
 
     def resolved_device(self) -> torch.device:
-        if self.device is None:
-            return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-        return torch.device(self.device)
+        return resolve_device(self.device)

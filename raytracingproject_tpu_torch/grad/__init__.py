@@ -1,10 +1,13 @@
-"""Differentiable rendering: parameter packing, path replay and the fast
-inverse-rendering train step (counterpart of raytracingproject_tpu/grad).
+"""Differentiable rendering: parameter packing, the oracle's reverse mode,
+path replay and the fast inverse-rendering train step (counterpart of
+raytracingproject_tpu/grad).
 
 The state a train step carries is `SceneParams` (the six differentiable
-scene fields) and, between the forward and the backward, `PathResiduals`
-(the recorded path decisions). `render_loss` and `make_train_step` differ-
-entiate the XLA-style renderer and raise until it is ported (ROADMAP P2).
+scene fields) and, on the fast path between the forward and the backward,
+`PathResiduals` (the recorded path decisions). `render_loss` and
+`make_train_step` differentiate the oracle renderer with autograd;
+`make_fast_train_step` records with the megakernel and differentiates the
+replay; `xla_trace_record` records with the oracle.
 """
 
 from raytracingproject_tpu_torch.grad.fast import (
@@ -20,7 +23,9 @@ from raytracingproject_tpu_torch.grad.inverse import (
     render_loss,
     trainable_mask,
 )
-from raytracingproject_tpu_torch.grad.replay import DEAD, MISS, PathResiduals, replay_radiance
+from raytracingproject_tpu_torch.grad.replay import (
+    DEAD, MISS, PathResiduals, replay_radiance, xla_trace_record,
+)
 
 __all__ = [
     "SceneParams",
@@ -33,6 +38,7 @@ __all__ = [
     "MISS",
     "DEAD",
     "replay_radiance",
+    "xla_trace_record",
     "GEOMETRY_FIELDS",
     "make_fast_radiance",
     "make_fast_train_step",

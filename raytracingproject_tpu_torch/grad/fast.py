@@ -24,8 +24,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from raytracingproject_tpu_torch.camera import camera_uniforms, rays_from_uniforms
+from raytracingproject_tpu_torch.config import resolve_device
 from raytracingproject_tpu_torch.grad.inverse import (
-    SceneParams, apply_params, extract_params, trainable_mask,
+    SceneParams, apply_params, apply_updates, init_train_state, trainable_mask,
 )
 from raytracingproject_tpu_torch.grad.replay import check_gather, replay_radiance
 from raytracingproject_tpu_torch.ops.cuda.megakernel import (
@@ -107,29 +108,6 @@ def make_fast_radiance(scene: Scene, max_depth: int, front: FrontTables | None =
     return radiance_fn
 
 
-def _optimizer_params(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
-    return [p for group in optimizer.param_groups for p in group["params"]]
-
-
-def apply_updates(optimizer: torch.optim.Optimizer, params: SceneParams, grads: SceneParams,
-                  mask: SceneParams) -> None:
-    """One optimizer step on the trainable fields of `params`, in place;
-    frozen fields are not touched (optax's `set_to_zero` in the JAX
-    package). `optimizer` must have been built over exactly those
-    tensors."""
-    trained = [getattr(params, f) for f in SceneParams._fields if getattr(mask, f)]
-    held = _optimizer_params(optimizer)
-    if len(held) != len(trained) or any(a is not b for a, b in zip(held, trained)):
-        raise ValueError("params are not the tensors the optimizer holds: pass the "
-                         "SceneParams returned by make_fast_train_step or by the last step "
-                         "(the optimizer updates them in place)")
-    for f in SceneParams._fields:
-        if getattr(mask, f):
-            getattr(params, f).grad = getattr(grads, f)
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
-
-
 def make_fast_train_step(
     scene: Scene,
     camera,
@@ -162,6 +140,10 @@ def make_fast_train_step(
     relative after ten steps). It updates the trainable fields in place;
     frozen fields stay bit-unchanged.
 
+    The step runs on `device`, by default the card when there is one, else
+    the CPU, as `render` does (`config.resolve_device`); the scene, the
+    front and each step's target are moved there.
+
     Returns (params0, opt_state0, step) with
     step(params, opt_state, generator, target [H, W, 3]) ->
         (params, opt_state, loss, grads).
@@ -181,7 +163,7 @@ def make_fast_train_step(
                 f"front snapshots FIXED geometry but {sorted(geo)} are trainable; train "
                 "materials only, or pass front=None for geometry training")
     mask = trainable_mask(trainable)
-    device = scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     scene = scene.to(device)
     if front is not None:
         front = front.to(device)
@@ -207,14 +189,10 @@ def make_fast_train_step(
         return torch.mean((img - target) ** 2)
 
     def step(params: SceneParams, opt_state, gen: torch.Generator | None, target):
-        loss = loss_fn(params, generator if gen is None else gen, target)
+        loss = loss_fn(params, generator if gen is None else gen, target.to(device))
         grads = SceneParams(*torch.autograd.grad(loss, list(params)))
         apply_updates(opt_state, params, grads, mask)
         return params, opt_state, loss.detach(), grads
 
-    params0 = SceneParams(*(x.detach().clone().requires_grad_(True)
-                            for x in extract_params(scene)))
-    trained = [getattr(params0, f) for f in SceneParams._fields if getattr(mask, f)]
-    opt_state0 = (optimizer(trained) if optimizer is not None
-                  else torch.optim.Adam(trained, lr=learning_rate))
+    params0, opt_state0 = init_train_state(scene, mask, optimizer, learning_rate)
     return params0, opt_state0, step

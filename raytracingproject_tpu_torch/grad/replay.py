@@ -1,8 +1,9 @@
 """Path-replay backpropagation: an O(depth) backward pass for path tracing
 (counterpart of raytracingproject_tpu/grad/replay.py).
 
-The recording megakernel (ops/cuda/megakernel.py `trace_record`) stores
-each bounce's discrete path decisions: the sphere hit (or MISS / DEAD),
+The recording megakernel (ops/cuda/megakernel.py `trace_record`) and the
+oracle's recorder (`xla_trace_record` here) store each bounce's discrete
+path decisions: the sphere hit (or MISS / DEAD),
 the scattered direction and the dielectric reflect bit. `replay_radiance`
 re-evaluates those paths as a differentiable function of the scene
 parameters: per bounce only the known winner's quadratic is re-solved,
@@ -27,15 +28,17 @@ absorption) carry no score-function term.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
 from raytracingproject_tpu_torch.config import DIELECTRIC, LAMBERTIAN, METAL, T_MIN
 from raytracingproject_tpu_torch.grad.inverse import SceneParams, apply_params
+from raytracingproject_tpu_torch.materials import ScatterDraws, draw_scatter, scatter_from_draws
 # idx codes (per bounce): >= 0 hit that sphere; MISS = sky then retire;
 # DEAD = ray already terminated (nothing happens).
 from raytracingproject_tpu_torch.ops.cuda.megakernel import DEAD, MISS
+from raytracingproject_tpu_torch.ops.intersect import closest_hit
 from raytracingproject_tpu_torch.ops.vecmath import dot, refract
 from raytracingproject_tpu_torch.render import sky_color
 from raytracingproject_tpu_torch.scene import Scene
@@ -48,6 +51,49 @@ class PathResiduals(NamedTuple):
     idx: torch.Tensor   # [D, R] int32: hit sphere / MISS / DEAD
     ndir: torch.Tensor  # [D, R, 3] float: scattered direction (0 unless hit)
     refl: torch.Tensor  # [D, R] bool: dielectric reflect branch taken
+
+
+def xla_trace_record(
+    scene: Scene,
+    origin: torch.Tensor,
+    direction: torch.Tensor,
+    time: torch.Tensor,
+    generator: torch.Generator | None,
+    max_depth: int,
+    draws: Sequence[ScatterDraws] | None = None,
+) -> tuple[torch.Tensor, PathResiduals]:
+    """The oracle's forward trace that also records PathResiduals
+    (xla_trace_record of the JAX package, grad/replay.py:158-202): the
+    radiance of `render.ray_color` for the same draws (bounce k takes the
+    k-th set from `generator`, or `draws[k]`), and the residuals the
+    recording megakernel writes. The in-package residual source where no
+    kernel runs; forward only."""
+    n = origin.shape[0]
+    dtype, dev = origin.dtype, origin.device
+    o, d = origin, direction
+    thr = torch.ones((n, 3), dtype=dtype, device=dev)
+    rad = torch.zeros((n, 3), dtype=dtype, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    res_idx = torch.full((max_depth, n), DEAD, dtype=torch.int32, device=dev)
+    res_ndir = torch.zeros((max_depth, n, 3), dtype=dtype, device=dev)
+    res_refl = torch.zeros((max_depth, n), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for depth in range(max_depth):
+            dr = draws[depth] if draws is not None else draw_scatter(generator, (n,), dtype)
+            rec = closest_hit(o, d, time, scene.center0, scene.center_delta, scene.radius,
+                              t_min=T_MIN)
+            sc = scatter_from_draws(dr, d, rec, scene)
+            miss = alive & ~rec.hit
+            rad = rad + torch.where(miss[:, None], thr * sky_color(d), 0.0)
+            hit_live = alive & rec.hit
+            thr = torch.where(hit_live[:, None], thr * sc.attenuation, thr)
+            res_idx[depth] = torch.where(hit_live, rec.idx, torch.where(miss, MISS, DEAD))
+            res_ndir[depth] = torch.where(hit_live[:, None], sc.direction, 0.0)
+            res_refl[depth] = sc.dielectric_reflected & hit_live
+            alive = hit_live & sc.scattered
+            o = torch.where(hit_live[:, None], rec.p, o)
+            d = torch.where(hit_live[:, None], sc.direction, d)
+    return rad, PathResiduals(idx=res_idx, ndir=res_ndir, refl=res_refl)
 
 
 def _attr_table(scene_p: Scene, scene: Scene) -> torch.Tensor:
@@ -64,6 +110,14 @@ def _attr_table(scene_p: Scene, scene: Scene) -> torch.Tensor:
         ],
         dim=1,
     )
+
+
+def _dot_xyz(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """`ops.intersect.dot3`'s value, (x + y) + z, from one product: three
+    small kernels a call instead of five, and one `stack` in the backward
+    instead of six slice scatters (the replay is bound by launches)."""
+    x, y, z = (u * v).unbind(-1)
+    return x + y + z
 
 
 def _make_live_step(table: torch.Tensor):
@@ -96,17 +150,24 @@ def _make_live_step(table: torch.Tensor):
         mat = attrs[:, 12].to(torch.int32)
 
         # re-solve the winner's quadratic (src/sphere.h:30-57): the closest
-        # root is r0 when r0 > t_min, else r1 (r0 <= r1 always)
+        # root is r0 when r0 > t_min, else r1 (r0 <= r1 always). Written as
+        # the recorders write it (`ops.intersect._roots`, the kernels'
+        # `_sphere_t`): dot products as (x + y) + z and times the
+        # reciprocal, so that in float32
+        # the replay lands on the recorded hit point whatever the device's
+        # reduction order (a 1000-unit sphere's quadratic cancels enough for
+        # that order alone to move t by 4e-4 relative)
         cc = c0 + time[:, None] * cd
         oc = o - cc
-        a = torch.clamp_min(dot(d, d), 1e-20)
-        hb = dot(oc, d)
-        cq = dot(oc, oc) - rad * rad
+        a = torch.clamp_min(_dot_xyz(d, d), 1e-20)
+        hb = _dot_xyz(oc, d)
+        cq = _dot_xyz(oc, oc) - rad * rad
         disc = hb * hb - a * cq
         dpos = disc > 0.0
         sq = torch.sqrt(torch.where(dpos, disc, 1.0))
-        r0 = (-hb - sq) / a
-        r1 = (-hb + sq) / a
+        inv_a = 1.0 / a
+        r0 = (-hb - sq) * inv_a
+        r1 = (-hb + sq) * inv_a
         t = torch.where(r0 > T_MIN, r0, r1)
         t = torch.where(hit, t, 1.0)
 

@@ -1,11 +1,10 @@
 """Native (C++) host components, loaded with ctypes.
 
-The sources are the JAX package's own (`raytracingproject_tpu/native/
-bvh_builder.cpp` and `ppm_io.cpp`). They are reached by file path, not by
-import: importing anything under `raytracingproject_tpu` imports jax.
-g++ builds them on first use into this package's `build/` directory,
-which git ignores. Callers keep the JAX package's pure-Python paths for a
-host without g++.
+`bvh_builder.cpp` and `ppm_io.cpp` in this directory are the port's own
+copies of the JAX package's native sources (the same code; a test holds
+that), so the port works installed or copied without the JAX package.
+g++ builds them on first use into this directory's `build/`, which git
+ignores. Callers keep the pure-Python paths for a host without g++.
 """
 
 from __future__ import annotations
@@ -19,8 +18,8 @@ from pathlib import Path
 
 log = logging.getLogger("raytracingproject_tpu_torch.native")
 
-SOURCE_DIR = Path(__file__).resolve().parents[2] / "raytracingproject_tpu" / "native"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCE_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SOURCE_DIR / "build"
 _libs: dict[str, ctypes.CDLL | None] = {}
 
 

@@ -1,9 +1,10 @@
-"""Build and bind csrc/megakernel.cu: nvcc into a shared library with a
-plain C interface, loaded with ctypes.
+"""Build and bind the CUDA sources under csrc/: nvcc turns each into a
+shared library with a plain C interface, loaded with ctypes.
 
-The library is built at first use from the package's own source into the
+Each library is built at first use from the package's own source into the
 package's `build/` directory (ignored by git), so a fresh checkout builds
-everything it runs. There is no fallback: a missing nvcc or a failed build
+everything it runs; `build()` compiles several sources at once, one nvcc
+process each. There is no fallback: a missing nvcc or a failed build
 raises.
 """
 
@@ -18,43 +19,59 @@ import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
-SOURCE = PACKAGE_DIR / "csrc" / "megakernel.cu"
 BUILD_DIR = PACKAGE_DIR / "build"
-LIBRARY = BUILD_DIR / "libmegakernel.so"
 
 # Hopper with its architecture-specific features (sm_90a). No
 # --use_fast_math and no FMA contraction: IEEE sqrtf/logf/division and
-# separately rounded products keep the kernel equal to its plain PyTorch
+# separately rounded products keep each kernel equal to its plain PyTorch
 # version ray for ray. -Xptxas -v reports registers and spills per kernel.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# What the last build of this process reported (seconds, nvcc's stderr).
+# What the last build of this process reported (seconds of the whole
+# build, nvcc's stderr of every source).
 BUILD_INFO: dict[str, object] = {"seconds": None, "log": ""}
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-_SIGNATURES = {
-    "rtp_rays_per_block": ([], _I),
-    "rtp_error_string": ([_I], ctypes.c_char_p),
-    "rtp_trace_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
-    "rtp_trace_front": (
-        [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I, _P], _I,
-    ),
-    "rtp_record_brute": (
-        [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
-    ),
-    "rtp_record_front": (
-        [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I,
-         _P, _P, _P, _P, _P, _P], _I,
-    ),
-    "rtp_philox": ([_P, _I, _U, _I, _P], _I),
+_ERROR_STRING = ([_I], ctypes.c_char_p)
+# library name (csrc/<name>.cu -> build/lib<name>.so) -> its C entry points
+LIBRARIES = {
+    "megakernel": {
+        "rtp_rays_per_block": ([], _I),
+        "rtp_error_string": _ERROR_STRING,
+        "rtp_trace_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
+        "rtp_trace_front": (
+            [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I, _P],
+            _I,
+        ),
+        "rtp_record_brute": (
+            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
+        ),
+        "rtp_record_front": (
+            [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I,
+             _P, _P, _P, _P, _P, _P], _I,
+        ),
+        "rtp_philox": ([_P, _I, _U, _I, _P], _I),
+    },
+    "closest_hit": {
+        "rtp_error_string": _ERROR_STRING,
+        "rtp_closest_hit": ([_P, _P, _P, _P, _I, _I, _F, _P, _P, _P], _I),
+    },
 }
+
+
+def source(name: str) -> Path:
+    return PACKAGE_DIR / "csrc" / f"{name}.cu"
+
+
+def library(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
 
 
 def find_nvcc() -> str:
@@ -72,43 +89,55 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile the kernels into LIBRARY (atomically replaced)."""
+def build(names=None) -> None:
+    """Compile the named sources (default: all) into their libraries, one
+    nvcc process each, all started together; each library is replaced
+    atomically."""
+    names = list(LIBRARIES) if names is None else list(names)
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for name in names:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(source(name))],
+                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, tmp, proc))
+    logs, failed = [], []
+    for name, tmp, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(f"== {source(name).name} ==\n{err}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed on {source(name).name} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, library(name))
     BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    BUILD_INFO["log"] = "\n".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if it is missing or older than its
-    source."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
-        build()
-    lib = ctypes.CDLL(str(LIBRARY))
-    for name, (args, res) in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def load_library(name: str = "megakernel") -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, built first if it is missing or older
+    than its source."""
+    if name in _libs:
+        return _libs[name]
+    so, src = library(name), source(name)
+    if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+        build([name])
+    lib = ctypes.CDLL(str(so))
+    for fn_name, (args, res) in LIBRARIES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = args
         fn.restype = res
-    _lib = lib
+    _libs[name] = lib
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+def check(err: int, what: str, name: str = "megakernel") -> None:
+    """Raise if a C entry point of library `name` returned a CUDA error."""
     if err != 0:
-        msg = load_library().rtp_error_string(err).decode()
+        msg = load_library(name).rtp_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

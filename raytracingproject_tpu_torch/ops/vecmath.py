@@ -20,6 +20,11 @@ def dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(u * v, dim=-1)
 
 
+def cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched cross product (src/vec3.h:111-115)."""
+    return torch.linalg.cross(u, v, dim=-1)
+
+
 def length_squared(v: torch.Tensor) -> torch.Tensor:
     return torch.sum(v * v, dim=-1)
 

@@ -148,3 +148,98 @@ def test_render_image_goes_through_the_kernels(cuda_device):
     assert mk.LAUNCHES["front"] > 0 and mk.LAUNCHES["brute"] > 0
     assert img.shape == (90, 160, 3) and img.dtype == torch.uint8
     assert abs(img.float().mean().item() - img_b.float().mean().item()) < 1.0
+
+
+@pytest.mark.parametrize("n_rays,n_spheres", [(160 * 90, None), (77, None), (5000, 2500)])
+def test_closest_hit_kernel_matches_twin(cuda_device, n_rays, n_spheres):
+    """K4 against its plain version: the cover scene at a whole pass and at
+    a ray count that fills no block, and a moving-sphere scene of more than
+    two shared-memory chunks. Hit mask equal, idx equal on >= 99.9% of
+    hits, t within 1e-6 relative (built without FMA contraction in the
+    plain version's operation order, they should be bit-equal)."""
+    from raytracingproject_tpu_torch.ops.cuda import trace
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    if n_spheres is None:
+        scene, _, (o, d, t) = _cover_rays(cuda_device)
+        pick = torch.linspace(0, o.shape[0] - 1, n_rays, device=cuda_device).long()  # sky and ground
+        o, d, t = (x[pick].contiguous() for x in (o, d, t))
+    else:
+        scene = make_random_scene(n_spheres, seed=2, device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(6)
+        o = torch.rand((n_rays, 3), generator=gen, device=cuda_device) * 16.0 - 8.0
+        d = torch.randn((n_rays, 3), generator=gen, device=cuda_device)
+        t = torch.rand((n_rays,), generator=gen, device=cuda_device)
+    tab = trace.sphere_table(scene)
+    before = trace.LAUNCHES["closest_hit"]
+    kt, ki = trace.closest_hit_fused(o, d, t, tab)
+    torch.cuda.synchronize()
+    assert trace.LAUNCHES["closest_hit"] == before + 1
+    pt, pi = trace.closest_hit_fused_twin(o, d, t, tab)
+    hit = torch.isfinite(pt)
+    assert torch.equal(torch.isfinite(kt), hit) and hit.any() and not hit.all()
+    assert (ki == pi)[hit].double().mean().item() >= 0.999
+    assert torch.all(torch.abs(kt - pt)[hit] <= 1e-6 * torch.abs(pt)[hit])
+    assert ki.dtype == torch.int32 and bool((ki[~hit] == 0).all())
+
+
+def test_closest_hit_wrapper_rejects_and_records(cuda_device):
+    """The wrapper raises on what the kernel does not take, and
+    pallas_closest_hit rebuilds the record of ops.intersect.closest_hit
+    (ties aside) without a gradient."""
+    from raytracingproject_tpu_torch.ops.cuda import trace
+    from raytracingproject_tpu_torch.ops.intersect import closest_hit
+
+    scene, _, (o, d, t) = _cover_rays(cuda_device)
+    tab = trace.sphere_table(scene)
+    with pytest.raises(ValueError):
+        trace.closest_hit_fused(o.double(), d, t, tab)
+    with pytest.raises(ValueError):
+        trace.closest_hit_fused(o, d[:, :2], t, tab)
+    with pytest.raises(ValueError):
+        trace.closest_hit_fused(o, d, t, tab.cpu())
+    with pytest.raises(ValueError):
+        trace.closest_hit_fused(o, d, t, tab[:7])
+    rec = trace.pallas_closest_hit(o, d, t, scene)
+    ref = closest_hit(o, d, t, scene.center0, scene.center_delta, scene.radius)
+    assert not rec.t.requires_grad and torch.equal(rec.hit, ref.hit)
+    same = (rec.idx == ref.idx) & ref.hit
+    assert same.double().sum().item() >= 0.999 * ref.hit.double().sum().item()
+    assert torch.allclose(rec.t[same], ref.t[same], rtol=1e-6)
+    assert torch.allclose(rec.normal[same], ref.normal[same], atol=1e-5)
+
+
+def test_oracle_render_goes_through_the_closest_hit_kernel(cuda_device):
+    """render() on the oracle loop with use_pallas launches K4 once a
+    bounce, and from an equal seed gives the brute loop's image (>= 99.5%
+    of pixels within 1e-4)."""
+    from raytracingproject_tpu_torch.ops.cuda import trace
+    from raytracingproject_tpu_torch.render import render
+
+    camera = Camera(**dict(COVER, samples_per_pixel=2, max_depth=8))
+    kw = dict(device="cuda", use_megakernel=False, use_bvh=False)
+    trace.reset_launches()
+    gen = lambda: torch.Generator(device="cuda").manual_seed(3)  # noqa: E731
+    img = render(make_cover_scene(0), camera, gen(), RenderSettings(use_pallas=True, **kw))
+    assert 0 < trace.LAUNCHES["closest_hit"] <= 2 * 8
+    ref = render(make_cover_scene(0), camera, gen(), RenderSettings(**kw))
+    assert img.shape == (90, 160, 3) and torch.isfinite(img).all()
+    assert (torch.abs(img - ref) <= 1e-4).all(dim=-1).double().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("which", ["oracle", "fast"])
+def test_train_steps_run_on_the_card_by_default(cuda_device, which):
+    """A scene built on the CPU and no `device`: the train step moves it to
+    the card, as `render` does, and a step with a CPU target runs there."""
+    from raytracingproject_tpu_torch.grad import make_fast_train_step, make_train_step
+    from raytracingproject_tpu_torch.scene import make_three_sphere_scene
+
+    make = make_train_step if which == "oracle" else make_fast_train_step
+    camera = Camera(aspect_ratio=16.0 / 9.0, image_width=32, samples_per_pixel=2, max_depth=4,
+                    vfov=90.0, lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0))
+    scene = make_three_sphere_scene()
+    assert scene.device.type == "cpu"
+    params, opt, step = make(scene, camera, spp=2, trainable=("albedo",))
+    assert params.albedo.is_cuda
+    params, opt, loss, grads = step(params, opt, None, torch.full((18, 32, 3), 0.5))
+    assert loss.is_cuda and torch.isfinite(loss) and grads.albedo.is_cuda

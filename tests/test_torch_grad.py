@@ -126,8 +126,10 @@ def test_vecmath_and_sky_match_jax():
     for k, (got, want) in enumerate(pairs):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0,
                                    err_msg=f"pair {k}")
-    with pytest.raises(NotImplementedError, match="K1 record_miss"):
-        sky_color(pv, sky_tex=torch.zeros((4, 8, 3)))
+    tex = rng.random((4, 8, 3)).astype(np.float32)  # the equirect lookup, on the same rays
+    np.testing.assert_allclose(sky_color(pv, sky_tex=torch.from_numpy(tex)).numpy(),
+                               np.asarray(jsky_color(jnp.asarray(v), jnp.asarray(tex))),
+                               atol=1e-5, rtol=0)
 
 
 def test_vecmath_gradients_finite_at_the_guards():
@@ -167,9 +169,16 @@ def test_scene_params_mirror_jax():
     for mod in (trainable_mask, jinv.trainable_mask):
         with pytest.raises(ValueError, match="unknown trainable fields"):
             mod(("albedo", "colour"))
-    for fn in (render_loss, make_train_step):
-        with pytest.raises(NotImplementedError, match="P2"):
-            fn(extract_params(ps), ps)
+    # the oracle's reverse mode is ported: both run (tests/test_torch_inverse.py
+    # holds them against the JAX package)
+    cam = Camera(aspect_ratio=1.0, image_width=8, samples_per_pixel=1, max_depth=2,
+                 vfov=60.0, lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, -1.0))
+    loss = render_loss(extract_params(ps), ps, cam.derive(), torch.Generator().manual_seed(0),
+                       torch.zeros((8, 8, 3)), width=8, height=8, max_depth=2, spp_chunk=1)
+    assert loss.shape == () and torch.isfinite(loss)
+    params0, opt, step = make_train_step(ps, cam, spp=1, trainable=("albedo",),
+                                         device="cpu")
+    assert isinstance(opt, torch.optim.Adam) and params0._fields == SceneParams._fields
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +457,7 @@ def test_adam_step_matches_optax():
     trainable = ("albedo", "center0", "radius")
     lr = 5e-2
     params, opt, _ = make_fast_train_step(ps, _tiny_camera(), learning_rate=lr,
-                                          trainable=trainable)
+                                          trainable=trainable, device="cpu")
     mask = trainable_mask(trainable)
     labels = jinv.SceneParams(**{f: ("train" if getattr(mask, f) else "freeze")
                                  for f in SceneParams._fields})
@@ -485,17 +494,17 @@ def test_fast_train_step_refuses_what_it_cannot_do():
     ps, pf = _port_scene(js), _port_front(jf)
     cam = _tiny_camera()
     with pytest.raises(ValueError, match="FIXED geometry"):
-        make_fast_train_step(ps, cam, front=pf, trainable=("albedo", "radius"))
+        make_fast_train_step(ps, cam, front=pf, trainable=("albedo", "radius"), device="cpu")
     with pytest.raises(ValueError, match="FIXED geometry"):
-        make_fast_train_step(ps, cam, front=pf)  # None trains every field
+        make_fast_train_step(ps, cam, front=pf, device="cpu")  # None trains every field
     with pytest.raises(NotImplementedError, match="K8"):
-        make_fast_train_step(ps, cam, bvh=object(), trainable=("albedo",))
+        make_fast_train_step(ps, cam, bvh=object(), trainable=("albedo",), device="cpu")
     with pytest.raises(NotImplementedError, match="P8"):
-        make_fast_train_step(ps, cam, two_phase=4)
+        make_fast_train_step(ps, cam, two_phase=4, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        make_fast_train_step(ps, cam, replay_gather="colT")
+        make_fast_train_step(ps, cam, replay_gather="colT", device="cpu")
     with pytest.raises(ValueError, match="unknown trainable"):
-        make_fast_train_step(ps, cam, trainable=("albedo", "colour"))
+        make_fast_train_step(ps, cam, trainable=("albedo", "colour"), device="cpu")
 
 
 def test_materials_step_with_front_moves_only_materials():
@@ -509,6 +518,7 @@ def test_materials_step_with_front_moves_only_materials():
     target = torch.full((16, 16, 3), 0.5)
     trainable = ("albedo", "fuzz", "ior")
     params, opt, step = make_fast_train_step(ps, cam, spp=2, trainable=trainable, front=pf,
+                                             device="cpu",
                                              generator=torch.Generator().manual_seed(1))
     before = SceneParams(*(x.detach().clone() for x in params))
     for _ in range(2):
@@ -529,7 +539,7 @@ def test_fast_train_step_recovers_albedo():
     target = render(_single_sphere((0.8, 0.2, 0.5)), dataclasses.replace(cam, samples_per_pixel=32),
                     torch.Generator().manual_seed(3), settings)
     params, opt, step = make_fast_train_step(_single_sphere((0.4, 0.4, 0.4)), cam, spp=16,
-                                             learning_rate=5e-2, trainable=("albedo",),
+                                             learning_rate=5e-2, trainable=("albedo",), device="cpu",
                                              generator=torch.Generator().manual_seed(4))
     losses = []
     for _ in range(60):

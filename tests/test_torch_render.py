@@ -2,6 +2,7 @@
 composed from JAX functions, render() against JAX's render() in
 distribution, the CLI, and the port's hygiene (no jax, no CPU fallback)."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -196,9 +197,41 @@ def test_cuda_device_without_a_card_raises():
 def test_unported_options_raise():
     cam = pcamera.Camera(**THREE)
     scene = pscene.make_three_sphere_scene()
-    for kw in ({"use_megakernel": False}, {"two_phase": 2}, {"depth_segment": 2},
-               {"use_pallas": True}):
+    for kw in ({"two_phase": 2}, {"depth_segment": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prender(scene, cam, settings=RenderSettings(device="cpu", **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prender(scene, cam, settings=RenderSettings(device="cpu"), sky_texture=np.ones((2, 2, 3)))
+    # use_pallas is the oracle loop's closest hit: with the megakernel it is refused
+    with pytest.raises(ValueError, match="use_megakernel=False"):
+        prender(scene, cam, settings=RenderSettings(device="cpu", use_pallas=True))
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_pallas": True}, {"use_bvh": False},
+                                {"use_pallas": True, "use_bvh": False}],
+                         ids=["bvh", "pallas+bvh", "brute", "pallas"])
+def test_oracle_options_render(kw):
+    """use_megakernel=False and use_pallas render (they raised until the
+    oracle was ported): finite, of the image's shape, and the three
+    closest hits give the same image from the same generator seed (they
+    consume equal draws; ties aside)."""
+    cam = pcamera.Camera(**THREE)
+    scene = pscene.make_three_sphere_scene()
+    gen = lambda: torch.Generator().manual_seed(4)  # noqa: E731
+    img = prender(scene, cam, gen(), RenderSettings(device="cpu", use_megakernel=False, **kw))
+    ref = prender(scene, cam, gen(),
+                  RenderSettings(device="cpu", use_megakernel=False, use_bvh=False))
+    assert img.shape == (18, 32, 3) and torch.isfinite(img).all()
+    assert (torch.abs(img - ref) <= 1e-5).all(dim=-1).double().mean().item() >= 0.999
+
+
+def test_oracle_sky_texture_renders():
+    """A constant sky texture on an all-miss oracle render gives that
+    constant (tests/test_sky_texture.py); on the megakernel it still raises."""
+    scene = pscene.make_minimal_scene()
+    scene = dataclasses.replace(scene, center0=scene.center0 + 1e7)  # park the spheres away
+    cam = pcamera.Camera(aspect_ratio=1.0, image_width=16, samples_per_pixel=2, max_depth=3,
+                         vfov=60.0)
+    img = prender(scene, cam, settings=RenderSettings(device="cpu", use_megakernel=False),
+                  sky_texture=np.full((4, 8, 3), 0.25, np.float32))
+    np.testing.assert_allclose(img.numpy(), 0.25, atol=1e-5)
