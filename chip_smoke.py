@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
 started together), holds each against its plain PyTorch version on the
-card, and drives the port's three main paths, each checked to have gone
+card, and drives the port's four main paths, each checked to have gone
 through its kernels:
 
 - serving: the cover scene through `render_image`, `render` and the CLI
@@ -29,8 +29,22 @@ through its kernels:
   loss, a descent check, and the oracle's radiance and gradients against
   the path replay of its own record in float64 and float32.
 
+- large scenes: `render` with `RenderSettings(use_bvh=True)` on
+  `make_random_scene(50000, seed=3)` at 400x225, 30 spp, depth 50, whose
+  tables pass the shared-memory budget, on the global-memory front (K7);
+  `make_fast_train_step(bvh=...)` on the same scene at 2 spp, depth 50, on
+  the BVH-walking recording kernel (K5 bvh); the BVH walk (K8) through
+  `render_pass(bvh=)`; and the brute scan staged in chunks (`use_bvh=False`
+  on 5,000 spheres). Each is held against its plain version on 50,000
+  spheres, on 8,192 rays and then at the shapes the paths give it (the
+  90,000 rays of one pass at depth 16; K5 bvh also on one train step's
+  180,000 rays at depth 50); K7, K8 and the chunked brute scan against
+  each other, and their first hits against K4 on the 90,000 primary rays
+  of a pass.
+
 It then times kernels and plain versions at the bench shape (400x225,
-4 spp, depth 16; K4 at one pass of 90,000 rays) and the train steps, and
+4 spp, depth 16; K4 and the large-scene kernels at one pass of 90,000
+rays, the latter also at the bench shape alone) and the train steps, and
 works out each kernel's bound from the tests this run's rays need (counted
 in the plain versions) and the card's data-sheet rates. Any failed check
 raises and the script exits non-zero. Without a CUDA device it exits 1 and
@@ -61,11 +75,18 @@ REPLACES = {
     "front": "raytracingproject_tpu/ops/pallas/megakernel.py:869",
     "record_brute": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
     "record_front": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
+    "brute_chunked": "raytracingproject_tpu/ops/pallas/megakernel.py:832",
+    "record_brute_chunked": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
+    "bvh": "raytracingproject_tpu/ops/pallas/megakernel.py:850",
+    "record_bvh": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
+    "front_hbm": "raytracingproject_tpu/ops/pallas/megakernel.py:2500",
 }
 COVER_CAMERA = dict(aspect_ratio=16.0 / 9.0, image_width=400, vfov=20.0,
                     lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                     defocus_angle=0.6, focus_dist=10.0)
 N_CMP = 65536  # camera rays in the kernel-against-twin comparisons
+N_LARGE = 50000  # spheres of the large-scene path: make_random_scene(N_LARGE, seed=3)
+N_LARGE_CMP = 8192  # camera rays of the large-scene kernel-against-twin comparisons
 TRAIN_STEPS = 7  # per full-width configuration: 2 warm-up, 5 timed
 # Descent check (three-sphere scene, 128x72, 4 spp, depth 8, albedo only,
 # 40 steps): mean loss of the last 5 steps over the first 5 must stay
@@ -143,19 +164,22 @@ def rel_err(a, b) -> float:
 
 
 def hold_record(mk, what: str, o, d, t, scene, front, seed: int, depth: int,
-                zero: bool) -> float:
-    """K5 (brute without `front`, front with it) against its plain version
-    on one set of rays: radiance bit-equal to the forward kernel's and
+                zero: bool, bvh=None, twin=None) -> float:
+    """K5 (front with `front`, else bvh with `bvh`, else brute) against its
+    plain version on one set of rays: radiance bit-equal to the forward kernel's and
     within 1e-3 of the twin's on >= 99.9% of rays; idx equal on >= 99.9% of
-    entries; ndir and refl equal wherever idx is. Returns the max |diff|
-    (radiance against the twin, and ndir where idx is equal)."""
+    entries; ndir and refl equal wherever idx is. `twin` is the plain
+    version's result on these arguments where the caller has it already.
+    Returns the max |diff| (radiance against the twin, and ndir where idx
+    is equal)."""
     import torch
 
-    path = "front" if front is not None else "brute"
-    rad, res = mk.trace_record(o, d, t, scene, seed, depth, front=front, zero_draws=zero)
-    fwd = mk.trace_paths(o, d, t, scene, seed, depth, front=front, zero_draws=zero)
-    prad, pres = mk.trace_record_twin(o, d, t, scene, seed, depth, front=front,
-                                      zero_draws=zero)
+    path = "front" if front is not None else "bvh" if bvh is not None else "brute"
+    route = dict(front=front, zero_draws=zero, bvh=bvh)
+    rad, res = mk.trace_record(o, d, t, scene, seed, depth, **route)
+    fwd = mk.trace_paths(o, d, t, scene, seed, depth, **route)
+    prad, pres = twin if twin is not None else mk.trace_record_twin(o, d, t, scene, seed,
+                                                                    depth, **route)
     torch.cuda.synchronize()
     eq = res.idx == pres.idx
     idx_frac = eq.double().mean().item()
@@ -243,45 +267,6 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     for `ops` float32 operations on `nbytes` bytes moved once."""
     t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def count_tests(mk, o, d, t, scene, front, seed: int, depth: int) -> dict:
-    """What these rays need, counted in the plain version of the bounce
-    loop: live ray-bounces, ray-sphere pair tests (brute: every sphere a
-    live bounce; front: the columns of the subtrees whose box the ray
-    enters, padding columns included) and ray-box tests (front: every
-    subtree a live bounce). Dead rays are parked where every test misses
-    and count nothing."""
-    import torch
-
-    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
-    if front is not None:
-        tab, owner = front.sph, front.column_subtree()
-
-        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
-            live = ox < 1e17
-            entered = mk.subtree_slab_mask(front.ff, ox, oy, oz, dx, dy, dz, t_min)[:, owner]
-            n_live = int(live.sum())
-            counts["bounces"] += n_live
-            counts["boxes"] += n_live * front.ff.shape[1]
-            counts["pairs"] += int((entered & live[:, None]).sum())
-            return mk.closest_hit_front_twin(front, owner, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
-                                             t_min)
-    else:
-        tab = mk.scene_table(scene).to(o.device)
-
-        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
-            n_live = int((ox < 1e17).sum())
-            counts["bounces"] += n_live
-            counts["pairs"] += n_live * tab.shape[1]
-            return mk.closest_hit_brute_twin(tab, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
-
-    chunk = mk._twin_chunk(tab.shape[1])
-    for r0 in range(0, o.shape[0], chunk):
-        sl = slice(r0, r0 + chunk)
-        mk.bounce_loop_twin(o[sl], d[sl], t[sl], tab, hit, seed, depth, ray0=r0)
-    torch.cuda.synchronize()
-    return counts
 
 
 def megakernel_bound(counts: dict, n_rays: int, depth: int, tab_bytes: int,
@@ -1058,6 +1043,453 @@ def step_split(card: str) -> None:
         print(f"step split, {name} (median of 3 warm): {summary}; on {card}")
 
 
+def rays_differ(a, b, tol: float = 1e-3) -> float:
+    """Share of rays whose radiance differs by more than `tol`."""
+    return (abs(a - b) > tol).any(dim=1).double().mean().item()
+
+
+def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> dict:
+    """What these rays need, counted in the plain version of the bounce
+    loop: live ray-bounces, ray-sphere pair tests and ray-box tests. Brute:
+    every sphere a live bounce. Front (K3, K7): the boxes the culling
+    hierarchy tests for this ray (the super-word boxes, the 24 word boxes
+    of each super-word it enters, the 24 subtree boxes of each word it
+    enters; below 577 subtrees the word boxes at once, below 25 only the
+    subtree boxes) and, with K7's sub-block boxes, the boxes of the entered
+    subtrees' 8-column groups; the columns of the subtrees (and groups)
+    whose box the ray enters, padding columns included. BVH walk (K8): the
+    nodes the ray's walk visits and the spheres of the leaves it enters.
+    Dead rays are parked where every test misses and count nothing."""
+    import torch
+
+    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
+    tab, base, chunk = mk.twin_closest_hit(scene, front, bvh, o.device)
+    if front is not None:
+        grp = n_grp = None
+        if isinstance(front, mk.FrontTablesHBM):
+            cols = front.valid_columns()
+            sub = cols // mk.BLOCK
+            if front.bf is not None:
+                grp = cols // mk.UNROLL
+                n_grp = front.fi[0].long() // mk.UNROLL  # groups a subtree scans
+        else:
+            sub = front.column_subtree()
+        n_words = front.ff.shape[1] // mk.WORD
+        n_super = -(-n_words // mk.WORD)
+        word_of = torch.arange(front.ff.shape[1], device=o.device) // mk.WORD
+        super_of = torch.arange(n_words, device=o.device) // mk.WORD
+
+        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
+            live = ox < 1e17
+            n_live = int(live.sum())
+
+            def enters(boxes):
+                return mk.subtree_slab_mask(boxes, ox, oy, oz, dx, dy, dz, t_min) & live[:, None]
+
+            # stage 1 as `front_live_words` descends: super-word boxes, the word boxes of
+            # entered super-words; one word is live without a test
+            if n_words == 1:
+                m_word = live[:, None]
+            elif n_super == 1:
+                counts["boxes"] += n_live * n_words
+                m_word = enters(front.wf)[:, :n_words]
+            else:
+                m_super = enters(front.sf)[:, :n_super]
+                counts["boxes"] += n_live * n_super + int(m_super.sum()) * mk.WORD
+                m_word = enters(front.wf)[:, :n_words] & m_super[:, super_of]
+            # stage 2: the WORD subtree boxes of every entered word
+            counts["boxes"] += int(m_word.sum()) * mk.WORD
+            m_sub = enters(front.ff) & m_word[:, word_of]
+            entered = m_sub[:, sub]
+            if grp is not None:
+                counts["boxes"] += int((m_sub * n_grp[None, :]).sum())
+                entered = entered & mk.subtree_slab_mask(front.bf, ox, oy, oz, dx, dy, dz,
+                                                         t_min)[:, grp]
+            counts["bounces"] += n_live
+            counts["pairs"] += int(entered.sum())
+            return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
+    elif bvh is not None:
+        flat = mk.bvh_tables(bvh, o.device).flat
+
+        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
+            counts["bounces"] += int((ox < 1e17).sum())
+            return mk.closest_hit_bvh_twin(tab, flat, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
+                                           t_min, counts=counts)
+    else:
+        def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
+            n_live = int((ox < 1e17).sum())
+            counts["bounces"] += n_live
+            counts["pairs"] += n_live * tab.shape[1]
+            return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
+
+    for r0 in range(0, o.shape[0], chunk):
+        sl = slice(r0, r0 + chunk)
+        mk.bounce_loop_twin(o[sl], d[sl], t[sl], tab, hit, seed, depth, ray0=r0)
+    torch.cuda.synchronize()
+    return counts
+
+
+def hold_large(mk, what: str, key: str, o, d, t, scene, seed: int, depth: int, twin=None,
+               **route) -> float:
+    """One large-scene kernel (route: front=<FrontTablesHBM>, bvh=<tree> or
+    neither for the chunked brute scan; key its launch counter) against its
+    plain version on one set of rays: >= 99.9% of rays within 1e-3,
+    bit-equal expected. `twin` is the plain version's result on these
+    arguments where the caller has it already. Returns the max |diff|."""
+    import torch
+
+    before = mk.LAUNCHES[key]
+    k = mk.trace_paths(o, d, t, scene, seed, depth, **route)
+    torch.cuda.synchronize()
+    check(mk.LAUNCHES[key] == before + 1, f"{what}: one launch of {key}")
+    p = twin if twin is not None else mk.trace_paths_twin(o, d, t, scene, seed, depth, **route)
+    diff = torch.abs(k - p)
+    frac = (diff <= 1e-3).all(dim=1).double().mean().item()
+    print(f"{what} kernel vs twin ({o.shape[0]} rays, depth {depth}, philox): {frac:.6f} within "
+          f"1e-3, max |diff| {diff.max().item():.3e}, bit-equal {torch.equal(k, p)}")
+    check(torch.isfinite(k).all().item(), f"{what}: radiance finite")
+    check(frac >= 0.999, f"{what}: >= 99.9% of rays within 1e-3 of the plain version")
+    return diff.max().item()
+
+
+def large_scenes(mk, trace, card: str) -> list[dict]:
+    """The large-scene path (see the module docstring): comparisons, the
+    main path at full width with its launch counts, times and bounds.
+    Returns the `kernels` entries of the five large-scene kernels."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import DIELECTRIC, METAL, RenderSettings
+    from raytracingproject_tpu_torch.grad import (
+        SceneParams, extract_params, make_fast_train_step, replay_radiance,
+    )
+    from raytracingproject_tpu_torch.render import (
+        _slot_rays, blocks_to_image, prepare_scene, render, render_pass,
+    )
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+
+    dev = torch.device("cuda")
+    settings = RenderSettings(device="cuda")
+    bench_cam = Camera(**COVER_CAMERA, samples_per_pixel=4, max_depth=16)
+    ref_cam = Camera(**COVER_CAMERA, samples_per_pixel=30, max_depth=50)
+    w, h = bench_cam.image_size()
+    o, d, t = _slot_rays(bench_cam.derive(torch.float32, dev), w, h, 4,
+                         torch.Generator(device=dev).manual_seed(1), None)
+    n_rays = w * h * 4
+    stride = o.shape[0] // N_LARGE_CMP
+    oc, dc, tc = (x[::stride][:N_LARGE_CMP].contiguous() for x in (o, d, t))  # over the image
+    max_err: dict[str, float] = {}
+
+    def worst(key, err):
+        max_err[key] = max(max_err.get(key, 0.0), err)
+
+    # ---- L1. the brute scan past the budget, and bit-equal below it ----
+    cover = make_cover_scene(0, device=dev)
+    whole = mk.trace_paths(oc, dc, tc, cover, 2024, 16)
+    whole_rec = mk.trace_record(oc, dc, tc, cover, 2024, 16)
+    budget = mk.SMEM_BUDGET_BYTES
+    mk.SMEM_BUDGET_BYTES = 0  # every table is "past the budget": the chunked route
+    try:
+        chunked = mk.trace_paths(oc, dc, tc, cover, 2024, 16)
+        chunked_rec = mk.trace_record(oc, dc, tc, cover, 2024, 16)
+    finally:
+        mk.SMEM_BUDGET_BYTES = budget
+    same = (torch.equal(chunked, whole) and torch.equal(chunked_rec[0], whole)
+            and all(torch.equal(a, b) for a, b in zip(chunked_rec[1], whole_rec[1])))
+    print(f"chunked brute vs whole-table brute (cover, {N_LARGE_CMP} rays, depth 16, forward and "
+          f"recording): bit-equal {same}")
+    check(same, "the chunked brute scan is bit-equal to the whole-table kernel")
+
+    def cover_ms(budget_bytes: int) -> tuple[float, float]:
+        """(forward, recording) milliseconds of the brute scan on the cover scene at the
+        bench shape, with the shared-memory budget that picks the kernel."""
+        mk.SMEM_BUDGET_BYTES = budget_bytes
+        try:
+            out = []
+            for fn in (mk.trace_paths, mk.trace_record):
+                fn(o, d, t, cover, 99, 16)
+                out.append(cuda_ms(lambda: fn(o, d, t, cover, 99, 16), 5))  # noqa: B023
+            return out[0], out[1]
+        finally:
+            mk.SMEM_BUDGET_BYTES = budget
+    runs = [cover_ms(b) for b in (budget, 0, 0, budget)]  # whole, chunked, chunked, whole
+    print(f"brute scan where the table fits (cover, {n_rays} camera rays, depth 16), forward / "
+          f"recording ms: whole-table {runs[0][0]:.3f} / {runs[0][1]:.3f} and {runs[3][0]:.3f} / "
+          f"{runs[3][1]:.3f}, chunked {runs[1][0]:.3f} / {runs[1][1]:.3f} and {runs[2][0]:.3f} / "
+          f"{runs[2][1]:.3f}; on {card}")
+    five = make_random_scene(5000, seed=3, device=dev)
+    worst("brute_chunked", hold_large(mk, "brute past the budget (5,000 spheres)",
+                                      "brute_chunked", oc[:4096], dc[:4096], tc[:4096], five, 7, 4))
+    worst("record_brute_chunked", hold_record(mk, "5,000 spheres", oc[:4096], dc[:4096],
+                                              tc[:4096], five, None, 7, 4, False))
+    del five
+
+    # ---- L2. 50,000 spheres: every kernel against its plain version ----
+    host = {}
+    big_cpu = make_random_scene(N_LARGE, seed=3)
+    t0 = time.perf_counter()
+    tree = build_bvh(big_cpu, leaf_size=8)
+    host["build_bvh"] = time.perf_counter() - t0
+    big = reorder_scene(big_cpu, tree).to(dev)
+    t0 = time.perf_counter()
+    fronts = {"plain": mk.front_tables_hbm(big, tree)}
+    host["front_tables_hbm"] = time.perf_counter() - t0
+    fronts["word_earlyout"] = dataclasses.replace(fronts["plain"], word_earlyout=True)
+    fronts["sub_block"] = mk.front_tables_hbm(big, tree, max_nodes=480, sub_block=True)
+    for name, f in fronts.items():
+        print(f"K7 front ({name}): {f.ff.shape[1]} subtrees (super-words {f.sf.shape[1]}), "
+              f"{int(f.fi.sum())} scanned columns of {f.sph.shape[0]}, ksub {f.ksub}")
+    check(fronts["plain"].ff.shape[1] > 576, "the 50,000-sphere front has super-words")
+    for name, f in fronts.items():
+        worst("front_hbm", hold_large(mk, f"K7 ({name}, {N_LARGE} spheres)", "front_hbm",
+                                      oc, dc, tc, None, 2024, 4, front=f))
+    worst("bvh", hold_large(mk, f"K8 ({N_LARGE} spheres)", "bvh", oc, dc, tc, big, 2024, 4,
+                            bvh=tree))
+    tables = mk.bvh_tables(tree, dev)
+    worst("record_bvh", hold_record(mk, f"{N_LARGE} spheres", oc, dc, tc, big, None, 2024, 4,
+                                    False, bvh=tables))
+
+    # ---- L3. first hits of a whole pass against K4 ----
+    po, pd, pt = pass_rays(ref_cam, torch.Generator(device=dev).manual_seed(21))
+    k4_t, k4_i = trace.closest_hit_fused(po, pd, pt, trace.sphere_table(big))
+    k4_hit = torch.isfinite(k4_t)
+    _, res1 = mk.trace_record(po, pd, pt, big, 3, 1, bvh=tables)
+    want = torch.where(k4_hit, k4_i, mk.MISS)
+    k8_differ = (res1.idx[0] != want).double().mean().item()
+    k7_miss = mk.trace_paths(po, pd, pt, None, 3, 1, front=fronts["plain"]).sum(dim=1) > 0
+    k7_differ = (k7_miss == k4_hit).double().mean().item()
+    k7_k8 = rays_differ(mk.trace_paths(po, pd, pt, None, 3, 2, front=fronts["plain"]),
+                        mk.trace_paths(po, pd, pt, big, 3, 2, bvh=tables))
+    print(f"first hits, {po.shape[0]} primary rays x {N_LARGE} spheres against K4 "
+          f"({int(k4_hit.sum())} hits): K5 bvh's winners differ on {k8_differ:.6f} of rays, K7's "
+          f"hit mask on {k7_differ:.6f}; K7 vs K8 at depth 2 differ on {k7_k8:.6f}")
+    check(bool(k4_hit.any()) and not bool(k4_hit.all()), "the pass has hits and misses")
+    check(k8_differ <= 1e-3 and k7_differ <= 1e-3 and k7_k8 <= 1e-3,
+          "first hits of K8 and K7 equal K4's on >= 99.9% of a pass's rays")
+
+    # ---- L4. K7 against K8 against the chunked brute scan, depth 16 ----
+    o16, d16, t16 = (x[::o.shape[0] // 16384][:16384].contiguous() for x in (o, d, t))
+    deep = {"K8": mk.trace_paths(o16, d16, t16, big, 11, 16, bvh=tables),
+            "brute": mk.trace_paths(o16, d16, t16, big, 11, 16)}
+    for name, f in fronts.items():
+        deep[f"K7 {name}"] = mk.trace_paths(o16, d16, t16, None, 11, 16, front=f)
+    differ = {k: rays_differ(v, deep["brute"]) for k, v in deep.items() if k != "brute"}
+    print(f"against the chunked brute scan ({N_LARGE} spheres, 16,384 rays, depth 16), share of "
+          "rays that differ by > 1e-3: " + ", ".join(f"{k} {v:.6f}" for k, v in differ.items()))
+    check(max(differ.values()) <= 1e-3, "K7, K8 and the chunked brute scan agree on >= 99.9%")
+    del deep
+
+    # ---- L5. the main path at full width ----
+    def k8_render(scene_cpu, cam):
+        """`render`'s pass loop with render_pass(bvh=): the image through K8."""
+        tr = build_bvh(scene_cpu, leaf_size=8)
+        sc = reorder_scene(scene_cpu, tr).to(dev)
+        tb = mk.bvh_tables(tr, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        derived = cam.derive(torch.float32, dev)
+        acc = None
+        for _ in range(cam.samples_per_pixel):
+            out = render_pass(sc, derived, gen, width=w, height=h, max_depth=cam.max_depth,
+                              spp_chunk=1, bvh=tb, raw_slots=True)
+            acc = out if acc is None else acc + out
+        return blocks_to_image(acc, w, h, 1) / cam.samples_per_pixel
+
+    mk.reset_launches()
+    img, frame_s = synced_s(lambda: render(big_cpu, ref_cam, settings=RenderSettings(use_bvh=True)))
+    launches = dict(mk.LAUNCHES)
+    print(f"large-scene main path: render(use_bvh=True) on {N_LARGE} spheres at 400x225, 30 spp, "
+          f"depth 50: kernel launches {launches}; {frame_s:.4f} s, scene preparation included, "
+          f"on {card}")
+    check(launches["front_hbm"] == 30 and launches["front"] == 0,
+          "K7 ran once a pass of the large-scene frame")
+    check(img.is_cuda and tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
+          "large-scene image on the card, finite, 225x400x3")
+    mk.reset_launches()
+    img8, frame8_s = synced_s(lambda: k8_render(big_cpu, ref_cam))
+    launches["bvh"] = mk.LAUNCHES["bvh"]
+    print(f"image means ({N_LARGE} spheres, 30 spp, depth 50): K7 render {img.mean().item():.5f}, "
+          f"K8 passes {img8.mean().item():.5f} ({launches['bvh']} launches, {frame8_s:.4f} s)")
+    check(launches["bvh"] == 30, "K8 ran once a pass")
+    check(abs(img.mean().item() - img8.mean().item()) <= 0.05 * img8.mean().item(),
+          "K7 render mean within 5% of the K8 render's")
+    frames = {}
+    for n in (5000, 16000, N_LARGE):
+        sc = big_cpu if n == N_LARGE else make_random_scene(n, seed=3)
+        mk.reset_launches()
+        a, frames[n] = synced_s(
+            lambda: render(sc, bench_cam, settings=RenderSettings(use_bvh=True)))  # noqa: B023
+        check(mk.LAUNCHES["front_hbm"] == 4, f"{n} spheres: K7 ran once a pass at the bench shape")
+        b = k8_render(sc, bench_cam)
+        check(torch.isfinite(a).all().item(), f"{n} spheres: image finite")
+        check(abs(a.mean().item() - b.mean().item()) <= 0.05 * b.mean().item(),
+              f"{n} spheres: K7 render mean within 5% of the K8 render's")
+        print(f"render(use_bvh=True), {n} spheres, bench shape (4 spp, depth 16): "
+              f"{frames[n]:.4f} s, mean {a.mean().item():.5f} (K8 {b.mean().item():.5f})")
+    mk.reset_launches()
+    a = render(make_random_scene(5000, seed=3), bench_cam, settings=RenderSettings(use_bvh=False))
+    launches["brute_chunked"] = mk.LAUNCHES["brute_chunked"]
+    check(launches["brute_chunked"] == 4 and torch.isfinite(a).all().item(),
+          "render(use_bvh=False) on 5,000 spheres ran the chunked brute scan once a pass")
+
+    # ---- L6. training at full width: K5 bvh, materials only ----
+    train_cam = Camera(**COVER_CAMERA, samples_per_pixel=2, max_depth=50)
+    target = render(big_cpu, dataclasses.replace(train_cam, samples_per_pixel=8),
+                    torch.Generator(device=dev).manual_seed(5), settings)
+    rng = torch.Generator().manual_seed(11)
+    truth = reorder_scene(big_cpu, tree)  # on the CPU, in leaf order
+    n = truth.num_spheres
+    met, die = truth.mat_type == METAL, truth.mat_type == DIELECTRIC
+    jitter = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape, generator=rng)  # noqa: E731
+    start = dataclasses.replace(
+        truth, albedo=torch.clamp(truth.albedo * jitter(0.7, 1.3, n, 3), 0.0, 1.0),
+        fuzz=torch.where(met, torch.clamp(truth.fuzz + jitter(-0.1, 0.1, n), 0.0, 1.0), truth.fuzz),
+        ior=torch.where(die, truth.ior * jitter(0.95, 1.05, n), truth.ior))
+    trainable = ("albedo", "fuzz", "ior")
+    params, opt, step = make_fast_train_step(start, train_cam, spp=2, learning_rate=1e-2,
+                                             trainable=trainable, bvh=tree,
+                                             generator=torch.Generator(device=dev).manual_seed(3))
+    check(params.albedo.is_cuda, "large-scene train step: parameters on the card by default")
+    p0 = SceneParams(*(x.detach().clone() for x in params))
+    losses, times = [], []
+    mk.reset_launches()
+    for _ in range(TRAIN_STEPS):
+        (params, opt, loss, grads), sec = synced_s(lambda: step(params, opt, None, target))
+        losses.append(loss.item())
+        times.append(sec)
+        check(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item() for g in grads),
+              "large-scene train step: finite loss and gradients")
+    launches["record_bvh"] = mk.LAUNCHES["record_bvh"]
+    check(launches["record_bvh"] == TRAIN_STEPS, "K5 bvh ran once a train step")
+    for f in SceneParams._fields:
+        moved = not torch.equal(getattr(params, f).detach(), getattr(p0, f))
+        check(moved == (f in trainable), f"large-scene train step: {f} "
+              f"{'moves' if f in trainable else 'stays bit-unchanged'}")
+    step_s = statistics.median(times[2:])
+    print(f"train step, materials (K5 bvh), {N_LARGE} spheres, 400x225, 2 spp, depth 50: losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; seconds per step (median of {len(times) - 2} warm) {step_s:.4f} s on {card}")
+    so, sd, st, seed = step_rays(train_cam, torch.Generator(device=dev).manual_seed(4))
+    start_dev = start.to(dev)
+    rad, res = mk.trace_record(so, sd, st, start_dev, seed, 50, bvh=tables)
+    with torch.no_grad():
+        rp = replay_radiance(extract_params(start_dev), start_dev, so, sd, st, res)
+    frac = (torch.abs(rp - rad).max(dim=1).values <= 2e-5).double().mean().item()
+    print(f"replay (K5 bvh residuals of one step's {so.shape[0]} rays, depth 50): {frac:.6f} of "
+          "rays within 2e-5 of the kernel's radiance")
+    check(frac >= 0.998, "replay of K5 bvh's residuals: >= 99.8% within 2e-5")
+    del rad, res, rp
+    worst("record_bvh", hold_record(mk, f"one train step's rays, {N_LARGE} spheres", so, sd, st,
+                                    start_dev, None, seed, 50, False, bvh=tables))
+    del so, sd, st
+    # the chunked recording kernel on its own main path: geometry + albedo on 5,000 spheres
+    five_cpu = make_random_scene(5000, seed=3)
+    params, opt, step = make_fast_train_step(five_cpu, train_cam, spp=2, learning_rate=2e-3,
+                                             trainable=("albedo", "center0", "radius"),
+                                             generator=torch.Generator(device=dev).manual_seed(3))
+    mk.reset_launches()
+    for _ in range(3):
+        params, opt, loss, grads = step(params, opt, None, target)
+        check(torch.isfinite(loss).item(), "5,000-sphere geometry step: finite loss")
+    launches["record_brute_chunked"] = mk.LAUNCHES["record_brute_chunked"]
+    check(launches["record_brute_chunked"] == 3, "the chunked recording kernel ran once a step")
+    del params, opt, step, grads, target
+
+    # ---- L7. times: the bench shape on three scene sizes, then one pass's shape ----
+    print(f"large-scene times: CUDA events, warm, {n_rays} camera rays, depth 16; host seconds on "
+          f"{N_LARGE} spheres: build_bvh {host['build_bvh']:.4f}, front_tables_hbm "
+          f"{host['front_tables_hbm']:.4f}; on {card}")
+
+    def kernel_ms(rays, sc, tb, fr) -> dict:
+        """Milliseconds of every large-scene kernel on `rays` at depth 16."""
+        routes = {"bvh": (False, dict(bvh=tb)), "brute_chunked": (False, {}),
+                  "record_bvh": (True, dict(bvh=tb)), "record_brute_chunked": (True, {})}
+        routes.update({f"front_hbm {k}": (False, dict(front=v)) for k, v in fr.items()})
+        ms = {}
+        for name, (rec, route) in routes.items():
+            fn = mk.trace_record if rec else mk.trace_paths
+
+            def kern():
+                fn(*rays, sc, 99, 16, **route)  # noqa: B023
+
+            kern()
+            ms[name] = cuda_ms(kern, 2 if "chunked" in name else 5)
+        return ms
+
+    for n in (5000, 16000, N_LARGE):
+        if n == N_LARGE:
+            sc, tb, fr = big, tables, fronts
+        else:
+            cpu = make_random_scene(n, seed=3)
+            tr = build_bvh(cpu, leaf_size=8)
+            sc = reorder_scene(cpu, tr).to(dev)
+            tb = mk.bvh_tables(tr, dev)
+            fr = {"plain": mk.front_tables_hbm(sc, tr)}
+            fr["word_earlyout"] = dataclasses.replace(fr["plain"], word_earlyout=True)
+            fr["sub_block"] = mk.front_tables_hbm(sc, tr, max_nodes=max(24, n // 104 // 24 * 24),
+                                                  sub_block=True)
+        print(f"{n} spheres: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in kernel_ms((o, d, t), sc, tb, fr).items())
+              + f"; K7 front {fr['plain'].ff.shape[1]} subtrees")
+    # The kernels' entries: kernel and plain version on the rays of one pass of the frame (the
+    # shape `render` gives K7 and K8: 400x225 at 1 spp in slot order), depth 16, 50,000
+    # spheres: the plain versions take minutes at the bench shape. Bounds from the tests
+    # counted in the plain versions on every 11th of those rays, scaled.
+    rays1 = _slot_rays(ref_cam.derive(torch.float32, dev), w, h, 1,
+                       torch.Generator(device=dev).manual_seed(1), None)
+    n1 = w * h
+    step1 = rays1[0].shape[0] // N_LARGE_CMP
+    sub1 = tuple(x[::step1][:N_LARGE_CMP].contiguous() for x in rays1)
+    scale = n1 / N_LARGE_CMP
+    ms = kernel_ms(rays1, big, tables, fronts)
+    print(f"{N_LARGE} spheres, one pass ({n1} camera rays, depth 16): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    entries = []
+    for key in ("brute_chunked", "record_brute_chunked", "bvh", "record_bvh", "front_hbm"):
+        name = "front_hbm plain" if key == "front_hbm" else key
+        front = fronts["plain"] if key == "front_hbm" else None
+        tree_k = tables if "bvh" in key else None
+        twin = mk.trace_record_twin if key.startswith("record") else mk.trace_paths_twin
+        kept = []
+        plain_ms = cuda_ms(
+            lambda: kept.append(twin(*rays1, big, 99, 16, front=front, bvh=tree_k)),  # noqa: B023
+            1)
+        if key.startswith("record"):
+            worst(key, hold_record(mk, f"one pass's rays, {N_LARGE} spheres", *rays1, big, None,
+                                   99, 16, False, bvh=tree_k, twin=kept[0]))
+        else:
+            worst(key, hold_large(mk, f"{key} (one pass's rays, {N_LARGE} spheres)", key, *rays1,
+                                  big, 99, 16, twin=kept[0], front=front, bvh=tree_k))
+        del kept
+        counts = count_tests(mk, *sub1, big, front, 99, 16, bvh=tree_k)
+        counts = {k: v * scale for k, v in counts.items()}
+        tab_bytes = 64 * big.num_spheres
+        if front is not None:
+            tab_bytes = 4 * sum(x.numel() for x in (front.sph, front.ff, front.fi, front.wf,
+                                                    front.sf))
+        elif tree_k is not None:
+            tab_bytes += 4 * tables.nodes.numel()
+        b_ms, b_by = megakernel_bound(counts, n1, 16, tab_bytes, key.startswith("record"))
+        print(f"{key}: kernel {ms[name]:.3f} ms, plain version {plain_ms:.1f} ms (one run); these "
+              f"rays need about {({k: round(v) for k, v in counts.items()})} (counted on every "
+              f"{step1}th ray, scaled by {scale:.2f}); bound {b_ms:.4f} ms by {b_by}, the kernel "
+              f"reaches {b_ms / ms[name]:.3f} of it")
+        entries.append({
+            "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[key], "launches": launches[key],
+            "max_abs_err": max_err[key], "ms": ms[name], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    print(f"seconds per frame (K7, {N_LARGE} spheres, 400x225, 30 spp, depth 50) {frame_s:.4f} s; "
+          f"through K8 {frame8_s:.4f} s; bench-shape frames " +
+          ", ".join(f"{n} spheres {s:.4f} s" for n, s in frames.items()) +
+          f"; train step (K5 bvh) {step_s:.4f} s; on {card}")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1249,6 +1681,9 @@ def main() -> int:
             "max_abs_err": max(rec_err[path], train_err[path]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+
+    # ---- 12e. large scenes: chunked brute, K8, K5 bvh and K7 on up to 50,000 spheres ----
+    kernels.extend(large_scenes(mk, trace, card))
 
     # ---- 13. K4 against its plain version, and its time at the main path's shape ----
     k4_err, k4_ms, k4_plain_ms, (k4_bound_ms, k4_bound_by) = closest_hit_against_twin(trace, card)

@@ -6,7 +6,7 @@ every Pallas kernel of the ported paths is hand-written CUDA for Hopper
 (`csrc/`), with a plain PyTorch version beside it that runs on the CPU.
 This package never imports jax.
 
-So far three paths run end to end. Serving: scenes, camera, BVH and front
+So far four paths run end to end. Serving: scenes, camera, BVH and front
 tables, the megakernel (bounce loop with brute or front-culled closest
 hit), `render`, `render_image` and the CLI
 (`python -m raytracingproject_tpu_torch`). Training: the fast
@@ -15,7 +15,10 @@ recording megakernel forward and the path-replay backward. The oracle:
 the differentiable bounce loop (`render.ray_color`, reached with
 `RenderSettings(use_megakernel=False)`; `use_pallas=True` takes its
 closest hit from the fused kernel), and the reverse-mode train step
-through it (`grad.make_train_step`).
+through it (`grad.make_train_step`). Large scenes: past the card's
+shared memory `render` takes the front with its spheres in global memory,
+`bvh=` the BVH-walking kernel (`render_pass`, `make_fast_train_step`), and
+the brute scan stages its table in chunks.
 """
 
 from raytracingproject_tpu_torch.camera import Camera

@@ -1,11 +1,11 @@
 """The JAX package's state carried across, as numpy arrays.
 
-Takes the arrays of a JAX `Scene`, `FlatBVH`, `FrontTables`, `SceneParams`
-or `PathResiduals` (fetched by the caller with `np.asarray`) and builds the
-port's objects on a given device, so both packages can compute on the same
-data: the same scene and culling tables for the forward, the same
-parameters and recorded path decisions for the replay backward. Never
-imports jax.
+Takes the arrays of a JAX `Scene`, `FlatBVH`, `FrontTables`,
+`FrontTablesHBM`, `SceneParams` or `PathResiduals` (fetched by the caller
+with `np.asarray`) and builds the port's objects on a given device, so
+both packages can compute on the same data: the same scene and culling
+tables for the forward, the same parameters and recorded path decisions
+for the replay backward. Never imports jax.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from raytracingproject_tpu_torch.bvh import FlatBVH
 from raytracingproject_tpu_torch.grad.inverse import SceneParams
 from raytracingproject_tpu_torch.grad.replay import PathResiduals
-from raytracingproject_tpu_torch.ops.cuda.megakernel import FrontTables
+from raytracingproject_tpu_torch.ops.cuda.megakernel import FrontTables, FrontTablesHBM
 from raytracingproject_tpu_torch.scene import Scene
 
 
@@ -53,6 +53,20 @@ def front_from_arrays(sph, ff, fi, wf, sf, remap, repack: int, device="cpu") -> 
         sph=_t(sph, f, device), ff=_t(ff, f, device), fi=_t(fi, i, device),
         wf=_t(wf, f, device), sf=_t(sf, f, device), remap=_t(remap, i, device),
         repack=int(repack),
+    )
+
+
+def front_hbm_from_arrays(sph, ff, fi, wf, sf, remap, word_earlyout: bool = False, bf=None,
+                          ksub: int = 0, device="cpu") -> FrontTablesHBM:
+    """FrontTablesHBM from the arrays of a JAX FrontTablesHBM and its
+    `word_earlyout` and `ksub`. The JAX (16, F * 128) sphere table is
+    stored transposed, one 16-float row a padded column."""
+    f, i = torch.float32, torch.int32
+    return FrontTablesHBM(
+        sph=_t(np.asarray(sph).T, f, device).contiguous(), ff=_t(ff, f, device),
+        fi=_t(fi, i, device), wf=_t(wf, f, device), sf=_t(sf, f, device),
+        remap=_t(remap, i, device), word_earlyout=bool(word_earlyout),
+        bf=None if bf is None else _t(bf, f, device), ksub=int(ksub),
     )
 
 

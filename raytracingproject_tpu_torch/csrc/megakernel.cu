@@ -62,6 +62,44 @@
 //   winner live in their own types (RecordParams, RecordHit), because
 //   growing Params or Hit alone changed the forward kernels' register
 //   allocation.
+//
+// Large scenes (tables past the card's shared memory), three more closest
+// hits under the same bounce loop, selected by the MODE template argument:
+// - CHUNKED, the brute scan (K2) for a table that does not fit whole: the
+//   block stages the table through a 1,024-sphere shared-memory buffer, as
+//   csrc/closest_hit.cu does, and scans chunk after chunk in column order,
+//   so it equals the whole-table scan bit for bit. Staging needs the whole
+//   block at each chunk, so the bounce loop runs while any ray of the
+//   BLOCK lives (__syncthreads_or), not of the warp. That wait and the
+//   re-staging every bounce cost 1.3x where the table fits (cover scene,
+//   360,000 rays, depth 16, H100 at 700 W: 5.1 ms against the whole-table
+//   kernel's 3.9 ms, forward and recording alike), which is why BRUTE
+//   stays and the wrapper picks between the two by table size.
+// - BVH (K8, replaces _closest_hit_bvh :180 in _megakernel_bvh :850; with
+//   RECORD, K5's bvh core :1621): a stackless miss-link walk of the flat
+//   tree. The TPU walks ONE node pointer per 1,024-ray tile and descends
+//   when any lane hits, because it cannot branch per lane. Here every
+//   thread walks its own pointer: after the first bounce the rays of a
+//   warp go apart, and a shared pointer would make each lane pay for the
+//   union of 32 rays' nodes and leaves; the price is divergence inside
+//   the warp (lanes in a leaf scan while the others wait). Nodes are 32 B
+//   (box, miss link, packed leaf range) and spheres 64 B (one row of a
+//   sphere-major table), read from global memory through the read-only
+//   path: 50,000 spheres are 3.2 MB of spheres and 0.4 MB of nodes against
+//   50 MB of L2. What bounds it: latency of those dependent loads and
+//   divergence, not arithmetic.
+// - HBM (K7, replaces _closest_hit_front_hbm :2350 in _megakernel_front_hbm
+//   :2500): K3's culling with the sphere table in global memory, one
+//   128-column block per subtree (the layout of front_tables_hbm), no
+//   repack, optional 8-sphere sub-block boxes (`bf`, read from global
+//   memory) and per-word early-out. The TPU copies each live subtree's
+//   block into a double buffer by DMA; this version reads the spheres
+//   straight from global memory: every lane of a warp reads the same 64 B
+//   sphere (one broadcast transaction, served by L1/L2). A staged version
+//   would need a double buffer per warp (8 KB a block of columns, 128 KB
+//   for eight warps) filled by cp.async, since warps cull on their own.
+//   Box tables (ff, fi, wf, sf) are staged in shared memory when they fit.
+//   A front of more than 576 subtrees takes the three-level path here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +109,8 @@ namespace {
 constexpr int TPB = 256;  // rays per block (ops/cuda/megakernel.py TILE)
 constexpr int N_ROWS = 16;
 constexpr int WORD = 24;
+constexpr int BLOCK = 128;   // columns per subtree of the global-memory front
+constexpr int CHUNK = 1024;  // spheres per staged chunk of the chunked brute scan
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MISS = -1;  // residual idx of a live miss (grad/replay.py)
 constexpr int DEAD = -2;  // residual idx of a ray already terminated
@@ -108,8 +148,33 @@ struct RecordParams : Params {
   uint8_t* res_refl;
 };
 
-template <bool RECORD> struct KernelParams { using type = Params; };
-template <> struct KernelParams<true> { using type = RecordParams; };
+// The closest hit a kernel runs. BRUTE and FRONT keep their tables in
+// shared memory; the others serve tables past its size.
+enum Mode { BRUTE = 0, FRONT = 1, CHUNKED = 2, BVH = 3, HBM = 4 };
+
+// Parameters of the BVH and HBM kernels; `sph` is then sphere-major,
+// [n_cols, 16]. Again a separate type: Params stays as it is.
+struct LargeParams : Params {
+  const float* nodes;  // BVH: [n_nodes, 8] words: min xyz, max xyz, miss link, leaf
+  const float* bf;     // HBM: [8, n_bf] sub-block boxes in global memory, or null
+  int n_bf, ksub, word_earlyout, boxes_in_smem;
+};
+
+struct LargeRecordParams : LargeParams {
+  int* res_idx;
+  float* res_ndx;
+  float* res_ndy;
+  float* res_ndz;
+  uint8_t* res_refl;
+};
+
+template <int MODE, bool RECORD> struct KernelParams {
+  using type = typename KernelParams<(MODE >= BVH ? BVH : BRUTE), RECORD>::type;
+};
+template <> struct KernelParams<BRUTE, false> { using type = Params; };
+template <> struct KernelParams<BRUTE, true> { using type = RecordParams; };
+template <> struct KernelParams<BVH, false> { using type = LargeParams; };
+template <> struct KernelParams<BVH, true> { using type = LargeRecordParams; };
 
 // ---- random numbers: Philox-4x32-10 (ops/rng.py) ----
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -156,7 +221,7 @@ struct Ray {
 template <bool RECORD>
 __device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, int s,
                                             const Ray& r, float t_min,
-                                            typename HitOf<RECORD>::type& h) {
+                                            typename HitOf<RECORD>::type& h, int idx0 = 0) {
   const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
   const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
   const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
@@ -176,7 +241,7 @@ __device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, 
     h.hx = ccx; h.hy = ccy; h.hz = ccz;
     h.hrad = rad;
     h.hmat = (int)S[ROW_MAT * n + s];
-    if constexpr (RECORD) h.hidx = s;
+    if constexpr (RECORD) h.hidx = idx0 + s;
     h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
     h.hfz = S[ROW_FUZZ * n + s];
     h.hio = S[ROW_IOR * n + s];
@@ -249,25 +314,31 @@ __device__ __forceinline__ void front_word(const FrontSmem& T, const Params& p, 
   }
 }
 
-template <bool RECORD>
-__device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Params& p,
-                                                  const Ray& r,
-                                                  typename HitOf<RECORD>::type& h) {
+__device__ __forceinline__ InvDir inv_dir(const Ray& r) {
   InvDir inv;
   inv.x = 1.0f / (fabsf(r.dx) > 1e-20f ? r.dx : 1e-20f);
   inv.y = 1.0f / (fabsf(r.dy) > 1e-20f ? r.dy : 1e-20f);
   inv.z = 1.0f / (fabsf(r.dz) > 1e-20f ? r.dz : 1e-20f);
+  return inv;
+}
+
+// Stage 1 of the front-culled closest hits: calls word(w) for every word
+// some lane of the warp enters, in ascending order.
+template <class WordFn>
+__device__ __forceinline__ void front_live_words(const FrontSmem& T, const Params& p,
+                                                 const Ray& r, const InvDir& inv,
+                                                 WordFn&& word) {
   const float inf = __int_as_float(0x7f800000);
   const int n_words = p.n_front / WORD;
   const int n_super = (n_words + WORD - 1) / WORD;
   if (n_words == 1) {  // one word: trivially live
-    front_word<RECORD>(T, p, 0, r, inv, h);
+    word(0);
   } else if (n_super == 1) {  // <= 576 subtrees: one word-box pack
     unsigned wm = live_bits(T.wf, p.n_words_pad, 0, n_words, r, inv, p.t_min, inf);
     while (wm) {
       const int w = __ffs(wm) - 1;
       wm &= wm - 1u;
-      front_word<RECORD>(T, p, w, r, inv, h);
+      word(w);
     }
   } else {  // super-words of 24 words
     unsigned sm = live_bits(T.sf, p.n_super, 0, n_super, r, inv, p.t_min, inf);
@@ -278,31 +349,190 @@ __device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Para
       while (wm) {
         const int k = __ffs(wm) - 1;
         wm &= wm - 1u;
-        front_word<RECORD>(T, p, sw * WORD + k, r, inv, h);
+        word(sw * WORD + k);
       }
     }
   }
 }
 
+template <bool RECORD>
+__device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Params& p,
+                                                  const Ray& r,
+                                                  typename HitOf<RECORD>::type& h) {
+  const InvDir inv = inv_dir(r);
+  front_live_words(T, p, r, inv, [&](int w) { front_word<RECORD>(T, p, w, r, inv, h); });
+}
+
+// The brute scan over a table too large for shared memory: the block
+// stages CHUNK columns at a time into `buf` ([N_ROWS, CHUNK]) and scans
+// them in column order. Every thread of the block must call it.
+template <bool RECORD>
+__device__ __forceinline__ void closest_hit_chunked(float* buf, const Params& p, const Ray& r,
+                                                    typename HitOf<RECORD>::type& h) {
+  for (int c0 = 0; c0 < p.n_cols; c0 += CHUNK) {
+    const int n = min(CHUNK, p.n_cols - c0);
+    __syncthreads();  // the previous chunk is scanned by every warp
+    for (int row = 0; row <= ROW_IOR; ++row)
+      for (int q = threadIdx.x; q < n; q += TPB)
+        buf[row * CHUNK + q] = p.sph[row * p.n_cols + c0 + q];
+    __syncthreads();
+#pragma unroll 8
+    for (int s = 0; s < n; ++s) sphere_test<RECORD>(buf, CHUNK, s, r, p.t_min, h, c0);
+  }
+}
+
+// sphere_test on a sphere-major table in global memory ([n, 16] floats,
+// the rows of the (16, n) table as one 64-byte record a sphere): the same
+// arithmetic, the material read only by a winner.
+template <bool RECORD>
+__device__ __forceinline__ void sphere_test_g(const float4* __restrict__ S, int s, const Ray& r,
+                                              float t_min, typename HitOf<RECORD>::type& h) {
+  const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
+  const float ccx = g0.x + r.tm * g0.w;
+  const float ccy = g0.y + r.tm * g1.x;
+  const float ccz = g0.z + r.tm * g1.y;
+  const float rad = g1.z;
+  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = half_b * half_b - r.a * cq;
+  const bool dpos = disc > 0.0f;
+  const float sq = sqrtf(dpos ? disc : 1.0f);
+  const float r0 = (-half_b - sq) * r.inv_a;
+  const float r1 = (-half_b + sq) * r.inv_a;
+  const bool in0 = (r0 > t_min) && (r0 < h.bt);
+  const bool in1 = (r1 > t_min) && (r1 < h.bt);
+  if (dpos && (in0 || in1)) {
+    const float4 g2 = __ldg(S + 4 * s + 2), g3 = __ldg(S + 4 * s + 3);
+    h.bt = in0 ? r0 : r1;
+    h.hx = ccx; h.hy = ccy; h.hz = ccz;
+    h.hrad = rad;
+    h.hmat = (int)g1.w;
+    if constexpr (RECORD) h.hidx = s;
+    h.har = g2.x; h.hag = g2.y; h.hab = g2.z;
+    h.hfz = g2.w;
+    h.hio = g3.x;
+  }
+}
+
+// K8: this thread's own stackless walk of the flat tree. A node is eight
+// words: box min xyz, max xyz, the miss link (-1 ends the walk) and, for a
+// leaf, (first sphere << 8) | count (0 for an inner node, whose first
+// child is the next node). The box test is clamped to (t_min, best t).
+template <bool RECORD>
+__device__ __forceinline__ void closest_hit_bvh(const LargeParams& p, const Ray& r,
+                                                typename HitOf<RECORD>::type& h) {
+  const InvDir inv = inv_dir(r);
+  const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
+  const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
+  int node = 0;
+  while (node >= 0) {
+    const float4 lo = __ldg(nodes + 2 * node), hi = __ldg(nodes + 2 * node + 1);
+    float t0 = (lo.x - r.ox) * inv.x;
+    float t1 = (lo.w - r.ox) * inv.x;
+    float tn = fminf(t0, t1);
+    float tf = fmaxf(t0, t1);
+    t0 = (lo.y - r.oy) * inv.y;
+    t1 = (hi.x - r.oy) * inv.y;
+    tn = fmaxf(tn, fminf(t0, t1));
+    tf = fminf(tf, fmaxf(t0, t1));
+    t0 = (lo.z - r.oz) * inv.z;
+    t1 = (hi.y - r.oz) * inv.z;
+    tn = fmaxf(tn, fmaxf(fminf(t0, t1), p.t_min));
+    tf = fminf(tf, fminf(fmaxf(t0, t1), h.bt));
+    const int miss = __float_as_int(hi.z), leaf = __float_as_int(hi.w);
+    if (tf > tn) {
+      if (leaf) {
+        const int start = leaf >> 8, end = start + (leaf & 255);
+        for (int s = start; s < end; ++s) sphere_test_g<RECORD>(S, s, r, p.t_min, h);
+        node = miss;
+      } else {
+        node = node + 1;
+      }
+    } else {
+      node = miss;
+    }
+  }
+}
+
+// Stage 2 of K7 for one live word: its 24 subtree boxes against the
+// per-lane best t (after, with word_earlyout, the word's own box), then
+// the columns of each live subtree's block, all of them or, with
+// sub-block boxes, the 8-column groups some lane enters.
+__device__ __forceinline__ void hbm_word(const FrontSmem& T, const LargeParams& p, int w,
+                                         const Ray& r, const InvDir& inv, Hit& h) {
+  if (p.word_earlyout &&
+      !__any_sync(FULL, slab(T.wf, p.n_words_pad, w, r, inv, p.t_min, h.bt)))
+    return;
+  const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
+  unsigned m = live_bits(T.ff, p.n_front, w * WORD, WORD, r, inv, p.t_min, h.bt);
+  while (m) {
+    const int sid = w * WORD + __ffs(m) - 1;
+    m &= m - 1u;
+    const int cnt = T.fi[sid];
+    if (p.ksub == 0) {
+#pragma unroll 8
+      for (int s = sid * BLOCK; s < sid * BLOCK + cnt; ++s)
+        sphere_test_g<false>(S, s, r, p.t_min, h);
+    } else {
+      unsigned bm = live_bits(p.bf, p.n_bf, sid * p.ksub, cnt / 8, r, inv, p.t_min, h.bt);
+      while (bm) {
+        const int s0 = sid * BLOCK + 8 * (__ffs(bm) - 1);
+        bm &= bm - 1u;
+#pragma unroll
+        for (int s = s0; s < s0 + 8; ++s) sphere_test_g<false>(S, s, r, p.t_min, h);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const LargeParams& p,
+                                                const Ray& r, Hit& h) {
+  const InvDir inv = inv_dir(r);
+  front_live_words(T, p, r, inv, [&](int w) { hbm_word(T, p, w, r, inv, h); });
+}
+
+// Does any ray of this thread's warp (CHUNKED: of its block, which stages
+// its table together) still bounce?
+template <int MODE>
+__device__ __forceinline__ bool any_alive(bool alive) {
+  if constexpr (MODE == CHUNKED) return __syncthreads_or(alive) != 0;
+  else return __any_sync(FULL, alive);
+}
+
 // ---- the bounce loop (K1; K5 with RECORD) ----
-template <bool FRONT, bool RECORD>
-__global__ void __launch_bounds__(TPB) trace_kernel(typename KernelParams<RECORD>::type p) {
+template <int MODE, bool RECORD>
+__global__ void __launch_bounds__(TPB)
+trace_kernel(typename KernelParams<MODE, RECORD>::type p) {
   extern __shared__ float smem[];
   FrontSmem T;
-  {
+  if constexpr (MODE == BRUTE || MODE == FRONT) {
     float* s_sph = smem;
     float* s_ff = s_sph + N_ROWS * p.n_cols;
     float* s_wf = s_ff + 8 * p.n_front;
     float* s_sf = s_wf + 8 * p.n_words_pad;
     int* s_fi = reinterpret_cast<int*>(s_sf + 8 * p.n_super);
     for (int q = threadIdx.x; q < N_ROWS * p.n_cols; q += TPB) s_sph[q] = p.sph[q];
-    if (FRONT) {
+    if (MODE == FRONT) {
       for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
       for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
       for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
       for (int q = threadIdx.x; q < 2 * p.n_front; q += TPB) s_fi[q] = p.fi[q];
     }
     T.sph = s_sph; T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
+  } else if constexpr (MODE == HBM) {  // box tables staged when they fit; fi is [1, n_front]
+    T.sph = p.sph; T.ff = p.ff; T.fi = p.fi; T.wf = p.wf; T.sf = p.sf;
+    if (p.boxes_in_smem) {
+      float* s_ff = smem;
+      float* s_wf = s_ff + 8 * p.n_front;
+      float* s_sf = s_wf + 8 * p.n_words_pad;
+      int* s_fi = reinterpret_cast<int*>(s_sf + 8 * p.n_super);
+      for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
+      for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
+      for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
+      for (int q = threadIdx.x; q < p.n_front; q += TPB) s_fi[q] = p.fi[q];
+      T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
+    }
   }
   __syncthreads();
 
@@ -318,7 +548,7 @@ __global__ void __launch_bounds__(TPB) trace_kernel(typename KernelParams<RECORD
   const float inf = __int_as_float(0x7f800000);
 
   int dep_end = 0;  // K5: bounces this warp ran; the DEAD fill starts here
-  for (int dep = 0; dep < p.max_depth && __any_sync(FULL, alive); ++dep) {
+  for (int dep = 0; dep < p.max_depth && any_alive<MODE>(alive); ++dep) {
     if constexpr (RECORD) dep_end = dep + 1;
     r.a = fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f);
     r.inv_a = 1.0f / r.a;
@@ -327,8 +557,11 @@ __global__ void __launch_bounds__(TPB) trace_kernel(typename KernelParams<RECORD
     h.bt = inf; h.hx = 0.0f; h.hy = 0.0f; h.hz = 0.0f; h.hrad = 1.0f; h.hmat = 0;
     h.har = 0.0f; h.hag = 0.0f; h.hab = 0.0f; h.hfz = 0.0f; h.hio = 1.0f;
     if constexpr (RECORD) h.hidx = 0;
-    if (FRONT) closest_hit_front<RECORD>(T, p, r, h);
-    else closest_hit_brute<RECORD>(T.sph, p.n_cols, r, p.t_min, h);
+    if constexpr (MODE == FRONT) closest_hit_front<RECORD>(T, p, r, h);
+    else if constexpr (MODE == BRUTE) closest_hit_brute<RECORD>(T.sph, p.n_cols, r, p.t_min, h);
+    else if constexpr (MODE == CHUNKED) closest_hit_chunked<RECORD>(smem, p, r, h);
+    else if constexpr (MODE == BVH) closest_hit_bvh<RECORD>(p, r, h);
+    else closest_hit_hbm(T, p, r, h);
 
     const bool hit = h.bt < inf;
     const float t_safe = hit ? h.bt : 1.0f;
@@ -448,24 +681,35 @@ __global__ void philox_kernel(uint32_t* out, int n, uint32_t seed, uint32_t boun
   for (int q = 0; q < 4; ++q) out[4 * i + q] = w[q];
 }
 
-template <bool FRONT, bool RECORD>
-int launch(const typename KernelParams<RECORD>::type& p, int n_rays, cudaStream_t stream) {
+// Dynamic shared memory of one block, by what the kernel stages there.
+template <int MODE>
+size_t smem_bytes(const Params& p, int boxes_in_smem) {
+  const size_t boxes = sizeof(float) * (8 * (size_t)p.n_front + 8 * (size_t)p.n_words_pad +
+                                        8 * (size_t)p.n_super);
+  if (MODE == BRUTE) return sizeof(float) * (size_t)N_ROWS * p.n_cols;
+  if (MODE == FRONT)
+    return sizeof(float) * ((size_t)N_ROWS * p.n_cols + 2 * (size_t)p.n_front) + boxes;
+  if (MODE == CHUNKED) return sizeof(float) * (size_t)N_ROWS * CHUNK;
+  if (MODE == HBM && boxes_in_smem) return boxes + sizeof(int) * (size_t)p.n_front;
+  return 0;
+}
+
+template <int MODE, bool RECORD>
+int launch(const typename KernelParams<MODE, RECORD>::type& p, int n_rays, cudaStream_t stream,
+           int boxes_in_smem = 0) {
   if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
   if constexpr (RECORD) {
     if (p.max_depth > 0 && !(p.res_idx && p.res_ndx && p.res_ndy && p.res_ndz && p.res_refl))
       return (int)cudaErrorInvalidValue;
   }
-  size_t smem = sizeof(float) * (size_t)N_ROWS * p.n_cols;
-  if (FRONT)
-    smem += sizeof(float) * (8 * (size_t)p.n_front + 8 * (size_t)p.n_words_pad +
-                             8 * (size_t)p.n_super + 2 * (size_t)p.n_front);
+  const size_t smem = smem_bytes<MODE>(p, boxes_in_smem);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<FRONT, RECORD>,
+    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<MODE, RECORD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  trace_kernel<FRONT, RECORD><<<n_rays / TPB, TPB, smem, stream>>>(p);
+  trace_kernel<MODE, RECORD><<<n_rays / TPB, TPB, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -492,11 +736,20 @@ void set_front(Params& p, const float* ff, const int* fi, int n_front, const flo
   p.repack = repack;
 }
 
-RecordParams record_params(const Params& base, int* idx, float* ndx, float* ndy, float* ndz,
-                           unsigned char* refl) {
-  RecordParams p;
-  static_cast<Params&>(p) = base;
+// `base` with the residual planes: RecordParams from Params,
+// LargeRecordParams from LargeParams.
+template <class Rec, class Base>
+Rec record_params(const Base& base, int* idx, float* ndx, float* ndy, float* ndz,
+                  unsigned char* refl) {
+  Rec p;
+  static_cast<Base&>(p) = base;
   p.res_idx = idx; p.res_ndx = ndx; p.res_ndy = ndy; p.res_ndz = ndz; p.res_refl = refl;
+  return p;
+}
+
+LargeParams large_params(const Params& base) {
+  LargeParams p{};
+  static_cast<Params&>(p) = base;
   return p;
 }
 
@@ -514,7 +767,7 @@ int rtp_trace_brute(const float* origin, const float* direction, const float* ti
                     float t_min, int zero_draws, void* stream) {
   Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
                          zero_draws);
-  return launch<false, false>(p, n_rays, (cudaStream_t)stream);
+  return launch<BRUTE, false>(p, n_rays, (cudaStream_t)stream);
 }
 
 // K1 + K3: front-culled closest hit over the front tables.
@@ -527,7 +780,7 @@ int rtp_trace_front(const float* origin, const float* direction, const float* ti
   Params p = base_params(origin, direction, time, out, sph, n_cols, seed, max_depth, t_min,
                          zero_draws);
   set_front(p, ff, fi, n_front, wf, n_words_pad, sf, n_super, repack);
-  return launch<true, false>(p, n_rays, (cudaStream_t)stream);
+  return launch<FRONT, false>(p, n_rays, (cudaStream_t)stream);
 }
 
 // K5 (brute): K1 + K2 recording the residual planes, each [max_depth,
@@ -539,8 +792,9 @@ int rtp_record_brute(const float* origin, const float* direction, const float* t
                      float* res_ndy, float* res_ndz, unsigned char* res_refl, void* stream) {
   Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
                          zero_draws);
-  return launch<false, true>(record_params(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl),
-                             n_rays, (cudaStream_t)stream);
+  return launch<BRUTE, true>(
+      record_params<RecordParams>(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl), n_rays,
+      (cudaStream_t)stream);
 }
 
 // K5 (front): K1 + K3 recording the same planes; idx holds columns of the
@@ -555,8 +809,81 @@ int rtp_record_front(const float* origin, const float* direction, const float* t
   Params p = base_params(origin, direction, time, out, sph, n_cols, seed, max_depth, t_min,
                          zero_draws);
   set_front(p, ff, fi, n_front, wf, n_words_pad, sf, n_super, repack);
-  return launch<true, true>(record_params(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl),
-                            n_rays, (cudaStream_t)stream);
+  return launch<FRONT, true>(
+      record_params<RecordParams>(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl), n_rays,
+      (cudaStream_t)stream);
+}
+
+// K1 + K2 over a table of any size, staged in chunks (see CHUNKED above).
+int rtp_trace_brute_chunked(const float* origin, const float* direction, const float* time,
+                            float* out, int n_rays, const float* sph, int n_spheres,
+                            unsigned seed, int max_depth, float t_min, int zero_draws,
+                            void* stream) {
+  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
+                         zero_draws);
+  return launch<CHUNKED, false>(p, n_rays, (cudaStream_t)stream);
+}
+
+// K5 (brute) over a table of any size.
+int rtp_record_brute_chunked(const float* origin, const float* direction, const float* time,
+                             float* out, int n_rays, const float* sph, int n_spheres,
+                             unsigned seed, int max_depth, float t_min, int zero_draws,
+                             int* res_idx, float* res_ndx, float* res_ndy, float* res_ndz,
+                             unsigned char* res_refl, void* stream) {
+  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
+                         zero_draws);
+  return launch<CHUNKED, true>(
+      record_params<RecordParams>(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl), n_rays,
+      (cudaStream_t)stream);
+}
+
+// K1 + K8: the BVH walk. `sph` is the sphere-major [n_spheres, 16] table of
+// the leaf-ordered scene, `nodes` the [n_nodes, 8] node words.
+int rtp_trace_bvh(const float* origin, const float* direction, const float* time, float* out,
+                  int n_rays, const float* sph, int n_spheres, const float* nodes, int n_nodes,
+                  unsigned seed, int max_depth, float t_min, int zero_draws, void* stream) {
+  if (n_nodes <= 0 || !nodes) return (int)cudaErrorInvalidValue;
+  LargeParams p = large_params(base_params(origin, direction, time, out, sph, n_spheres, seed,
+                                           max_depth, t_min, zero_draws));
+  p.nodes = nodes;
+  return launch<BVH, false>(p, n_rays, (cudaStream_t)stream);
+}
+
+// K5 (bvh): K1 + K8 recording the residual planes; idx is a sphere of the
+// leaf-ordered scene.
+int rtp_record_bvh(const float* origin, const float* direction, const float* time, float* out,
+                   int n_rays, const float* sph, int n_spheres, const float* nodes, int n_nodes,
+                   unsigned seed, int max_depth, float t_min, int zero_draws, int* res_idx,
+                   float* res_ndx, float* res_ndy, float* res_ndz, unsigned char* res_refl,
+                   void* stream) {
+  if (n_nodes <= 0 || !nodes) return (int)cudaErrorInvalidValue;
+  LargeParams p = large_params(base_params(origin, direction, time, out, sph, n_spheres, seed,
+                                           max_depth, t_min, zero_draws));
+  p.nodes = nodes;
+  return launch<BVH, true>(
+      record_params<LargeRecordParams>(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl), n_rays,
+      (cudaStream_t)stream);
+}
+
+// K1 + K7: front culling over a sphere-major [n_front * 128, 16] table in
+// global memory, one 128-column block per subtree; fi is [1, n_front]
+// (padded counts); bf ([8, n_bf], with ksub sub-blocks a subtree) may be
+// null. The box tables are staged in shared memory when `boxes_in_smem`.
+int rtp_trace_front_hbm(const float* origin, const float* direction, const float* time,
+                        float* out, int n_rays, const float* sph, const float* ff,
+                        const int* fi, int n_front, const float* wf, int n_words_pad,
+                        const float* sf, int n_super, const float* bf, int n_bf, int ksub,
+                        int word_earlyout, int boxes_in_smem, unsigned seed, int max_depth,
+                        float t_min, int zero_draws, void* stream) {
+  if (!front_ok(n_front, 1) || (ksub != 0 && (ksub != BLOCK / 8 || !bf || n_bf < n_front * ksub)))
+    return (int)cudaErrorInvalidValue;
+  Params base = base_params(origin, direction, time, out, sph, n_front * BLOCK, seed, max_depth,
+                            t_min, zero_draws);
+  set_front(base, ff, fi, n_front, wf, n_words_pad, sf, n_super, 1);
+  LargeParams p = large_params(base);
+  p.bf = bf; p.n_bf = n_bf; p.ksub = ksub;
+  p.word_earlyout = word_earlyout; p.boxes_in_smem = boxes_in_smem;
+  return launch<HBM, false>(p, n_rays, (cudaStream_t)stream, boxes_in_smem);
 }
 
 // The generator alone: the four words of `bounce` for ray slots [0, n),

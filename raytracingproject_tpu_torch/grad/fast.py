@@ -9,9 +9,11 @@ path-replay backward (counterpart of raytracingproject_tpu/grad/fast.py).
 Gradients flow to SceneParams only; rays and the seed get none (camera
 parameters are not trained, as in the JAX package).
 
-A front (FrontTables) is built over fixed geometry: its culling boxes go
-stale when centres or radii move, so a front with trainable geometry is
-refused. Materials are read afresh on every forward (`front_with_params`),
+A front (FrontTables) or a BVH is built over fixed geometry: its boxes go
+stale when centres or radii move, so either with trainable geometry is
+refused. `bvh` is how materials are trained on scenes past the front's
+shared-memory budget (the BVH-walking recording kernel, K5's bvh core).
+Materials are read afresh on every forward (`front_with_params`),
 so a materials-only step with a front renders with the current albedo,
 fuzz and ior. (The JAX package's front forward reads the table copied at
 build time instead.)
@@ -30,7 +32,7 @@ from raytracingproject_tpu_torch.grad.inverse import (
 )
 from raytracingproject_tpu_torch.grad.replay import check_gather, replay_radiance
 from raytracingproject_tpu_torch.ops.cuda.megakernel import (
-    FrontTables, front_with_params, trace_record,
+    FrontTables, bvh_tables, front_with_params, trace_record,
 )
 from raytracingproject_tpu_torch.scene import Scene
 
@@ -41,6 +43,7 @@ class _Config(NamedTuple):
     scene: Scene
     max_depth: int
     front: FrontTables | None
+    bvh: object
     replay_groups: int
     replay_skip_dead: bool | None
     zero_draws: bool
@@ -56,7 +59,7 @@ class _FastRadiance(torch.autograd.Function):
         scene = apply_params(cfg.scene, SceneParams(*leaves))
         front = None if cfg.front is None else front_with_params(cfg.front, scene)
         rad, res = cfg.tracer(origin, direction, time, scene, seed, cfg.max_depth,
-                              front=front, zero_draws=cfg.zero_draws)
+                              front=front, zero_draws=cfg.zero_draws, bvh=cfg.bvh)
         ctx.save_for_backward(origin, direction, time, *leaves)
         ctx.cfg = cfg
         ctx.res = res
@@ -88,19 +91,21 @@ class _FastRadiance(torch.autograd.Function):
 
 def make_fast_radiance(scene: Scene, max_depth: int, front: FrontTables | None = None,
                        replay_groups: int = 1, replay_skip_dead: bool | None = None,
-                       zero_draws: bool = False, tracer: Callable = trace_record):
+                       zero_draws: bool = False, tracer: Callable = trace_record, bvh=None):
     """radiance_fn(params, origin, direction, time, seed) -> [R, 3], with
     the recording-megakernel forward and the replay backward.
 
     `scene` supplies the non-differentiable topology (mat_type, sphere
-    order); with `front` it must already be in BVH leaf order
+    order); with `front` or `bvh` (a FlatBVH over it, or `bvh_tables` of
+    one; `front` wins) it must already be in BVH leaf order
     (bvh.reorder_scene) and `params` in the same order. `seed` is a plain
     int (the Philox key). `zero_draws` makes every draw 0.0, the TPU
     interpreter's PRNG. `replay_groups` and `replay_skip_dead` are
     replay_radiance's `n_groups` and `skip_dead`. `tracer` is the recording
     forward (the kernel wrapper; a check may pass its plain version,
     `trace_record_twin`, to hold the kernel against it on the card)."""
-    cfg = _Config(scene, max_depth, front, replay_groups, replay_skip_dead, zero_draws, tracer)
+    cfg = _Config(scene, max_depth, front, bvh, replay_groups, replay_skip_dead, zero_draws,
+                  tracer)
 
     def radiance_fn(params: SceneParams, origin, direction, time, seed: int):
         return _FastRadiance.apply(cfg, origin, direction, time, int(seed), *params)
@@ -130,8 +135,10 @@ def make_fast_train_step(
 
     `front` (FrontTables over `scene`, which must be in BVH leaf order)
     runs the front-culled closest hit in the recording forward: the fast
-    path for materials-only training. With a front, any of GEOMETRY_FIELDS
-    trainable raises (the culling boxes would be stale).
+    path for materials-only training. `bvh` (a FlatBVH over `scene`, in
+    leaf order too) runs the BVH walk there instead: the route for scenes
+    whose front does not fit shared memory. With either, any of
+    GEOMETRY_FIELDS trainable raises (the boxes would be stale).
 
     `optimizer` is a callable that takes the list of trainable tensors and
     returns a torch.optim.Optimizer (default: torch.optim.Adam at
@@ -150,30 +157,29 @@ def make_fast_train_step(
     Each step draws the camera rays, in the JAX order [spp, H, W], and
     then the path seed from `generator` (default: the one given here, else
     a generator on `device` seeded with 0)."""
-    if bvh is not None:
-        raise NotImplementedError("the BVH-walking recording kernel is not ported yet "
-                                  "(ROADMAP K8); use front= or the brute forward")
     if two_phase is not None:
-        raise NotImplementedError("two-phase tracing is not ported yet (ROADMAP P8)")
+        raise NotImplementedError("two-phase tracing is not ported yet (ROADMAP P8 with K6)")
     check_gather(replay_gather)
-    if front is not None:
+    if bvh is not None or front is not None:
         geo = set(GEOMETRY_FIELDS if trainable is None else trainable) & set(GEOMETRY_FIELDS)
         if geo:
             raise ValueError(
-                f"front snapshots FIXED geometry but {sorted(geo)} are trainable; train "
-                "materials only, or pass front=None for geometry training")
+                f"bvh/front snapshot FIXED geometry but {sorted(geo)} are trainable; train "
+                "materials only, or pass bvh=None and front=None for geometry training")
     mask = trainable_mask(trainable)
     device = resolve_device(device)
     scene = scene.to(device)
     if front is not None:
         front = front.to(device)
+    if bvh is not None:
+        bvh = bvh_tables(bvh, device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
     width, height = camera.image_size()
     dtype = scene.center0.dtype
     cam = camera.derive(dtype, device)
-    radiance_fn = make_fast_radiance(scene, camera.max_depth, front=front,
+    radiance_fn = make_fast_radiance(scene, camera.max_depth, front=front, bvh=bvh,
                                      replay_groups=replay_groups,
                                      replay_skip_dead=replay_skip_dead)
     pix = torch.arange(height * width, device=device).repeat(spp)

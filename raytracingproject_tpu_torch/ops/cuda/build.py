@@ -57,6 +57,18 @@ LIBRARIES = {
             [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I,
              _P, _P, _P, _P, _P, _P], _I,
         ),
+        "rtp_trace_brute_chunked": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
+        "rtp_record_brute_chunked": (
+            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
+        ),
+        "rtp_trace_bvh": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
+        "rtp_record_bvh": (
+            [_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
+        ),
+        "rtp_trace_front_hbm": (
+            [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
+             _U, _I, _F, _I, _P], _I,
+        ),
         "rtp_philox": ([_P, _I, _U, _I, _P], _I),
     },
     "closest_hit": {

@@ -2,13 +2,19 @@
 plain PyTorch versions of its kernels.
 
 Counterpart of raytracingproject_tpu/ops/pallas/megakernel.py. The kernels
-(K1 bounce loop, K2 brute closest hit, K3 front-culled closest hit, and K5,
-the bounce loop that records path residuals) are hand-written CUDA in
-csrc/megakernel.cu. `trace_paths` and `trace_record` are the public
-entries: for CUDA tensors they launch a kernel or raise; for CPU tensors
-they run the plain versions ("the twin") defined here, which the tests
-hold against the JAX package and which chip_smoke.py holds against the
-kernels.
+(K1 bounce loop, K2 brute closest hit, K3 front-culled closest hit, K7 the
+front with its sphere table in global memory, K8 the BVH walk, and K5, the
+bounce loop that records path residuals over the brute, front or BVH
+closest hit) are hand-written CUDA in csrc/megakernel.cu. `trace_paths`
+and `trace_record` are the public entries: for CUDA tensors they launch a
+kernel or raise; for CPU tensors they run the plain versions ("the twin")
+defined here, which the tests hold against the JAX package and which
+chip_smoke.py holds against the kernels.
+
+Which closest hit runs: `front` (FrontTables: K3, tables in shared memory;
+FrontTablesHBM: K7, any size) wins over `bvh` (K8, any size), else the
+brute scan over `scene` (K2; past the shared-memory budget the kernel
+stages the table in chunks, with equal results).
 """
 
 from __future__ import annotations
@@ -38,10 +44,11 @@ N_ROWS = 16
 
 WORD = 24    # front subtrees per culling word
 UNROLL = 8   # subtree sphere ranges are padded to a multiple of this
+BLOCK = 128  # columns per subtree of the global-memory front (K7)
 
-# Dynamic shared memory one block may use on an H100 (227 KB). The kernels
-# stage their tables there; larger scenes need the global-memory front
-# (ROADMAP K7).
+# Dynamic shared memory one block may use on an H100 (227 KB). The brute
+# and front kernels stage their whole tables there; past it the brute scan
+# stages chunks and the front keeps its spheres in global memory (K7).
 SMEM_BUDGET_BYTES = 232448
 
 # Intra-word re-pack count of the JAX package's front tables.
@@ -54,7 +61,9 @@ DEAD = -2
 
 # Kernel launches per entry point, counted by the wrapper after each
 # successful launch (and nowhere else).
-LAUNCHES = {"brute": 0, "front": 0, "record_brute": 0, "record_front": 0}
+LAUNCHES = {"brute": 0, "front": 0, "record_brute": 0, "record_front": 0,
+            "brute_chunked": 0, "record_brute_chunked": 0, "bvh": 0, "record_bvh": 0,
+            "front_hbm": 0}
 
 
 def reset_launches() -> None:
@@ -104,11 +113,43 @@ class FrontTables:
         return torch.from_numpy(owner).to(self.sph.device)
 
 
+class FrontOverBudget(ValueError):
+    """`front_tables`' tables exceed the shared-memory budget they were given."""
+
+
 def default_front_nodes(n_spheres: int) -> int:
     """Front size: ~26 spheres per subtree, in WORD multiples, at most
     24^3 subtrees."""
     f = max(1, round(n_spheres / 26 / WORD)) * WORD
     return min(max(f, WORD), WORD * WORD * WORD)
+
+
+def _union_boxes(fmin: np.ndarray, fmax: np.ndarray,
+                 real: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(wf, sf): union boxes of each word of WORD subtrees and each
+    super-word of WORD words, (8, n) tables, over the `real` subtrees only.
+    All-padding entries keep the degenerate 1e30 point, which the strict
+    slab test always misses. Past one super-word the word table is padded
+    to a WORD multiple."""
+    n_words = fmin.shape[0] // WORD
+    n_super = (n_words + WORD - 1) // WORD
+    n_words_pad = n_super * WORD if n_super > 1 else n_words
+    wf = np.full((8, n_words_pad), 0.0, np.float32)
+    wf[0:6] = 1e30
+    for wd in range(n_words):
+        sl = slice(wd * WORD, (wd + 1) * WORD)
+        if real[sl].any():
+            wf[0:3, wd] = fmin[sl][real[sl]].min(axis=0)
+            wf[3:6, wd] = fmax[sl][real[sl]].max(axis=0)
+    sf = np.full((8, max(n_super, 1)), 0.0, np.float32)
+    sf[0:6] = 1e30
+    for sw in range(n_super):
+        sl = slice(sw * WORD, min((sw + 1) * WORD, n_words))
+        live = wf[0, sl] < 1e29
+        if live.any():
+            sf[0:3, sw] = wf[0:3, sl][:, live].min(axis=1)
+            sf[3:6, sw] = wf[3:6, sl][:, live].max(axis=1)
+    return wf, sf
 
 
 def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=None,
@@ -120,8 +161,8 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
 
     Each subtree's sphere range is padded to a UNROLL multiple by repeating
     its last sphere, a no-op under the strict `<` best-t update.
-    `order_point` orders subtrees near-to-far. Raises ValueError when the
-    tables exceed `smem_budget` bytes, the kernel's shared memory; None
+    `order_point` orders subtrees near-to-far. Raises FrontOverBudget (a
+    ValueError) when the tables exceed `smem_budget` bytes, the kernel's shared memory; None
     skips the check (the plain version has no such limit). A front of more
     than 576 subtrees (super-words) pads to over 4608 columns, past the
     budget, so the kernel meets one only with the global-memory front (K7)."""
@@ -167,35 +208,13 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     ff[0:3] = fr.fmin.T
     ff[3:6] = fr.fmax.T
     fi = np.stack([new_start, new_count]).astype(np.int32)
-    # Word union boxes over real subtrees only; all-padding words keep the
-    # degenerate 1e30 point, which the strict slab test always misses.
-    n_words = fr.fmin.shape[0] // WORD
-    n_super = (n_words + WORD - 1) // WORD
-    n_words_pad = n_super * WORD if n_super > 1 else n_words
-    wf = np.full((8, n_words_pad), 0.0, np.float32)
-    wf[0:6] = 1e30
-    for wd in range(n_words):
-        sl = slice(wd * WORD, (wd + 1) * WORD)
-        real = fr.count[sl] > 0
-        if real.any():
-            wf[0:3, wd] = fr.fmin[sl][real].min(axis=0)
-            wf[3:6, wd] = fr.fmax[sl][real].max(axis=0)
-            wf[6:8, wd] = 0.0
-    sf = np.full((8, max(n_super, 1)), 0.0, np.float32)
-    sf[0:6] = 1e30
-    for sw in range(n_super):
-        sl = slice(sw * WORD, min((sw + 1) * WORD, n_words))
-        real = wf[0, sl] < 1e29
-        if real.any():
-            sf[0:3, sw] = wf[0:3, sl][:, real].min(axis=1)
-            sf[3:6, sw] = wf[3:6, sl][:, real].max(axis=1)
-            sf[6:8, sw] = 0.0
+    wf, sf = _union_boxes(fr.fmin, fr.fmax, fr.count > 0)
     smem_bytes = 4 * (sph_pad.size + ff.size + fi.size + wf.size + sf.size)
     if smem_budget is not None and smem_bytes > smem_budget:
-        raise ValueError(
+        raise FrontOverBudget(
             f"front tables need {smem_bytes} B of shared memory (> {smem_budget} "
             f"budget): {sph_pad.shape[1]} padded spheres x {N_ROWS} rows. Scenes this "
-            "large need the global-memory front (ROADMAP K7).")
+            "large take the global-memory front (front_tables_hbm, K7).")
     t = torch.from_numpy
     return FrontTables(
         sph=t(sph_pad).to(device), ff=t(ff).to(device), fi=t(fi).to(device),
@@ -220,17 +239,154 @@ def front_with_params(front: FrontTables, scene: Scene) -> FrontTables:
     return dataclasses.replace(front, sph=sph.contiguous())
 
 
+@dataclasses.dataclass
+class FrontTablesHBM:
+    """Tables of the front-culled closest hit with its spheres in global
+    memory (K7), built by `front_tables_hbm`: FrontTablesHBM of the JAX
+    package. `ff`, `fi`, `wf`, `sf`, `remap`, `bf` and `ksub` are the arrays
+    its `front_tables_hbm` makes. Subtree k owns columns [k * BLOCK, k * BLOCK + fi[0, k])
+    of a padded table of F * BLOCK columns.
+
+    The spheres are stored sphere-major: `sph` is [F * BLOCK, 16], row c
+    holding the 16 table rows of padded column c (the transpose of the JAX
+    package's (16, F * BLOCK) table, which was laid out for 128-lane DMA
+    slices). A thread of the kernel reads one sphere as one 64-byte record
+    from global memory, four 16-byte loads, instead of thirteen words a
+    table row apart."""
+
+    sph: torch.Tensor    # (F * BLOCK, 16) f32, sphere-major
+    ff: torch.Tensor     # (8, F) f32 subtree boxes
+    fi: torch.Tensor     # (1, F) i32 padded counts (block k starts at k * BLOCK)
+    wf: torch.Tensor     # (8, Wp) f32 word union boxes
+    sf: torch.Tensor     # (8, S) f32 super-word union boxes
+    remap: torch.Tensor  # (F * BLOCK,) i32 padded column -> leaf-order sphere
+    word_earlyout: bool = False      # re-test a live word's box against best t
+    bf: torch.Tensor | None = None   # (8, F * ksub) f32 boxes of 8-column groups
+    ksub: int = 0                    # BLOCK // UNROLL with `bf`, else 0
+
+    def to(self, device) -> "FrontTablesHBM":
+        t = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        return FrontTablesHBM(**{k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                                 for k, v in t.items()})
+
+    def valid_columns(self) -> torch.Tensor:
+        """int64 padded columns a scan visits (below their subtree's count),
+        ascending."""
+        col = torch.arange(self.sph.shape[0], device=self.sph.device)
+        return col[col % BLOCK < self.fi[0].long()[col // BLOCK]]
+
+
+def front_tables_hbm(scene: Scene, bvh, max_nodes: int | None = None, order_point=None,
+                     word_earlyout: bool = False, sub_block: bool = False,
+                     device=None) -> FrontTablesHBM:
+    """Build the tables of the global-memory front (front_tables_hbm of the
+    JAX package, megakernel.py:2239-2347). `scene` must already be in BVH
+    leaf order. The front is cut until no subtree owns more than BLOCK
+    spheres; `order_point` orders subtrees near-to-far. `sub_block` adds a
+    box per 8 padded columns, which the kernel reads from global memory
+    (so, unlike the TPU's, the table has no size limit); it pairs with
+    fewer, bigger subtrees (a small `max_nodes`)."""
+    from raytracingproject_tpu_torch.bvh import bvh_front
+
+    device = scene.device if device is None else device
+    if max_nodes is None:
+        max_nodes = default_front_nodes(scene.num_spheres)
+    fr = bvh_front(bvh, max_nodes=max_nodes, max_count=BLOCK, order_point=order_point)
+    f_real = fr.start.shape[0]
+    f_pad = ((f_real + WORD - 1) // WORD) * WORD
+    sph = scene_table(scene).cpu().numpy()
+
+    blocks = np.zeros((N_ROWS, f_pad * BLOCK), np.float32)
+    remap = np.zeros(f_pad * BLOCK, np.int32)
+    counts = np.zeros(f_pad, np.int32)
+    fmin = np.full((f_pad, 3), 1e30, np.float32)
+    fmax = np.full((f_pad, 3), 1e30, np.float32)
+    for k in range(f_real):
+        s, c = int(fr.start[k]), int(fr.count[k])
+        if c == 0:
+            continue
+        cp = ((c + UNROLL - 1) // UNROLL) * UNROLL
+        blk = sph[:, s : s + c]
+        ids = np.arange(s, s + c, dtype=np.int32)
+        if cp > c:
+            blk = np.concatenate([blk, np.repeat(blk[:, -1:], cp - c, axis=1)], axis=1)
+            ids = np.concatenate([ids, np.repeat(ids[-1:], cp - c)])
+        blocks[:, k * BLOCK : k * BLOCK + cp] = blk
+        remap[k * BLOCK : k * BLOCK + cp] = ids
+        counts[k] = cp
+        fmin[k] = fr.fmin[k]
+        fmax[k] = fr.fmax[k]
+    ff = np.zeros((8, f_pad), np.float32)
+    ff[0:3] = fmin.T
+    ff[3:6] = fmax.T
+    wf, sf = _union_boxes(fmin, fmax, counts > 0)
+    bf, ksub = None, 0
+    if sub_block:
+        ksub = BLOCK // UNROLL
+        c0 = blocks[0:3]
+        c1 = c0 + blocks[3:6]
+        rad = np.abs(blocks[6])
+        real = (np.arange(f_pad * BLOCK) % BLOCK < np.repeat(counts, BLOCK)).reshape(-1, UNROLL)
+        lo = np.where(real, (np.minimum(c0, c1) - rad).reshape(3, -1, UNROLL), np.inf).min(axis=2)
+        hi = np.where(real, (np.maximum(c0, c1) + rad).reshape(3, -1, UNROLL), -np.inf).max(axis=2)
+        bf = np.zeros((8, f_pad * ksub), np.float32)
+        bf[0:6] = 1e30
+        some = real.any(axis=1)
+        bf[0:3, some] = lo[:, some]
+        bf[3:6, some] = hi[:, some]
+    t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    return FrontTablesHBM(
+        sph=t(np.ascontiguousarray(blocks.T)), ff=t(ff), fi=t(counts[None, :].copy()),
+        wf=t(wf), sf=t(sf), remap=t(remap), word_earlyout=bool(word_earlyout),
+        bf=None if bf is None else t(bf), ksub=ksub,
+    )
+
+
+@dataclasses.dataclass
+class BVHTables:
+    """A FlatBVH prepared for the BVH-walking kernel (K8) on one device."""
+
+    flat: object         # the FlatBVH, its tensors on the device (the plain version walks it)
+    nodes: torch.Tensor  # (M, 8) i32 words: box min xyz, max xyz (f32 bits), miss link, leaf
+
+
+def bvh_tables(bvh, device) -> BVHTables:
+    """`bvh` (a FlatBVH over a leaf-ordered scene, or BVHTables) on
+    `device`, with the kernel's node table: eight 32-bit words a node, the
+    box as float32 bits, the miss link, and for a leaf
+    (leaf_start << 8) | leaf_count, 0 for an inner node."""
+    device = torch.device(device)
+    if isinstance(bvh, BVHTables):
+        have = bvh.nodes.device
+        if have.type == device.type and device.index in (None, have.index):
+            return bvh
+        bvh = bvh.flat
+    flat = type(bvh)(*(x.to(device) for x in bvh))
+    if int(flat.leaf_count.max()) > 255 or int(flat.leaf_start.max()) >= 1 << 23:
+        raise ValueError("the BVH kernel packs a leaf as (start << 8) | count: it takes leaves "
+                         "of at most 255 spheres and scenes below 2^23 spheres")
+    leaf = torch.where(flat.leaf_count > 0, (flat.leaf_start << 8) | flat.leaf_count, 0)
+    nodes = torch.cat([flat.node_min.float().view(torch.int32),
+                       flat.node_max.float().view(torch.int32),
+                       flat.miss_link.int()[:, None], leaf.int()[:, None]], dim=1)
+    return BVHTables(flat=flat, nodes=nodes.contiguous())
+
+
 # ---------------------------------------------------------------------------
-# The plain PyTorch versions ("twin") of K2, K3 and K1
+# The plain PyTorch versions ("twin") of K2, K3, K7, K8 and K1
 # ---------------------------------------------------------------------------
 
 def _sphere_t(tab: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
-              t_min: float) -> torch.Tensor:
+              t_min: float, cols: torch.Tensor | None = None) -> torch.Tensor:
     """[R, C] hit distance of every ray against every column of `tab`
-    (16, C), +inf where the ray misses or hits outside (t_min, inf). The
-    root choice is the strict sequential scan's: the near root when it is
-    past t_min, else the far one."""
-    c = lambda row: tab[row][None, :]  # noqa: E731
+    (16, C), or with `cols` ([R, L] int64) against its own L columns, +inf
+    where the ray misses or hits outside (t_min, inf). The root choice is
+    the strict sequential scan's: the near root when it is past t_min, else
+    the far one."""
+    if cols is None:
+        c = lambda row: tab[row][None, :]  # noqa: E731
+    else:
+        c = lambda row: tab[row][cols]  # noqa: E731
     col = lambda x: x[:, None]  # noqa: E731
     ccx = c(ROW_CX) + col(tm) * c(ROW_MX)
     ccy = c(ROW_CY) + col(tm) * c(ROW_MY)
@@ -294,6 +450,85 @@ def closest_hit_front_twin(front: FrontTables, col_subtree: torch.Tensor,
     live = subtree_slab_mask(front.ff, ox, oy, oz, dx, dy, dz, t_min)[:, col_subtree]
     t = _sphere_t(front.sph, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
     return _first_min(torch.where(live, t, math.inf))
+
+
+def closest_hit_hbm_twin(front: FrontTablesHBM, tab: torch.Tensor, col_subtree: torch.Tensor,
+                         col_group: torch.Tensor | None,
+                         ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min=T_MIN):
+    """K7's plain version over `tab` (16, C), the front's visited columns
+    (`FrontTablesHBM.valid_columns`) in ascending order: columns of
+    subtrees (`col_subtree`) and, with sub-block boxes, of 8-column groups
+    (`col_group`) whose box the ray misses are masked out, then the first
+    minimum. Returns (best t, winner column of `tab` or -1).
+
+    K7 also drops what a ray enters only beyond its best t so far (the
+    clamped subtree and group tests, `word_earlyout`): such a box holds no
+    strictly closer hit, so the result is the same and the plain version
+    has no counterpart of them."""
+    live = subtree_slab_mask(front.ff, ox, oy, oz, dx, dy, dz, t_min)[:, col_subtree]
+    if col_group is not None:
+        live &= subtree_slab_mask(front.bf, ox, oy, oz, dx, dy, dz, t_min)[:, col_group]
+    t = _sphere_t(tab, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
+    return _first_min(torch.where(live, t, math.inf))
+
+
+def closest_hit_bvh_twin(tab: torch.Tensor, bvh, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
+                         t_min=T_MIN, counts: dict | None = None):
+    """K8's plain version: every ray walks the flat tree (`bvh`, a FlatBVH
+    on the rays' device, over the leaf-ordered scene of `tab` (16, N)) with
+    its own node pointer, as a thread of the kernel does. A node's box is
+    tested within (t_min, best t so far); a leaf that passes scans its
+    spheres in order under the strict `<`; an inner node that passes goes
+    to its first child, anything else follows the miss link. Returns (best
+    t, winner column or -1). With `counts`, adds the box tests ("boxes")
+    and sphere tests ("pairs") of rays that are not parked."""
+    dev, n = ox.device, ox.shape[0]
+
+    def inv(d):
+        return 1.0 / torch.where(torch.abs(d) > 1e-20, d, 1e-20)
+
+    ix, iy, iz = inv(dx), inv(dy), inv(dz)
+    nmin, nmax = bvh.node_min.to(ox.dtype), bvh.node_max.to(ox.dtype)
+    miss_link, leaf_start = bvh.miss_link.long(), bvh.leaf_start.long()
+    leaf_count = bvh.leaf_count.long()
+    offsets = torch.arange(max(int(leaf_count.max()), 1), device=dev)
+    ptr = torch.zeros(n, dtype=torch.int64, device=dev)
+    bt = torch.full((n,), math.inf, dtype=ox.dtype, device=dev)
+    win = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    while True:
+        active = ptr >= 0
+        if not bool(active.any()):
+            break
+        node = torch.where(active, ptr, 0)
+        lo, hi = nmin[node], nmax[node]
+        t0, t1 = (lo[:, 0] - ox) * ix, (hi[:, 0] - ox) * ix
+        tn, tf = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        t0, t1 = (lo[:, 1] - oy) * iy, (hi[:, 1] - oy) * iy
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+        t0, t1 = (lo[:, 2] - oz) * iz, (hi[:, 2] - oz) * iz
+        tn = torch.maximum(tn, torch.clamp_min(torch.minimum(t0, t1), t_min))
+        tf = torch.minimum(tf, torch.minimum(torch.maximum(t0, t1), bt))
+        entered = active & (tf > tn)
+        count = leaf_count[node]
+        rows = torch.nonzero(entered & (count > 0))[:, 0]
+        if counts is not None:
+            counts["boxes"] += int((active & (ox < 1e17)).sum())
+            counts["pairs"] += int(count[rows].sum())
+        if rows.numel():
+            cols = torch.clamp_max(leaf_start[node[rows]][:, None] + offsets[None, :],
+                                   tab.shape[1] - 1)
+            t = _sphere_t(tab, *(x[rows] for x in (ox, oy, oz, dx, dy, dz, tm, a, inv_a)),
+                          t_min, cols=cols)
+            t = torch.where(offsets[None, :] < count[rows][:, None], t, math.inf)
+            lane = torch.argmin(t, dim=1, keepdim=True)
+            lane_t = torch.gather(t, 1, lane)[:, 0]
+            better = lane_t < bt[rows]
+            bt[rows] = torch.where(better, lane_t, bt[rows])
+            win[rows] = torch.where(better, torch.gather(cols, 1, lane)[:, 0], win[rows])
+        ptr = torch.where(active, torch.where(entered & (count == 0), node + 1,
+                                              miss_link[node]), -1)
+    return bt, win
 
 
 def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_depth: int,
@@ -432,38 +667,71 @@ def _twin_chunk(n_cols: int) -> int:
 
 
 def trace_paths_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
-                     t_min: float = T_MIN, front: FrontTables | None = None,
-                     zero_draws: bool = False) -> torch.Tensor:
+                     t_min: float = T_MIN, front=None, zero_draws: bool = False,
+                     bvh=None) -> torch.Tensor:
     """Plain PyTorch `trace_paths` on any device, in ray chunks."""
     return _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
-                 record=False)
+                 bvh, record=False)
 
 
 def trace_record_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
                       t_min: float = T_MIN, front: FrontTables | None = None,
-                      zero_draws: bool = False):
+                      zero_draws: bool = False, bvh=None):
     """Plain PyTorch `trace_record` on any device: (radiance [R, 3],
     PathResiduals)."""
+    _no_hbm_record(front)
     rad, planes = _twin(origin, direction, time, scene, seed, max_depth, t_min, front,
-                        zero_draws, record=True)
+                        zero_draws, bvh, record=True)
     return rad, decode_residuals(planes, origin.shape[0], front)
 
 
-def _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
-          record: bool):
-    if front is not None:
+def _no_hbm_record(front) -> None:
+    if isinstance(front, FrontTablesHBM):
+        raise ValueError(
+            "trace_record takes no FrontTablesHBM (nor does the JAX package's "
+            "pallas_trace_record): record large scenes with bvh=, or with a FrontTables "
+            "that fits shared memory")
+
+
+def twin_closest_hit(scene: Scene | None, front, bvh, device):
+    """(tab, closest_hit, chunk): the plain closest hit `trace_paths` would
+    run for these arguments (front over bvh over brute), as the callable
+    `bounce_loop_twin` takes, the (16, C) table its winners index, and the
+    rays to give it at a time (the scans hold [rays, columns] temporaries,
+    the walk a leaf's few columns a ray)."""
+    if isinstance(front, FrontTablesHBM):
+        cols = front.valid_columns()
+        tab = front.sph[cols].t().contiguous()
+        col_subtree = cols // BLOCK
+        col_group = None if front.bf is None else cols // UNROLL
+
+        def hit(*r):
+            return closest_hit_hbm_twin(front, tab, col_subtree, col_group, *r)
+    elif front is not None:
         tab = front.sph
         owner = front.column_subtree()
 
         def hit(*r):
             return closest_hit_front_twin(front, owner, *r)
+    elif bvh is not None:
+        tab = scene_table(scene).to(device)
+        flat = bvh_tables(bvh, device).flat
+
+        def hit(*r):
+            return closest_hit_bvh_twin(tab, flat, *r)
+
+        return tab, hit, _twin_chunk(64)
     else:
-        tab = scene_table(scene).to(origin.device)
+        tab = scene_table(scene).to(device)
 
         def hit(*r):
             return closest_hit_brute_twin(tab, *r)
+    return tab, hit, _twin_chunk(tab.shape[1])
 
-    chunk = _twin_chunk(tab.shape[1])
+
+def _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
+          record: bool):
+    tab, hit, chunk = twin_closest_hit(scene, front, bvh, origin.device)
     outs = []
     for r0 in range(0, max(origin.shape[0], 1), chunk):  # one empty chunk for 0 rays
         sl = slice(r0, r0 + chunk)
@@ -518,23 +786,29 @@ def _pad_rays(x: torch.Tensor, total: int) -> torch.Tensor:
 
 def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor,
                 scene: Scene | None, seed: int, max_depth: int, t_min: float = T_MIN,
-                front: FrontTables | None = None, zero_draws: bool = False) -> torch.Tensor:
+                front: FrontTables | FrontTablesHBM | None = None, zero_draws: bool = False,
+                bvh=None) -> torch.Tensor:
     """Radiance [R, 3] of camera rays: the full path trace in one kernel
     (pallas_trace_paths of the JAX package).
 
-    With `front` the closest hit is front-culled (K3) over the front's
-    padded table and `scene` is not read; otherwise it is the brute scan
-    (K2) over `scene`. `seed` keys the Philox stream (ops/rng.py);
-    `zero_draws` makes every uniform 0.0 (the TPU interpreter's PRNG).
+    With `front` the closest hit is front-culled over the front's own
+    padded table and `scene` is not read: K3 for a FrontTables (tables in
+    shared memory), K7 for a FrontTablesHBM (spheres in global memory, any
+    size). Else with `bvh` (a FlatBVH over `scene`, which must be in leaf
+    order, or `bvh_tables` of one) it is the BVH walk (K8, any size). Else
+    it is the brute scan (K2) over `scene`, whole in shared memory or, past
+    its budget, staged in chunks. `seed` keys the Philox stream
+    (ops/rng.py); `zero_draws` makes every uniform 0.0 (the TPU
+    interpreter's PRNG).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     PyTorch version."""
     dev = origin.device
     if dev.type == "cpu":
         return trace_paths_twin(origin, direction, time, scene, seed, max_depth, t_min,
-                                front, zero_draws)
+                                front, zero_draws, bvh)
     rad, _ = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
-                     zero_draws, record=False)
+                     zero_draws, bvh, record=False)
     return rad
 
 
@@ -544,29 +818,29 @@ def trace_record(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tens
     """`trace_paths` that also records the path residuals for the replay
     backward (pallas_trace_record of the JAX package, K5): returns
     (radiance [R, 3], grad.replay.PathResiduals) with idx [D, R] int32 (a
-    sphere of `scene`'s order, in leaf order with `front`; MISS; DEAD),
-    ndir [D, R, 3] and refl [D, R] bool. The radiance equals
-    `trace_paths`'s for the same rays, seed and closest hit.
+    sphere of `scene`'s order, in leaf order with `front` or `bvh`; MISS;
+    DEAD), ndir [D, R, 3] and refl [D, R] bool. The radiance equals
+    `trace_paths`'s for the same rays, seed and closest hit. `front` must
+    be a FrontTables: there is no recording kernel over a FrontTablesHBM
+    (large scenes record with `bvh`).
 
     CUDA tensors launch the recording kernel (or raise); CPU tensors run
     its plain PyTorch version."""
-    if bvh is not None:
-        raise NotImplementedError(
-            "the BVH-walking recording kernel is not ported yet (ROADMAP K8)")
+    _no_hbm_record(front)
     dev = origin.device
     if dev.type == "cpu":
         return trace_record_twin(origin, direction, time, scene, seed, max_depth, t_min,
-                                 front, zero_draws)
+                                 front, zero_draws, bvh)
     rad, planes = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
-                          zero_draws, record=True)
+                          zero_draws, bvh, record=True)
     return rad, decode_residuals(planes, origin.shape[0], front)
 
 
-def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
+def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
             record: bool):
-    """Check the inputs and launch K1+K2 / K1+K3 (or, with `record`, K5)
-    on CUDA tensors: (radiance [R, 3], residual planes [D, R_pad] or
-    None)."""
+    """Check the inputs and launch the kernel `trace_paths` describes (or,
+    with `record`, K5 over the same closest hit) on CUDA tensors:
+    (radiance [R, 3], residual planes [D, R_pad] or None)."""
     dev = origin.device
     if dev.type != "cuda":
         raise ValueError(f"the megakernel runs on cuda or cpu tensors, not {dev}")
@@ -596,7 +870,27 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
     out = torch.empty((r_pad, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda x: x.data_ptr()  # noqa: E731
-    if front is not None:
+    rays = (p(o), p(d), p(t), p(out), r_pad)
+    tail = (int(seed), max_depth, t_min, int(zero_draws), *res_args, stream)
+    if isinstance(front, FrontTablesHBM):
+        n_front = front.ff.shape[1]
+        _require(front.sph, "front.sph", (n_front * BLOCK, N_ROWS), torch.float32, dev)
+        _require(front.ff, "front.ff", (8, n_front), torch.float32, dev)
+        _require(front.fi, "front.fi", (1, n_front), torch.int32, dev)
+        _require(front.wf, "front.wf", (8, front.wf.shape[1]), torch.float32, dev)
+        _require(front.sf, "front.sf", (8, front.sf.shape[1]), torch.float32, dev)
+        n_bf = 0
+        if front.bf is not None:
+            n_bf = front.bf.shape[1]
+            _require(front.bf, "front.bf", (8, n_front * front.ksub), torch.float32, dev)
+        boxes = 4 * sum(x.numel() for x in (front.ff, front.fi, front.wf, front.sf))
+        key = "front_hbm"
+        err = lib.rtp_trace_front_hbm(
+            *rays, p(front.sph), p(front.ff), p(front.fi), n_front, p(front.wf),
+            front.wf.shape[1], p(front.sf), front.sf.shape[1],
+            None if front.bf is None else p(front.bf), n_bf, front.ksub,
+            int(front.word_earlyout), int(boxes <= SMEM_BUDGET_BYTES), *tail)
+    elif front is not None:
         n_cols = front.sph.shape[1]
         n_front = front.ff.shape[1]
         _require(front.sph, "front.sph", (N_ROWS, n_cols), torch.float32, dev)
@@ -607,23 +901,24 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
         smem = 4 * sum(x.numel() for x in (front.sph, front.ff, front.fi, front.wf, front.sf))
         if smem > SMEM_BUDGET_BYTES:
             raise ValueError(f"front tables need {smem} B of shared memory "
-                             f"(> {SMEM_BUDGET_BYTES})")
+                             f"(> {SMEM_BUDGET_BYTES}); build them with front_tables_hbm")
         fn, key = ((lib.rtp_record_front, "record_front") if record
                    else (lib.rtp_trace_front, "front"))
-        err = fn(p(o), p(d), p(t), p(out), r_pad, p(front.sph), n_cols, p(front.ff),
-                 p(front.fi), n_front, p(front.wf), front.wf.shape[1], p(front.sf),
-                 front.sf.shape[1], front.repack, int(seed), max_depth, t_min,
-                 int(zero_draws), *res_args, stream)
+        err = fn(*rays, p(front.sph), n_cols, p(front.ff), p(front.fi), n_front, p(front.wf),
+                 front.wf.shape[1], p(front.sf), front.sf.shape[1], front.repack, *tail)
+    elif bvh is not None:
+        tables = bvh_tables(bvh, dev)
+        tab = scene_table(scene).t().contiguous()  # sphere-major
+        _require(tab, "sphere table", (scene.num_spheres, N_ROWS), torch.float32, dev)
+        fn, key = (lib.rtp_record_bvh, "record_bvh") if record else (lib.rtp_trace_bvh, "bvh")
+        err = fn(*rays, p(tab), tab.shape[0], p(tables.nodes), tables.nodes.shape[0], *tail)
     else:
         tab = scene_table(scene)
         _require(tab, "sphere table", (N_ROWS, scene.num_spheres), torch.float32, dev)
-        if 4 * tab.numel() > SMEM_BUDGET_BYTES:
-            raise ValueError(f"{scene.num_spheres} spheres exceed the brute kernel's "
-                             f"shared-memory budget ({SMEM_BUDGET_BYTES} B)")
-        fn, key = ((lib.rtp_record_brute, "record_brute") if record
-                   else (lib.rtp_trace_brute, "brute"))
-        err = fn(p(o), p(d), p(t), p(out), r_pad, p(tab), tab.shape[1], int(seed), max_depth,
-                 t_min, int(zero_draws), *res_args, stream)
+        scan = "brute" if 4 * tab.numel() <= SMEM_BUDGET_BYTES else "brute_chunked"
+        key = f"record_{scan}" if record else scan
+        fn = getattr(lib, f"rtp_record_{scan}" if record else f"rtp_trace_{scan}")
+        err = fn(*rays, p(tab), tab.shape[1], *tail)
     build.check(err, f"{key} megakernel launch")
     LAUNCHES[key] += 1
     return out[:n], planes

@@ -3,8 +3,10 @@
 The megakernel path (the port's default): render -> render_pass ->
 ops.cuda.megakernel.trace_paths. Rays are fed in compact screen blocks
 (`_block_order`), traced by the megakernel (K1 with the front-culled K3,
-or the brute K2 without the BVH), accumulated in slot space over sample
-chunks and unpermuted once per frame (`blocks_to_image`).
+or K7 when the front's tables pass the shared-memory budget, or the brute
+K2 without the BVH; `render_pass(bvh=)` takes the BVH walk K8),
+accumulated in slot space over sample chunks and unpermuted once per
+frame (`blocks_to_image`).
 
 The oracle path (`use_megakernel=False`, the JAX package's default):
 render -> render_pass -> ray_color, a Python loop over bounce depth that
@@ -255,6 +257,10 @@ def render_pass(
     rays (the megakernel wrapper; a check may pass the plain version to
     hold the kernel against it).
 
+    The megakernel's closest hit is `front`'s (K3 or K7) when given, else
+    the walk of `bvh` (K8; a FlatBVH over `scene` in leaf order), else the
+    brute scan.
+
     With `use_megakernel=False` the rays are the image tiled `spp_chunk`
     times in row-major order and go through `ray_color`, which takes `bvh`,
     `early_exit`, `use_pallas` and `sky_tex`."""
@@ -274,19 +280,17 @@ def render_pass(
     if use_pallas:
         raise ValueError("use_pallas selects the oracle path's fused closest hit (K4); the "
                          "megakernel has its own. Set use_megakernel=False with it")
-    if bvh is not None:
-        raise _not_ported("the BVH-walking megakernel", "K8")
     if sky_tex is not None:
-        raise _not_ported("sky textures (record_miss)", "K1 record_miss")
+        raise _not_ported("sky textures (record_miss)", "Queue 2, K1 options: record_miss")
     if depth_segment or two_phase:
-        raise _not_ported("segmented and two-phase tracing", "P8/K6")
+        raise _not_ported("segmented and two-phase tracing", "P8 with K6")
     origin, direction, time = _slot_rays(cam, width, height, spp_chunk, generator,
                                          ray_uniforms)
     if seed is None:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=generator.device))
     rad = tracer(origin, direction, time, scene, seed, max_depth, front=front,
-                 zero_draws=zero_draws)
+                 zero_draws=zero_draws, bvh=bvh)
     if raw_slots:
         return rad
     return blocks_to_image(rad, width, height, spp_chunk)
@@ -303,9 +307,12 @@ def blocks_to_image(slot_rad: torch.Tensor, width: int, height: int,
 def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
     """(scene, front) for the megakernel path: the scene on the render
     device, in BVH leaf order with its front tables when `use_bvh` is on;
-    else as given, front None."""
+    else as given, front None. The front is a FrontTables (K3) while its
+    tables fit the card's shared memory, ordered near-to-far from the
+    camera; past that a FrontTablesHBM (K7), in leaf order as the JAX
+    package builds it."""
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
-    from raytracingproject_tpu_torch.ops.cuda.megakernel import front_tables
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
 
     device = settings.resolved_device()
     scene = scene.to(device)
@@ -317,10 +324,10 @@ def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
     op = tuple(float(x) for x in camera.lookfrom)
     rp = 2 if camera.max_depth <= 24 else 1
     try:
-        front = front_tables(scene, bvh, order_point=op, repack=rp)
-    except ValueError as e:
-        raise _not_ported("the global-memory front for scenes past the shared-memory "
-                          "budget", "K7") from e
+        front = mk.front_tables(scene, bvh, order_point=op, repack=rp,
+                                smem_budget=mk.SMEM_BUDGET_BYTES)
+    except mk.FrontOverBudget:
+        front = mk.front_tables_hbm(scene, bvh)
     return scene, front
 
 
@@ -357,7 +364,8 @@ def render(
     settings = settings or RenderSettings()
     use_megakernel = settings.use_megakernel
     if sky_texture is not None and use_megakernel:
-        raise _not_ported("sky textures on the megakernel (record_miss)", "K1 record_miss")
+        raise _not_ported("sky textures on the megakernel (record_miss)",
+                          "Queue 2, K1 options: record_miss")
     device = settings.resolved_device()
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)

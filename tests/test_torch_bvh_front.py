@@ -20,6 +20,17 @@ SCENES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _warm_thread_pool():
+    """Run one large element-wise op before the first test. On this kind of
+    host the first multi-threaded PyTorch op of a process can round one
+    worker thread's share of its result differently (ROADMAP Queue 3: about
+    one process in nine with 8 threads, none in 80 after such a warm-up),
+    and the tests below compare two closest hits for exact equality."""
+    x = torch.ones(1 << 22)
+    float((x * 2.0 + 1.0).sqrt().sum())
+
+
 def _pair(name):
     make, leaf = SCENES[name]
     return make(jscene), make(pscene), leaf

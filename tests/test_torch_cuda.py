@@ -243,3 +243,116 @@ def test_train_steps_run_on_the_card_by_default(cuda_device, which):
     assert params.albedo.is_cuda
     params, opt, loss, grads = step(params, opt, None, torch.full((18, 32, 3), 0.5))
     assert loss.is_cuda and torch.isfinite(loss) and grads.albedo.is_cuda
+
+
+# ---- large scenes: chunked brute, K8, K5 bvh, K7 ----
+
+def _large_scene(device, n_spheres=2000):
+    """(leaf-ordered scene, its tree, 8,192 camera rays) on a random scene
+    past no budget, so every closest hit can be held against every other."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    scene = make_random_scene(n_spheres, seed=3)
+    tree = build_bvh(scene, leaf_size=8)
+    scene = reorder_scene(scene, tree).to(device)
+    camera = Camera(**dict(COVER, image_width=128))
+    w, h = camera.image_size()
+    gen = torch.Generator(device=device).manual_seed(7)
+    rays = _slot_rays(camera.derive(torch.float32, device), w, h, 1, gen, None)
+    return scene, tree, rays
+
+
+def _rays_differ(a, b, tol=1e-3):
+    return (torch.abs(a - b) > tol).any(dim=1).double().mean().item()
+
+
+def test_chunked_brute_kernel_equals_whole_table_kernel(cuda_device, monkeypatch):
+    """The brute scan staged in 1,024-sphere chunks (the route past the
+    shared-memory budget) is bit-equal to the whole-table kernel, forward
+    and recording, and to the plain version within the usual bounds."""
+    scene, _, (o, d, t) = _large_scene(cuda_device)
+    whole = mk.trace_paths(o, d, t, scene, 5, 8)
+    rad_w, res_w = mk.trace_record(o, d, t, scene, 5, 8)
+    monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
+    before = dict(mk.LAUNCHES)
+    chunked = mk.trace_paths(o, d, t, scene, 5, 8)
+    rad_c, res_c = mk.trace_record(o, d, t, scene, 5, 8)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["brute_chunked"] == before["brute_chunked"] + 1
+    assert mk.LAUNCHES["record_brute_chunked"] == before["record_brute_chunked"] + 1
+    assert torch.equal(chunked, whole) and torch.equal(rad_c, whole) and torch.equal(rad_w, whole)
+    assert torch.equal(res_c.idx, res_w.idx) and torch.equal(res_c.ndir, res_w.ndir)
+    assert torch.equal(res_c.refl, res_w.refl)
+    assert _rays_differ(chunked, mk.trace_paths_twin(o, d, t, scene, 5, 8)) <= 1e-3
+
+
+@pytest.mark.parametrize("zero_draws", [True, False])
+def test_bvh_kernel_matches_twin(cuda_device, zero_draws):
+    """K8 and K5's bvh core against their plain versions (a per-ray walk in
+    the kernel's own order: bit-equal is the expectation), and K8 against
+    the brute kernel up to ties."""
+    scene, tree, (o, d, t) = _large_scene(cuda_device)
+    before = dict(mk.LAUNCHES)
+    k = mk.trace_paths(o, d, t, scene, 4242, 8, bvh=tree, zero_draws=zero_draws)
+    rad, res = mk.trace_record(o, d, t, scene, 4242, 8, bvh=tree, zero_draws=zero_draws)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["bvh"] == before["bvh"] + 1
+    assert mk.LAUNCHES["record_bvh"] == before["record_bvh"] + 1
+    assert torch.isfinite(k).all() and torch.equal(rad, k)
+    prad, pres = mk.trace_record_twin(o, d, t, scene, 4242, 8, bvh=tree, zero_draws=zero_draws)
+    assert _rays_differ(k, prad) <= 1e-3
+    eq = res.idx == pres.idx
+    assert eq.double().mean().item() >= 0.999
+    assert torch.equal(res.ndir[eq], pres.ndir[eq]) and torch.equal(res.refl[eq], pres.refl[eq])
+    assert _rays_differ(k, mk.trace_paths(o, d, t, scene, 4242, 8, zero_draws=zero_draws)) <= 1e-3
+
+
+@pytest.mark.parametrize("kw", [{}, {"word_earlyout": True}, {"sub_block": True},
+                                {"sub_block": True, "word_earlyout": True, "max_nodes": 24},
+                                {"max_nodes": 600}])
+def test_front_hbm_kernel_matches_twin(cuda_device, kw, monkeypatch):
+    """K7 against its plain version, the brute kernel and K3 on the same
+    scene, with each option and on a front of more than 576 subtrees (the
+    three-level culling path); and with its box tables left in global
+    memory (the route of a front whose boxes pass shared memory) against
+    the same tables staged."""
+    scene, tree, (o, d, t) = _large_scene(cuda_device)
+    front = mk.front_tables_hbm(scene, tree, **kw)
+    before = mk.LAUNCHES["front_hbm"]
+    k = mk.trace_paths(o, d, t, None, 99, 8, front=front)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["front_hbm"] == before + 1
+    assert torch.isfinite(k).all()
+    assert _rays_differ(k, mk.trace_paths_twin(o, d, t, None, 99, 8, front=front)) <= 1e-3
+    assert _rays_differ(k, mk.trace_paths(o, d, t, scene, 99, 8)) <= 1e-3
+    k3 = mk.trace_paths(o, d, t, None, 99, 8, front=mk.front_tables(scene, tree))
+    assert _rays_differ(k, k3) <= 1e-3
+    with pytest.raises(ValueError, match="FrontTablesHBM"):
+        mk.trace_record(o, d, t, scene, 99, 8, front=front)
+    monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 0)
+    assert torch.equal(mk.trace_paths(o, d, t, None, 99, 8, front=front), k)
+
+
+def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
+    """Past the shared-memory budget `render(use_bvh=True)` goes through K7
+    and `make_fast_train_step(bvh=)` through K5's bvh core, from a CPU scene
+    and with no device given."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.grad import make_fast_train_step
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    scene = make_random_scene(6000, seed=3)
+    camera = Camera(**dict(COVER, image_width=96, samples_per_pixel=2, max_depth=8))
+    mk.reset_launches()
+    img = render(scene, camera)
+    ref = render(scene, camera, settings=RenderSettings(use_bvh=False))
+    assert mk.LAUNCHES["front_hbm"] > 0 and mk.LAUNCHES["brute_chunked"] > 0
+    assert img.is_cuda and torch.isfinite(img).all()
+    assert abs(img.mean().item() - ref.mean().item()) <= 0.05 * ref.mean().item()
+    tree = build_bvh(scene, leaf_size=8)
+    params, opt, step = make_fast_train_step(reorder_scene(scene, tree), camera, spp=2, bvh=tree,
+                                             trainable=("albedo", "fuzz", "ior"))
+    params, opt, loss, grads = step(params, opt, None, ref)
+    assert params.albedo.is_cuda and torch.isfinite(loss) and mk.LAUNCHES["record_bvh"] == 1

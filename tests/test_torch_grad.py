@@ -497,8 +497,9 @@ def test_fast_train_step_refuses_what_it_cannot_do():
         make_fast_train_step(ps, cam, front=pf, trainable=("albedo", "radius"), device="cpu")
     with pytest.raises(ValueError, match="FIXED geometry"):
         make_fast_train_step(ps, cam, front=pf, device="cpu")  # None trains every field
-    with pytest.raises(NotImplementedError, match="K8"):
-        make_fast_train_step(ps, cam, bvh=object(), trainable=("albedo",), device="cpu")
+    with pytest.raises(ValueError, match="FIXED geometry"):
+        make_fast_train_step(ps, cam, bvh=object(), trainable=("albedo", "center0"),
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="P8"):
         make_fast_train_step(ps, cam, two_phase=4, device="cpu")
     with pytest.raises(ValueError, match="not ported"):

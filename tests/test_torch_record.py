@@ -188,7 +188,15 @@ def test_front_record_sees_current_materials():
 
 
 def test_record_bvh_raises():
+    """`bvh` must be a FlatBVH (or `bvh_tables` of one) whose leaves the
+    kernel's node words can hold; anything else raises."""
+    from raytracingproject_tpu_torch.bvh import build_bvh
+
     js, _ = _scene_and_front("three")
+    ps = _port_scene(js)
     o, d, t = (torch.from_numpy(x) for x in _rays(THREE_CAM, 256, seed=1))
-    with pytest.raises(NotImplementedError, match="K8"):
-        mk.trace_record(o, d, t, _port_scene(js), 1, 2, bvh=object())
+    with pytest.raises(TypeError):
+        mk.trace_record(o, d, t, ps, 1, 2, bvh=object())
+    tree = build_bvh(ps, leaf_size=2)
+    with pytest.raises(ValueError, match="255"):
+        mk.trace_record(o, d, t, ps, 1, 2, bvh=tree._replace(leaf_count=tree.leaf_count * 200))
