@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --row-widths   # only the measurement behind depth_tail.ROW_WIDTH
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
 started together), holds each against its plain PyTorch version on the
@@ -42,6 +43,21 @@ through its kernels:
   each other, and their first hits against K4 on the 90,000 primary rays
   of a pass.
 
+- the depth tail: `render` with `RenderSettings(two_phase=4)` and
+  `depth_segment=8` and with a sky texture (K1's record_miss; on the
+  two-phase route too), at the reference configuration, and
+  `make_fast_train_step(two_phase=4)` at 2 spp, depth 50, through K6, the
+  resumable depth segment (brute, chunked brute and front, each plain,
+  with miss planes and recording); each K6 instantiation and each
+  record_miss kernel held against its plain version at its path's shapes
+  (a pass's 90,112 rays cut at 4 then 12 more bounces; the recording
+  segments also on a train step's 180,000 rays at depth 50) and on its
+  path's scene (the chunked scan on 5,000 spheres, five staged chunks;
+  K7 with record_miss on 50,000, past 576 subtrees), the pipelines
+  against the monolithic kernels (Philox draws: bit-equal on the brute
+  scans, and so are the brute frames), the two-phase gradients against
+  the monolithic ones.
+
 It then times kernels and plain versions at the bench shape (400x225,
 4 spp, depth 16; K4 and the large-scene kernels at one pass of 90,000
 rays, the latter also at the bench shape alone) and the train steps, and
@@ -81,12 +97,31 @@ REPLACES = {
     "record_bvh": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
     "front_hbm": "raytracingproject_tpu/ops/pallas/megakernel.py:2500",
 }
+# record_miss: the same bodies with their miss planes (the pallas_call at :1488)
+REPLACES.update({f"{k}_miss": REPLACES[k]
+                 for k in ("brute", "front", "brute_chunked", "bvh", "front_hbm")})
+# K6 (plain, with the miss planes, recording) over each scan
+SEGMENT_KEYS = ("segment_brute", "segment_miss_brute", "segment_record_brute",
+                "segment_brute_chunked", "segment_miss_brute_chunked",
+                "segment_record_brute_chunked", "segment_front", "segment_miss_front",
+                "segment_record_front")
+# K6: _segment_call's pallas_call, over the brute or the front body
+REPLACES.update({k: "raytracingproject_tpu/ops/pallas/megakernel.py:1818" for k in SEGMENT_KEYS})
+MODES = {0: "BRUTE", 1: "FRONT", 2: "CHUNKED", 3: "BVH", 4: "HBM"}
+# Registers of the nine trace_kernel instantiations that came before K6 and
+# record_miss, as -Xptxas -v reported them for the source without either
+# (the record front's 80 with a 60 B spill): (mode, record, record_miss,
+# segment) -> registers.
+OLD_REGISTERS = {(0, 0, 0, 0): 64, (1, 0, 0, 0): 64, (0, 1, 0, 0): 64, (1, 1, 0, 0): 80,
+                 (2, 0, 0, 0): 61, (2, 1, 0, 0): 63, (3, 0, 0, 0): 57, (3, 1, 0, 0): 59,
+                 (4, 0, 0, 0): 98}
 COVER_CAMERA = dict(aspect_ratio=16.0 / 9.0, image_width=400, vfov=20.0,
                     lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                     defocus_angle=0.6, focus_dist=10.0)
 N_CMP = 65536  # camera rays in the kernel-against-twin comparisons
 N_LARGE = 50000  # spheres of the large-scene path: make_random_scene(N_LARGE, seed=3)
 N_LARGE_CMP = 8192  # camera rays of the large-scene kernel-against-twin comparisons
+CHUNK = 1024  # spheres a chunk of the chunked brute scan stages (csrc/megakernel.cu)
 TRAIN_STEPS = 7  # per full-width configuration: 2 warm-up, 5 timed
 # Descent check (three-sphere scene, 128x72, 4 spp, depth 8, albedo only,
 # 40 steps): mean loss of the last 5 steps over the first 5 must stay
@@ -1048,22 +1083,22 @@ def rays_differ(a, b, tol: float = 1e-3) -> float:
     return (abs(a - b) > tol).any(dim=1).double().mean().item()
 
 
-def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> dict:
-    """What these rays need, counted in the plain version of the bounce
-    loop: live ray-bounces, ray-sphere pair tests and ray-box tests. Brute:
-    every sphere a live bounce. Front (K3, K7): the boxes the culling
-    hierarchy tests for this ray (the super-word boxes, the 24 word boxes
-    of each super-word it enters, the 24 subtree boxes of each word it
-    enters; below 577 subtrees the word boxes at once, below 25 only the
-    subtree boxes) and, with K7's sub-block boxes, the boxes of the entered
+def counting_hit(mk, scene, front, bvh, device, counts: dict):
+    """(tab, closest_hit, chunk) as `mk.twin_closest_hit` gives them, the
+    closest hit adding to `counts` what each call's rays need: live
+    ray-bounces, ray-sphere pair tests and ray-box tests. Brute: every
+    sphere a live bounce. Front (K3, K7): the boxes the culling hierarchy
+    tests for this ray (the super-word boxes, the 24 word boxes of each
+    super-word it enters, the 24 subtree boxes of each word it enters;
+    below 577 subtrees the word boxes at once, below 25 only the subtree
+    boxes) and, with K7's sub-block boxes, the boxes of the entered
     subtrees' 8-column groups; the columns of the subtrees (and groups)
     whose box the ray enters, padding columns included. BVH walk (K8): the
     nodes the ray's walk visits and the spheres of the leaves it enters.
     Dead rays are parked where every test misses and count nothing."""
     import torch
 
-    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
-    tab, base, chunk = mk.twin_closest_hit(scene, front, bvh, o.device)
+    tab, base, chunk = mk.twin_closest_hit(scene, front, bvh, device)
     if front is not None:
         grp = n_grp = None
         if isinstance(front, mk.FrontTablesHBM):
@@ -1076,8 +1111,8 @@ def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> d
             sub = front.column_subtree()
         n_words = front.ff.shape[1] // mk.WORD
         n_super = -(-n_words // mk.WORD)
-        word_of = torch.arange(front.ff.shape[1], device=o.device) // mk.WORD
-        super_of = torch.arange(n_words, device=o.device) // mk.WORD
+        word_of = torch.arange(front.ff.shape[1], device=device) // mk.WORD
+        super_of = torch.arange(n_words, device=device) // mk.WORD
 
         def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
             live = ox < 1e17
@@ -1109,7 +1144,7 @@ def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> d
             counts["pairs"] += int(entered.sum())
             return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
     elif bvh is not None:
-        flat = mk.bvh_tables(bvh, o.device).flat
+        flat = mk.bvh_tables(bvh, device).flat
 
         def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
             counts["bounces"] += int((ox < 1e17).sum())
@@ -1121,7 +1156,16 @@ def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> d
             counts["bounces"] += n_live
             counts["pairs"] += n_live * tab.shape[1]
             return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
+    return tab, hit, chunk
 
+
+def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> dict:
+    """What these rays need in a monolithic trace, counted in the plain
+    version of the bounce loop (see `counting_hit`)."""
+    import torch
+
+    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
+    tab, hit, chunk = counting_hit(mk, scene, front, bvh, o.device, counts)
     for r0 in range(0, o.shape[0], chunk):
         sl = slice(r0, r0 + chunk)
         mk.bounce_loop_twin(o[sl], d[sl], t[sl], tab, hit, seed, depth, ray0=r0)
@@ -1490,9 +1534,693 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     return entries
 
 
+def ptxas_registers(log: str) -> dict:
+    """(mode, record, record_miss, segment) -> (registers, spill store
+    bytes) of every `trace_kernel` instantiation in nvcc's -Xptxas -v
+    output."""
+    out, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"trace_kernelILi(\d)ELb([01])ELb([01])ELb([01])E", line)
+            cur = tuple(int(x) for x in m.groups()) if m else None
+        elif cur is not None and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            out[cur] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
+            cur = None
+    return out
+
+
+def instantiation(key) -> str:
+    mode, record, miss, seg = key
+    return (f"trace_kernel<{MODES[mode]}{', record' if record else ''}"
+            f"{', record_miss' if miss else ''}{', segment' if seg else ''}>")
+
+
+def hold_state(what: str, k, p) -> float:
+    """One K6 launch against its plain version on the same carried state:
+    every state plane of >= 99.9% of rays within 1e-3 (and, recording,
+    residual idx equal on >= 99.9% of entries, ndir and refl equal where
+    idx is). Returns the max |diff| over the radiance, throughput and miss
+    planes and the ndir where idx is equal."""
+    import torch
+
+    (k, kres), (p, pres) = (k, p) if isinstance(k, tuple) else ((k, None), (p, None))
+    diff = torch.abs(k - p)
+    frac = (diff <= 1e-3).all(dim=0).double().mean().item()
+    err = diff[7:].max().item()  # throughput, radiance, alive (and the miss planes)
+    line = f"{what}: {frac:.6f} of rays within 1e-3 on every plane, bit-equal {torch.equal(k, p)}"
+    if kres is not None:
+        eq = kres[0] == pres[0]
+        nd = max(torch.abs(a - b)[eq].max().item() for a, b in zip(kres[1:4], pres[1:4]))
+        refl_ok = torch.equal(kres[4][eq], pres[4][eq])
+        idx_frac = eq.double().mean().item()
+        line += (f"; residual idx equal {idx_frac:.6f}, max |ndir diff| there {nd:.3e}, refl "
+                 f"equal there {refl_ok}")
+        check(idx_frac >= 0.999 and nd == 0.0 and refl_ok,
+              f"{what}: residuals equal to the plain version's")
+        err = max(err, nd)
+    print(line)
+    check(torch.isfinite(k).all().item(), f"{what}: state finite")
+    check(frac >= 0.999, f"{what}: >= 99.9% of rays within 1e-3 of the plain version")
+    return err
+
+
+def hold_segments(mk, dt, what: str, rays, scene, front, seed: int, cut: int, depth: int,
+                  record_miss: bool, record: bool, timed: bool = False):
+    """K6 against its plain version on the two segments of a two-phase
+    trace of `rays` (bounces [0, cut) from the camera rays, then [cut,
+    depth) on the rays packed alive-first after the cut), each from the
+    same input for both. Returns (max |diff|, kernel ms of the two
+    segments, plain ms of the two) with `timed`, else the max |diff|."""
+    kw = dict(front=front, record_miss=record_miss, record=record)
+    state, slot = dt.initial_state(*rays, record_miss)
+    err, ms, plain_ms = 0.0, [], []
+    for b0, n in ((0, cut), (cut, depth - cut)):
+        k = mk.segment_call(state, slot, scene, seed, b0, n, **kw)
+        p = mk.segment_twin(state, slot, scene, seed, b0, n, **kw)
+        err = max(err, hold_state(f"{what}, bounces [{b0}, {b0 + n}) of {slot.shape[0]} rays",
+                                  k, p))
+        if timed:
+            ms.append(cuda_ms(lambda: mk.segment_call(state, slot, scene, seed, b0, n, **kw),  # noqa: B023
+                              10))
+            plain_ms.append(cuda_ms(lambda: mk.segment_twin(state, slot, scene, seed, b0, n,  # noqa: B023
+                                                            **kw), 1))
+        state = k[0] if record else k
+        src, _, _ = dt.alive_first_perm(state[mk.ST_ALIVE])
+        state, slot = dt.take_ray_rows(state, src, dim=1), dt.take_ray_rows(slot, src)
+    return (err, ms, plain_ms) if timed else err
+
+
+def segment_counts(mk, dt, rays, scene, front, seed: int, cut: int, depth: int) -> dict:
+    """The tests a two-phase trace of `rays` needs, counted in K6's plain
+    version (`counting_hit`), over both segments."""
+    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
+    state, slot = dt.initial_state(*rays)
+    tables = counting_hit(mk, scene, front, None, state.device, counts)
+    original = mk.twin_closest_hit
+    mk.twin_closest_hit = lambda *args: tables
+    try:
+        for b0, n in ((0, cut), (cut, depth - cut)):
+            state = mk.segment_twin(state, slot, scene, seed, b0, n, front=front)
+            src, _, _ = dt.alive_first_perm(state[mk.ST_ALIVE])
+            state, slot = dt.take_ray_rows(state, src, dim=1), dt.take_ray_rows(slot, src)
+    finally:
+        mk.twin_closest_hit = original
+    return counts
+
+
+def warp_bounces(idx, cut: int, src, row: int, warp: int = 32) -> dict:
+    """Bounces paid per warp over bounces needed, from a monolithic
+    record's idx [D, R] (a ray runs its non-DEAD bounces; a warp's loop
+    runs while any of its rays does, so each of its 32 lanes pays the
+    warp's most): monolithic; the two-phase pipeline with a cut at `cut`
+    (phase 1 pays up to `cut`, phase 2 the rest over the rays packed by
+    `src` in rows of `row`); and phase 2 alone, unpacked and packed."""
+    import torch
+
+    b = (idx != -2).sum(dim=0).double()  # bounces each ray runs
+    n = b.shape[0] - b.shape[0] % warp
+
+    def paid(x):
+        return warp * x[:n].reshape(-1, warp).max(dim=1).values.sum().item()
+
+    tail = torch.clamp_min(b - cut, 0.0)
+    packed = tail.reshape(-1, row)[src.long()].reshape(-1)
+    return {"monolithic": paid(b) / b.sum().item(),
+            "two-phase": (paid(torch.clamp_max(b, cut)) + paid(packed)) / b.sum().item(),
+            "tail unpacked": paid(tail) / max(tail.sum().item(), 1.0),
+            "tail packed": paid(packed) / max(tail.sum().item(), 1.0),
+            "mean bounces": b.mean().item(),
+            "alive after the cut": (tail > 0).double().mean().item()}
+
+
+def pipeline_times(mk, dt, rays, scene, front, depth: int, rows, segmented: bool):
+    """(ms, paid) of the pipelines on `rays` to `depth`, CUDA events, warm:
+    the monolithic kernel (first and last), two-phase with a cut at 4 at
+    each row width of `rows` and, with `segmented`, segments of 8 bounces;
+    paid[row] is `warp_bounces` of the two-phase packing at that width. A
+    brute two-phase trace is checked bit-equal to the monolithic one."""
+    import torch
+
+    def mono():
+        return mk.trace_paths(*rays, scene, 47, depth, front=front)
+
+    want = mono()
+    t_ms = {"monolithic": cuda_ms(mono, 5)}
+    _, res = mk.trace_record(*rays, scene, 47, depth, front=front)
+    chosen, paid = dt.ROW_WIDTH, {}
+    try:
+        for row in rows:
+            dt.ROW_WIDTH = row
+
+            def two():
+                return dt.trace_paths_twophase(*rays, scene, 47, depth, cuts=(4,), front=front)
+
+            got = two()
+            check(front is not None or torch.equal(got, want),
+                  f"brute two-phase with {row}-ray rows bit-equal to the monolithic kernel")
+            t_ms[f"two-phase 4 ({row}-ray rows)"] = cuda_ms(two, 5)
+            st0, slot0 = dt.initial_state(*rays)
+            alive = mk.segment_call(st0, slot0, scene, 47, 0, 4, front=front)[mk.ST_ALIVE]
+            src, _, _ = dt.alive_first_perm(alive)
+            idx = torch.cat([res.idx, torch.full((depth, st0.shape[1] - rays[0].shape[0]),
+                                                 mk.DEAD, dtype=res.idx.dtype,
+                                                 device=res.idx.device)], dim=1)
+            paid[row] = warp_bounces(idx, 4, src, row)
+    finally:
+        dt.ROW_WIDTH = chosen
+    if segmented:
+        def seg():
+            return dt.trace_paths_segmented(*rays, scene, 47, depth, seg_len=8, front=front)
+
+        seg()
+        t_ms["segmented 8"] = cuda_ms(seg, 5)
+    t_ms["monolithic, again"] = cuda_ms(mono, 5)
+    return t_ms, paid
+
+
+def compaction_ms(mk, dt, rays, scene) -> float:
+    """CUDA-event ms of one compaction at dt.ROW_WIDTH (alive_first_perm and
+    the gathers of the 14 state planes and the slots) after 4 bounces."""
+    st0, slot0 = dt.initial_state(*rays)
+    st0 = mk.segment_call(st0, slot0, scene, 47, 0, 4)
+
+    def compact():
+        src, _, _ = dt.alive_first_perm(st0[mk.ST_ALIVE])
+        return dt.take_ray_rows(st0, src, dim=1), dt.take_ray_rows(slot0, src)
+
+    compact()
+    return cuda_ms(compact, 20)
+
+
+def row_widths(mk, card: str) -> None:
+    """The measurement behind depth_tail.ROW_WIDTH, run by `python3
+    chip_smoke.py --row-widths` (not by the default run): on the cover
+    scene, brute and front, at the bench shape and on one pass at depth 50,
+    the two-phase trace (cut 4) with one-ray and with 32-ray rows beside
+    the monolithic kernel, the bounces each packing makes a warp pay, and
+    the compaction alone at each width."""
+    import torch
+
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+    from raytracingproject_tpu_torch.render import _slot_rays
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    dev = torch.device("cuda")
+    cover = make_cover_scene(0)
+    tree = build_bvh(cover, leaf_size=8)
+    scene = reorder_scene(cover, tree).to(dev)
+    front = mk.front_tables(scene, tree, order_point=COVER_CAMERA["lookfrom"], repack=1)
+    cam = Camera(**COVER_CAMERA, samples_per_pixel=4, max_depth=16)
+    w, h = cam.image_size()
+    derived = cam.derive(torch.float32, dev)
+    shapes = (("bench shape", _slot_rays(derived, w, h, 4, torch.Generator(device=dev)
+                                         .manual_seed(1), None), 16),
+              ("one pass, depth 50", _slot_rays(derived, w, h, 1, torch.Generator(device=dev)
+                                                .manual_seed(31), None), 50))
+    print(f"row widths of the two-phase compaction (chosen: {dt.ROW_WIDTH}); CUDA events, warm, "
+          f"on {card}")
+    for name, rays, depth in shapes:
+        for path in ("brute", "front"):
+            t_ms, paid = pipeline_times(mk, dt, rays, scene, front if path == "front" else None,
+                                        depth, (1, 32), segmented=False)
+            print(f"{path}, {name} ({rays[0].shape[0]} rays, depth {depth}): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in t_ms.items())
+                  + "; bounces paid per warp over bounces needed, two-phase: "
+                  + ", ".join(f"{row}-ray rows {p['two-phase']:.3f} (tail packed "
+                              f"{p['tail packed']:.3f})" for row, p in paid.items())
+                  + f"; monolithic {paid[1]['monolithic']:.3f}")
+        chosen = dt.ROW_WIDTH
+        comp = {}
+        try:
+            for row in (1, 32):
+                dt.ROW_WIDTH = row
+                comp[row] = compaction_ms(mk, dt, rays, scene)
+        finally:
+            dt.ROW_WIDTH = chosen
+        print(f"compaction ({name}, {rays[0].shape[0]} rays): "
+              + ", ".join(f"{row}-ray rows {v:.4f} ms" for row, v in comp.items()))
+
+
+def depth_tail(mk, card: str) -> list[dict]:
+    """The depth-tail path (two-phase and segmented tracing through K6, and
+    K1's record_miss for sky textures): each K6 instantiation and each
+    record_miss kernel against its plain version at its path's shapes; the
+    pipelines against the monolithic kernels; the main paths through
+    `render` and `make_fast_train_step(two_phase=)` at full width with
+    their launch counts; times and bounds. Returns the `kernels` entries
+    of the 14 new kernels."""
+    import statistics
+
+    import torch
+
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.grad import (
+        SceneParams, extract_params, make_fast_radiance, make_fast_radiance_twophase,
+        make_fast_train_step, replay_radiance_twophase,
+    )
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+    from raytracingproject_tpu_torch.render import (
+        _slot_rays, blocks_to_image, prepare_scene, render, render_pass, sky_color,
+    )
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+
+    dev = torch.device("cuda")
+    ref_cam = Camera(**COVER_CAMERA, samples_per_pixel=30, max_depth=50)
+    bench_cam = Camera(**COVER_CAMERA, samples_per_pixel=4, max_depth=16)
+    train_cam = Camera(**COVER_CAMERA, samples_per_pixel=2, max_depth=50)
+    w, h = ref_cam.image_size()
+    cover_cpu = make_cover_scene(0)
+    tree = build_bvh(cover_cpu, leaf_size=8)
+    scene = reorder_scene(cover_cpu, tree).to(dev)
+    front = mk.front_tables(scene, tree, order_point=COVER_CAMERA["lookfrom"], repack=1)
+    # the chunked scan's own scene: past the shared-memory budget, five staged chunks
+    five_cpu = make_random_scene(5000, seed=3)
+    five = five_cpu.to(dev)
+    check(4 * five.num_spheres * mk.N_ROWS > mk.SMEM_BUDGET_BYTES
+          and five.num_spheres > 4 * CHUNK, "5,000 spheres take the chunked scan, 5 chunks")
+    scenes = {"brute": scene, "brute_chunked": five, "front": scene}
+    rays1 = _slot_rays(ref_cam.derive(torch.float32, dev), w, h, 1,
+                       torch.Generator(device=dev).manual_seed(31), None)  # one pass: 90,112
+    n1 = rays1[0].shape[0]
+    bench = _slot_rays(bench_cam.derive(torch.float32, dev), w, h, 4,
+                       torch.Generator(device=dev).manual_seed(1), None)  # 360,000 (+ pad)
+    max_err: dict[str, float] = {}
+    ms: dict[str, float] = {}
+    plain_ms: dict[str, float] = {}
+    bounds: dict[str, tuple[float, str]] = {}
+
+    def worst(key, err):
+        max_err[key] = max(max_err.get(key, 0.0), err)
+
+    # ---- D1. K6 against its plain version: a pass's rays, cut 4 then 12 bounces; a step's
+    # 180,000 rays, cut 4 then 46 (recording). The chunked segments on 5,000 spheres ----
+    cut, depth = 4, 16
+    so, sd, st, s_seed = step_rays(train_cam, torch.Generator(device=dev).manual_seed(4))
+    seg_counts = {scan: segment_counts(mk, dt, rays1, sc, front if scan == "front" else None,
+                                       41, cut, depth) for scan, sc in scenes.items()}
+    for scan, sc in scenes.items():
+        f = front if scan == "front" else None
+        for kind in ("", "miss_", "record_"):
+            key = f"segment_{kind}{scan}"
+            miss, record = kind == "miss_", kind == "record_"
+            before = mk.LAUNCHES[key]
+            err, k_ms, p_ms = hold_segments(mk, dt, key, rays1, sc, f, 41, cut, depth, miss,
+                                            record, timed=True)
+            check(mk.LAUNCHES[key] > before, f"{key}: the segments launched {key}")
+            worst(key, err)
+            if record:
+                worst(key, hold_segments(mk, dt, f"{key} (a train step's rays)", (so, sd, st),
+                                         sc, f, s_seed, cut, 50, False, True))
+            ms[key], plain_ms[key] = sum(k_ms), sum(p_ms)
+            counts = seg_counts[scan]
+            rows = mk.STATE_ROWS + (mk.MISS_ROWS if miss else 0)
+            tab_bytes = 4 * (sc.num_spheres * mk.N_ROWS if f is None
+                             else f.sph.numel() + f.ff.numel())
+            nbytes = 2 * (n1 * (8 * rows + 4) + tab_bytes) + (n1 * depth * 17 if record else 0)
+            bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
+                                nbytes)
+            print(f"{key}: kernel {k_ms[0]:.3f} + {k_ms[1]:.3f} ms (bounces [0, {cut}) of {n1} "
+                  f"rays, then [{cut}, {depth}) packed), plain version {p_ms[0]:.1f} + "
+                  f"{p_ms[1]:.1f} ms; these rays need {counts}; bound {bounds[key][0]:.4f} ms "
+                  f"by {bounds[key][1]}, the kernel reaches {bounds[key][0] / ms[key]:.3f} of "
+                  f"it; on {card}")
+    del so, sd, st
+
+    # ---- D2. two-phase and segmented against monolithic on the card, Philox draws ----
+    for path, sc in scenes.items():
+        f = front if path == "front" else None
+        exact = f is None  # the brute scans: bit-equal; the front: its culling is per warp
+        mono = mk.trace_paths(*rays1, sc, 43, 50, front=f)
+        runs = {"two-phase cut 4": dict(cuts=(4,)), "two-phase cuts 2 and 6": dict(cuts=(2, 6))}
+        outs = {k: dt.trace_paths_twophase(*rays1, sc, 43, 50, front=f, **kw)
+                for k, kw in runs.items()}
+        outs["segmented, 8 bounces"] = dt.trace_paths_segmented(*rays1, sc, 43, 50, seg_len=8,
+                                                                front=f)
+        rad_m, res_m = mk.trace_record(*rays1, sc, 43, 50, front=f)
+        rad2, res1, res2, _, dest, n_alive = dt.trace_record_twophase(*rays1, sc, 43, 50, cut=4,
+                                                                      front=f)
+        outs["two-phase record (radiance)"] = rad2
+        back = [dt.take_ray_rows(x, dest, dim=1)[:, :n1] for x in res2]
+        idx = torch.cat([res1.idx[:, :n1], back[0]])
+        nd = torch.stack([torch.cat([a[:, :n1], b]) for a, b in zip(res1[1:4], back[1:4])], -1)
+        refl = torch.cat([res1.refl[:, :n1], back[4]])
+        same_rays = ((idx == res_m.idx) & (refl == res_m.refl)).all(dim=0)
+        same_rays &= (nd == res_m.ndir).all(dim=2).all(dim=0)
+        line = ", ".join(f"{k} {rays_differ(v, mono):.6f} (bit-equal {torch.equal(v, mono)})"
+                         for k, v in outs.items())
+        frac = same_rays.double().mean().item()
+        print(f"{path} ({sc.num_spheres} spheres), one pass ({n1} rays), depth 50, philox: share "
+              f"of rays differing from the monolithic kernel by > 1e-3: {line}; two-phase "
+              f"residuals, unpermuted, equal the monolithic record's on {frac:.6f} of rays; "
+              f"{int(n_alive)} rows of {dt.ROW_WIDTH} alive after the cut")
+        for k, v in outs.items():
+            check(torch.equal(v, mono) if exact else rays_differ(v, mono) <= 1e-3,
+                  f"{path} {k} equals the monolithic kernel")
+        check(frac == 1.0 if exact else frac >= 0.999,
+              f"{path}: two-phase residuals equal the monolithic record's")
+        check(bool((res2.idx[:, int(n_alive) * dt.ROW_WIDTH:] == mk.DEAD).all()),
+              f"{path}: packed rows past n_alive all DEAD")
+    del outs, res_m, res1, res2, back, idx, nd, refl
+
+    # ---- D3. record_miss on the five monolithic closest hits, each on its path's scene: the
+    # cover scene, 5,000 spheres for the chunked scan, 50,000 for K7 (super-words) ----
+    big_cpu = make_random_scene(N_LARGE, seed=3)
+    big_tree = build_bvh(big_cpu, leaf_size=8)
+    big = reorder_scene(big_cpu, big_tree).to(dev)
+    hbm = mk.front_tables_hbm(big, big_tree)
+    check(hbm.ff.shape[1] > 576, f"the {N_LARGE}-sphere K7 front has super-words")
+    routes = {"brute": (scene, {}), "brute_chunked": (five, {}), "front": (scene, dict(front=front)),
+              "bvh": (scene, dict(bvh=tree)), "front_hbm": (big, dict(front=hbm))}
+    for name, (sc, kw) in routes.items():
+        key = f"{name}_miss"
+        plain = mk.trace_paths(*rays1, sc, 45, 16, **kw)
+        before = mk.LAUNCHES[key]
+        rad, mdir, mthr = mk.trace_paths(*rays1, sc, 45, 16, record_miss=True, **kw)
+        torch.cuda.synchronize()
+        check(mk.LAUNCHES[key] == before + 1, f"{key}: one launch")
+        ident = torch.abs(rad + mthr * sky_color(mdir) - plain).max().item()
+        kept = []
+        p_ms = cuda_ms(lambda: kept.append(mk.trace_paths_twin(  # noqa: B023
+            *rays1, sc, 45, 16, record_miss=True, **kw)), 1)  # noqa: B023
+        diffs = [torch.abs(a - b) for a, b in zip((rad, mdir, mthr), kept[0])]
+        frac = min((d <= 1e-3).all(dim=1).double().mean().item() for d in diffs)
+        never = (mdir == 0).all(dim=1)
+        bit = all(torch.equal(a, b) for a, b in zip((rad, mdir, mthr), kept[0]))
+        print(f"{key} ({sc.num_spheres} spheres): rad + mthr * sky(mdir) against the kernel "
+              f"without miss recording: max |diff| {ident:.3e}; against the plain version "
+              f"{frac:.6f} of rays within 1e-3 (bit-equal {bit}); "
+              f"{never.double().mean().item():.4f} of rays never missed")
+        check(ident <= 2e-6, f"{key}: the miss planes rebuild the kernel's sky within 2e-6")
+        check(frac >= 0.999, f"{key}: >= 99.9% of rays within 1e-3 of the plain version")
+        check(bool((mthr[never] == 0).all()), f"{key}: never-missed planes are 0")
+        worst(key, max(d.max().item() for d in diffs))
+        ms[key] = cuda_ms(lambda: mk.trace_paths(*rays1, sc, 45, 16, record_miss=True,  # noqa: B023
+                                                 **kw), 10)  # noqa: B023
+        plain_ms[key] = p_ms
+        step = 1 if name in ("brute", "brute_chunked", "front") else 11  # walks: a subset
+        sub = tuple(x[::step].contiguous() for x in rays1)
+        counts = count_tests(mk, *sub, sc, kw.get("front"), 45, 16, bvh=kw.get("bvh"))
+        counts = {k: v * step for k, v in counts.items()}
+        f = kw.get("front")
+        tab_bytes = (4 * sum(x.numel() for x in (f.sph, f.ff, f.fi, f.wf, f.sf))
+                     if f is not None else 64 * sc.num_spheres)
+        if name == "bvh":
+            tab_bytes += 4 * mk.bvh_tables(tree, dev).nodes.numel()
+        # the rays read and the radiance written (40 B), the miss planes written (24 B)
+        b_ms, b_by = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
+                           n1 * 64 + tab_bytes)
+        bounds[key] = (b_ms, b_by)
+        print(f"{key}: kernel {ms[key]:.3f} ms, plain version {p_ms:.1f} ms ({n1} rays, depth "
+              f"16, {sc.num_spheres} spheres); these rays need about "
+              f"{({k: round(v) for k, v in counts.items()})}; bound {b_ms:.4f} ms by {b_by}, the "
+              f"kernel reaches {b_ms / ms[key]:.3f} of it")
+        del kept, plain, rad, mdir, mthr
+    del big, hbm
+
+    # ---- D4. the paths at full width, each launch counted ----
+    gen = torch.Generator().manual_seed(12)
+    tex = torch.rand((256, 512, 3), generator=gen)  # a linear equirect environment, on the CPU
+    launches: dict[str, int] = {}
+
+    def run(name, fn, want: dict):
+        """fn() with the launch counts it adds: exactly `want` of each named
+        key, none of any other K6 or record_miss kernel."""
+        before = dict(mk.LAUNCHES)
+        img, sec = synced_s(fn)
+        got = {k: v - before[k] for k, v in mk.LAUNCHES.items() if v != before[k]}
+        print(f"{name}: launches {got}, mean {img.mean().item():.5f}, {sec:.4f} s on {card}")
+        watched = {k for k in mk.LAUNCHES if k.startswith("segment_") or k.endswith("_miss")}
+        check({k: v for k, v in got.items() if k in watched} == want,
+              f"{name}: launches {want} of the depth-tail kernels")
+        check(torch.isfinite(img).all().item() and tuple(img.shape) == (h, w, 3),
+              f"{name}: image finite, {h}x{w}x3")
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+        return img, sec
+
+    def settings(**kw):
+        return RenderSettings(**kw)  # no device: the card
+
+    def pixels_differ(a, b):
+        return (torch.abs(a - b) > 1e-3).any(dim=2).double().mean().item()
+
+    def frame(cam, sc=cover_cpu, sky=None, **kw):
+        return lambda: render(sc, cam, settings=settings(**kw), sky_texture=sky)
+
+    def passes(cam):
+        """render()'s sample chunks for `cam` (rays_per_batch of them at most)."""
+        spp = cam.samples_per_pixel
+        return -(-spp // max(1, min(spp, RenderSettings().rays_per_batch // (w * h))))
+
+    p_ref, p_bench = passes(ref_cam), passes(bench_cam)
+    mk.reset_launches()
+    frames = {}
+    frames["front"] = run("frame, front (monolithic)", frame(ref_cam, use_bvh=True), {})
+    frames["front two-phase 4"] = run("frame, front, two_phase=4",
+                                      frame(ref_cam, use_bvh=True, two_phase=4),
+                                      {"segment_front": 2 * p_ref})
+    frames["front segmented 8"] = run("frame, front, depth_segment=8",
+                                      frame(ref_cam, use_bvh=True, depth_segment=8),
+                                      {"segment_front": 7 * p_ref})
+    frames["brute"] = run("frame, brute (monolithic)", frame(ref_cam, use_bvh=False), {})
+    frames["brute two-phase 4"] = run("frame, brute, two_phase=4",
+                                      frame(ref_cam, use_bvh=False, two_phase=4),
+                                      {"segment_brute": 2 * p_ref})
+    frames["front sky"] = run("frame, front, sky texture", frame(ref_cam, sky=tex, use_bvh=True),
+                              {"front_miss": p_ref})
+    frames["front two-phase 4 sky"] = run(
+        "frame, front, two_phase=4, sky texture",
+        frame(ref_cam, sky=tex, use_bvh=True, two_phase=4), {"segment_miss_front": 2 * p_ref})
+    # Slot-keyed draws: a brute pipeline's frame is the monolithic frame bit for bit. The
+    # front's may differ on <= 0.1% of rays (D2), so on <= spp x 0.1% of pixels.
+    check(torch.equal(frames["brute two-phase 4"][0], frames["brute"][0]),
+          "brute two_phase=4 frame bit-equal to the monolithic frame")
+    for k, m in (("front two-phase 4", "front"), ("front segmented 8", "front"),
+                 ("front two-phase 4 sky", "front sky")):
+        ref = frames[m][0].mean().item()
+        share = pixels_differ(frames[k][0], frames[m][0])
+        print(f"{k}: {share:.6f} of pixels differ from the monolithic frame by > 1e-3")
+        check(abs(frames[k][0].mean().item() - ref) <= 0.05 * ref
+              and share <= 1e-3 * ref_cam.samples_per_pixel,
+              f"{k}: mean within 5% of the monolithic frame's, <= 3% of pixels differ")
+    check(abs(frames["front sky"][0].mean().item() - frames["front"][0].mean().item()) > 1e-3,
+          "the texture changes the frame")
+    # the other record_miss and K6 kernels on their own routes, at the bench shape
+    bench_frames = {}
+    bench_frames["brute sky"] = run("bench shape, brute, sky texture",
+                                    frame(bench_cam, sky=tex, use_bvh=False),
+                                    {"brute_miss": p_bench})
+    bench_frames["brute two-phase sky"] = run(
+        "bench shape, brute, two_phase=4, sky texture",
+        frame(bench_cam, sky=tex, use_bvh=False, two_phase=4), {"segment_miss_brute": 2 * p_bench})
+    bench_frames["5000 chunked"] = run("bench shape, 5,000 spheres, brute (chunked)",
+                                       frame(bench_cam, sc=five_cpu, use_bvh=False), {})
+    bench_frames["5000 chunked two-phase"] = run(
+        "bench shape, 5,000 spheres, brute (chunked), two_phase=4",
+        frame(bench_cam, sc=five_cpu, use_bvh=False, two_phase=4),
+        {"segment_brute_chunked": 2 * p_bench})
+    bench_frames["5000 chunked sky"] = run(
+        "bench shape, 5,000 spheres, brute (chunked), sky texture",
+        frame(bench_cam, sc=five_cpu, sky=tex, use_bvh=False), {"brute_chunked_miss": p_bench})
+    bench_frames["5000 chunked two-phase sky"] = run(
+        "bench shape, 5,000 spheres, brute (chunked), two_phase=4, sky texture",
+        frame(bench_cam, sc=five_cpu, sky=tex, use_bvh=False, two_phase=4),
+        {"segment_miss_brute_chunked": 2 * p_bench})
+    tex_dev = tex.to(dev)
+
+    def k8_sky_frame():
+        """`render`'s pass loop through render_pass(bvh=, sky_tex=): K8 with record_miss."""
+        derived = bench_cam.derive(torch.float32, dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        acc = sum(render_pass(scene, derived, g, width=w, height=h, max_depth=16, spp_chunk=1,
+                              bvh=tree, sky_tex=tex_dev, two_phase=4, depth_segment=8,
+                              raw_slots=True) for _ in range(4))
+        return blocks_to_image(acc, w, h, 1) / 4
+
+    bench_frames["bvh sky"] = run("bench shape, render_pass(bvh=) with a sky texture (and "
+                                  "two_phase, depth_segment: skipped)", k8_sky_frame,
+                                  {"bvh_miss": 4})
+    bench_frames["50000 sky two-phase"] = run(
+        f"bench shape, {N_LARGE} spheres (K7), two_phase=4, sky texture: the monolithic fallback",
+        frame(bench_cam, sc=big_cpu, sky=tex, use_bvh=True, two_phase=4),
+        {"front_hbm_miss": p_bench})
+    for a, b in (("brute two-phase sky", "brute sky"),
+                 ("5000 chunked two-phase", "5000 chunked"),
+                 ("5000 chunked two-phase sky", "5000 chunked sky")):
+        check(torch.equal(bench_frames[a][0], bench_frames[b][0]), f"{a}: bit-equal to {b}")
+    del big_cpu
+
+    # ---- D5. training at full width: make_fast_train_step(two_phase=4, cap_frac=0.25) ----
+    target = render(cover_cpu, Camera(**COVER_CAMERA, samples_per_pixel=16, max_depth=50),
+                    torch.Generator(device=dev).manual_seed(5), RenderSettings())
+    configs = {  # trainable fields, start (CPU), front, scan, Adam's learning rate
+        "geometry+albedo (brute K6)": (("albedo", "center0", "radius"),
+                                       perturbed_cover("geometry"), None, "brute", 2e-3),
+        "materials (front K6)": (("albedo", "fuzz", "ior"),) + prepare_scene(
+            perturbed_cover("materials"), train_cam, RenderSettings(device="cpu")) + ("front",
+                                                                                    1e-2),
+    }
+    step_s = {}
+    for name, (trainable, start, front_cpu, scan, lr) in configs.items():
+        params, opt, step = make_fast_train_step(
+            start, train_cam, spp=2, learning_rate=lr, trainable=trainable, front=front_cpu,
+            two_phase=4, cap_frac=0.25, generator=torch.Generator(device=dev).manual_seed(3))
+        check(params.albedo.is_cuda, f"two-phase step {name}: parameters on the card by default")
+        p0 = SceneParams(*(x.detach().clone() for x in params))
+        key = f"segment_record_{scan}"
+        before = mk.LAUNCHES[key]
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            (params, opt, loss, grads), sec = synced_s(
+                lambda: step(params, opt, None, target))  # noqa: B023
+            losses.append(loss.item())
+            times.append(sec)
+            check(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item()
+                                                      for g in grads),
+                  f"two-phase step {name}: finite loss and gradients")
+        check(mk.LAUNCHES[key] - before == 2 * TRAIN_STEPS,
+              f"two-phase step {name}: {key} ran twice a step")
+        launches[key] = launches.get(key, 0) + 2 * TRAIN_STEPS
+        for fld in SceneParams._fields:
+            moved = not torch.equal(getattr(params, fld).detach(), getattr(p0, fld))
+            check(moved == (fld in trainable), f"two-phase step {name}: {fld} "
+                  f"{'moves' if fld in trainable else 'stays bit-unchanged'}")
+        step_s[name] = statistics.median(times[2:])
+        print(f"two-phase train step, {name}, cover 400x225, 2 spp, depth 50: losses "
+              + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; seconds per step (median of {len(times) - 2} warm) {step_s[name]:.4f} s "
+              f"on {card}")
+        # replay and gradients on one step's rays against the monolithic fast radiance
+        sc = start.to(dev)
+        fr = None if front_cpu is None else front_cpu.to(dev)
+        o, d, t, seed = step_rays(train_cam, torch.Generator(device=dev).manual_seed(4))
+        frp = None if fr is None else mk.front_with_params(fr, sc)
+        rad, res1, res2, src, dest, n_alive = dt.trace_record_twophase(o, d, t, sc, seed, 50,
+                                                                       cut=4, front=frp)
+        cap = max(1, int(round(res1.idx.shape[1] * 0.25)))
+        with torch.no_grad():
+            rp = replay_radiance_twophase(extract_params(sc), sc, o, d, t, res1, res2, src, dest,
+                                          n_alive, cap_rays=cap)
+        frac = (torch.abs(rp - rad).max(dim=1).values <= 2e-5).double().mean().item()
+        wts = torch.rand((o.shape[0], 3), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+
+        def grads_of(fn):
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                pp = SceneParams(*(x.clone().requires_grad_(True) for x in extract_params(sc)))
+                return torch.autograd.grad((fn(pp, o, d, t, seed) * wts).sum(), list(pp))  # noqa: B023
+            finally:
+                torch.use_deterministic_algorithms(False)
+
+        g_mono = grads_of(make_fast_radiance(sc, 50, front=fr))
+        errs = {}
+        for cf in (0.25, 0.001):
+            g_two = grads_of(make_fast_radiance_twophase(sc, 50, cut=4, cap_frac=cf, front=fr))
+            errs[cf] = {n: rel_err(a, b) for n, a, b in zip(SceneParams._fields, g_two, g_mono)}
+        print(f"two-phase replay ({name}, one step's {o.shape[0]} rays, depth 50, {int(n_alive)} "
+              f"of {src.shape[0]} rows alive after the cut, capacity {cap} rays): {frac:.6f} of "
+              f"rays within 2e-5 of the recorded radiance; gradient relative errors against the "
+              f"monolithic fast radiance (deterministic), cap_frac 0.25: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in errs[0.25].items())
+              + "; cap_frac 0.001 (full-width branch): "
+              + ", ".join(f"{n} {v:.2e}" for n, v in errs[0.001].items()))
+        check(frac >= 0.998, f"two-phase replay ({name}): >= 99.8% within 2e-5")
+        for cf, e in errs.items():
+            check(max(e.values()) <= 1e-4, f"two-phase gradients ({name}, cap_frac {cf}) within "
+                  "1e-4 of the monolithic ones")
+        del rad, res1, res2, rp, o, d, t
+    params, opt, step = make_fast_train_step(five_cpu, train_cam, spp=2, learning_rate=2e-3,
+                                             trainable=("albedo", "center0", "radius"),
+                                             two_phase=4,
+                                             generator=torch.Generator(device=dev).manual_seed(3))
+    before = mk.LAUNCHES["segment_record_brute_chunked"]
+    for _ in range(3):
+        params, opt, loss, grads = step(params, opt, None, target)
+        check(torch.isfinite(loss).item(), "5,000-sphere two-phase geometry step: finite loss")
+    check(mk.LAUNCHES["segment_record_brute_chunked"] - before == 6,
+          "the chunked recording segment ran twice a step")
+    launches["segment_record_brute_chunked"] = 6
+    del params, opt, step, grads, target
+    print(f"depth-tail main paths: launches of the new kernels {launches}")
+    for key in (*SEGMENT_KEYS, *(f"{r}_miss" for r in routes)):
+        check(launches.get(key, 0) > 0, f"{key} ran on its main path")
+
+    # ---- D6. times ----
+    print(f"depth-tail times: CUDA events, warm, on {card}")
+    for name, rays, d_max in (("bench shape", bench, 16), ("one pass, depth 50", rays1, 50)):
+        for path in ("brute", "front"):
+            t_ms, wb = pipeline_times(mk, dt, rays, scene, front if path == "front" else None,
+                                      d_max, (dt.ROW_WIDTH,), segmented=True)
+            wb = wb[dt.ROW_WIDTH]
+            print(f"{path}, {name} ({rays[0].shape[0]} rays, depth {d_max}, {dt.ROW_WIDTH}-ray "
+                  "rows): " + ", ".join(f"{k} {v:.3f} ms" for k, v in t_ms.items())
+                  + f"; bounces paid per warp over bounces needed: monolithic "
+                  f"{wb['monolithic']:.3f}, two-phase {wb['two-phase']:.3f}; the tail alone "
+                  f"{wb['tail unpacked']:.3f} unpacked, {wb['tail packed']:.3f} packed; mean "
+                  f"bounces a ray {wb['mean bounces']:.3f}, {wb['alive after the cut']:.4f} of "
+                  "rays alive after the cut")
+    for n_name, rays in (("one pass", rays1), ("bench shape", bench)):
+        print(f"compaction ({n_name}, {rays[0].shape[0]} rays padded to a tile multiple, 14 "
+              f"planes and the slots, {dt.ROW_WIDTH}-ray rows): "
+              f"{compaction_ms(mk, dt, rays, scene):.4f} ms")
+    # the train step's split, two-phase against monolithic (brute, geometry + albedo)
+    sc = perturbed_cover("geometry").to(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pp = SceneParams(*(x.clone().requires_grad_(True) for x in extract_params(sc)))
+    parts = {k: [] for k in ("K6 record (both phases)", "two-phase replay forward",
+                             "two-phase replay backward", "K5 record", "replay forward",
+                             "replay backward")}
+    from raytracingproject_tpu_torch.grad import replay_radiance
+
+    for _ in range(4):
+        o, d, t, seed = step_rays(train_cam, gen)
+        rec, s = synced_s(lambda: dt.trace_record_twophase(o, d, t, sc, seed, 50, cut=4))  # noqa: B023
+        parts["K6 record (both phases)"].append(s)
+        cap = int(round(rec[1].idx.shape[1] * 0.25))
+        rad, s = synced_s(lambda: replay_radiance_twophase(pp, sc, o, d, t, *rec[1:],  # noqa: B023
+                                                           cap_rays=cap))  # noqa: B023
+        parts["two-phase replay forward"].append(s)
+        _, s = synced_s(lambda: torch.autograd.grad(rad.sum(), list(pp)))  # noqa: B023
+        parts["two-phase replay backward"].append(s)
+        (_, res), s = synced_s(lambda: mk.trace_record(o, d, t, sc, seed, 50))  # noqa: B023
+        parts["K5 record"].append(s)
+        rad, s = synced_s(lambda: replay_radiance(pp, sc, o, d, t, res))  # noqa: B023
+        parts["replay forward"].append(s)
+        _, s = synced_s(lambda: torch.autograd.grad(rad.sum(), list(pp)))  # noqa: B023
+        parts["replay backward"].append(s)
+    print("train step split, geometry+albedo (brute), two-phase against monolithic (median of 3 "
+          "warm): " + ", ".join(f"{k} {1e3 * sorted(v[1:])[1]:.3f} ms" for k, v in parts.items())
+          + f"; seconds per two-phase step: " + ", ".join(f"{k} {v:.4f} s"
+                                                         for k, v in step_s.items())
+          + f"; on {card}")
+    print("seconds per frame (400x225, 30 spp, depth 50): " + ", ".join(
+        f"{k} {v[1]:.4f} s" for k, v in frames.items()) + f"; on {card}")
+
+    entries = []
+    for key in sorted(ms):
+        entries.append({
+            "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[key], "launches": launches[key], "max_abs_err": max_err[key],
+            "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1], "library_ms": None,
+        })
+    return entries
+
+
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    if args not in ([], ["--row-widths"]):
+        print("usage: python3 chip_smoke.py [--row-widths]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
@@ -1518,6 +2246,9 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args == ["--row-widths"]:
+        row_widths(mk, card)
+        return 0
 
     # ---- 1. build ----
     build.build()  # every source under csrc/, one nvcc each, started together
@@ -1528,6 +2259,13 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "Compiling entry" in line
                 or line.startswith("==")):
             print(f"  ptxas: {line.strip()}")
+    regs = ptxas_registers(str(build.BUILD_INFO["log"]))
+    for key in sorted(regs):
+        print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill stores"
+              + (f" (before K6: {OLD_REGISTERS[key]})" if key in OLD_REGISTERS else ""))
+    check(len(regs) == 23, f"23 instantiations of trace_kernel (got {len(regs)})")
+    for key, n in OLD_REGISTERS.items():
+        check(regs.get(key, (None,))[0] == n, f"{instantiation(key)} keeps its {n} registers")
 
     # ---- 2. the generator: kernel against ops/rng.py, bit for bit ----
     ray = torch.arange(N_CMP, dtype=torch.int64, device=dev)
@@ -1684,6 +2422,9 @@ def main() -> int:
 
     # ---- 12e. large scenes: chunked brute, K8, K5 bvh and K7 on up to 50,000 spheres ----
     kernels.extend(large_scenes(mk, trace, card))
+
+    # ---- 12f. the depth tail: K6 (two-phase, segmented) and K1's record_miss ----
+    kernels.extend(depth_tail(mk, card))
 
     # ---- 13. K4 against its plain version, and its time at the main path's shape ----
     k4_err, k4_ms, k4_plain_ms, (k4_bound_ms, k4_bound_by) = closest_hit_against_twin(trace, card)

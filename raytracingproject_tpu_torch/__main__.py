@@ -46,13 +46,14 @@ def main(argv=None) -> int:
     ap.add_argument("--use-bvh", action=argparse.BooleanOptionalAction, default=True,
                     help="front-culled closest hit (default); --no-use-bvh scans every sphere")
     ap.add_argument("--wavefront", action="store_true",
-                    help="stream-compaction renderer (not ported yet, ROADMAP P8)")
+                    help="stream-compaction renderer (not ported yet, ROADMAP P8: wavefront.py)")
     ap.add_argument("--device", default=None,
                     help="cuda or cpu (default: cuda when a card is present)")
     ap.add_argument("--output", "-o", default="-", help="output path ('-' = stdout)")
     args = ap.parse_args(argv)
     if args.wavefront:
-        ap.error("--wavefront is not ported to the PyTorch package yet (ROADMAP P8)")
+        ap.error("--wavefront is not ported to the PyTorch package yet "
+                 "(ROADMAP P8: wavefront.py)")
 
     cover = args.scene == "cover"
     camera = Camera(

@@ -1,8 +1,8 @@
 """The JAX package's state carried across, as numpy arrays.
 
 Takes the arrays of a JAX `Scene`, `FlatBVH`, `FrontTables`,
-`FrontTablesHBM`, `SceneParams` or `PathResiduals` (fetched by the caller
-with `np.asarray`) and builds the port's objects on a given device, so
+`FrontTablesHBM`, `SceneParams`, `PathResiduals` or two-phase recording
+(fetched by the caller with `np.asarray`) and builds the port's objects on a given device, so
 both packages can compute on the same data: the same scene and culling
 tables for the forward, the same parameters and recorded path decisions
 for the replay backward. Never imports jax.
@@ -15,7 +15,7 @@ import torch
 
 from raytracingproject_tpu_torch.bvh import FlatBVH
 from raytracingproject_tpu_torch.grad.inverse import SceneParams
-from raytracingproject_tpu_torch.grad.replay import PathResiduals
+from raytracingproject_tpu_torch.grad.replay import PathResiduals, PathResidualsP
 from raytracingproject_tpu_torch.ops.cuda.megakernel import FrontTables, FrontTablesHBM
 from raytracingproject_tpu_torch.scene import Scene
 
@@ -83,3 +83,21 @@ def residuals_from_arrays(idx, ndir, refl, device="cpu") -> PathResiduals:
     [D, R] int32, ndir [D, R, 3] float32, refl [D, R] bool."""
     return PathResiduals(idx=_t(idx, torch.int32, device), ndir=_t(ndir, torch.float32, device),
                          refl=_t(refl, torch.bool, device))
+
+
+def residuals_p_from_arrays(res1, res2, src, dest, n_alive, device="cpu", dtype=torch.float32):
+    """(res1, res2, src, dest, n_alive) for `replay_radiance_twophase` from
+    a JAX two-phase recording (`pallas_trace_record_twophase`): `res1` and
+    `res2` the five arrays of a JAX PathResidualsP each (idx, ndx, ndy,
+    ndz, refl), `src` / `dest` its row permutations, `n_alive` its live row
+    count. The JAX rows are 128 rays wide; the port's replay reads the
+    width from len(src)."""
+    def planar(arrays):
+        idx, ndx, ndy, ndz, refl = arrays
+        return PathResidualsP(idx=_t(idx, torch.int32, device), ndx=_t(ndx, dtype, device),
+                              ndy=_t(ndy, dtype, device), ndz=_t(ndz, dtype, device),
+                              refl=_t(refl, torch.bool, device))
+
+    i = torch.int32
+    return (planar(res1), planar(res2), _t(src, i, device), _t(dest, i, device),
+            _t(n_alive, i, device))

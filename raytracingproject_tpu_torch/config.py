@@ -74,7 +74,10 @@ class RenderSettings:
     # Kept for parity with the JAX settings; the port synchronises only at
     # the end of a render (and once a bounce for the oracle's early exit).
     sync_every: int = 4
-    # Depth-tail pipelines (ROADMAP P8); not ported yet.
+    # Depth-tail pipelines on the megakernel (K6, ops/cuda/depth_tail.py):
+    # trace in segments of `depth_segment` bounces with the live rays packed
+    # between them, or `two_phase` bounces for every ray, one packing, then
+    # the rest. Unused with bvh= and at or past max_depth.
     depth_segment: int | None = None
     two_phase: int | None = None
 

@@ -100,9 +100,37 @@
 //   for eight warps) filled by cp.async, since warps cull on their own.
 //   Box tables (ff, fi, wf, sf) are staged in shared memory when they fit.
 //   A front of more than 576 subtrees takes the three-level path here.
+//
+// K1's record_miss (megakernel.py:636-649; MISSREC below), on all five
+// closest hits: instead of adding the built-in sky at a ray's miss, the
+// kernel keeps the direction and throughput there and writes them beside
+// the radiance, [n_rays, 3] each (zero direction: never missed); the
+// caller adds an environment map's radiance (render.render_pass).
+//
+// K6, the resumable depth segment (SEG below; replaces _segment_call,
+// megakernel.py:1759, pallas_call at :1818, bodies _megakernel_seg_brute
+// :1714 and _megakernel_seg_front :1734): the same bounce loop over the
+// brute, chunked or front closest hit, started from carried state and
+// writing it back, for the two-phase and segmented pipelines
+// (ops/cuda/depth_tail.py), which pack the live rays between segments.
+// - What bounds it on an H100: as K1, plus the carried state: 14 float
+//   planes (20 with the miss planes) read and written once a segment, 112
+//   (160) B a ray against K1's 40, and K5's residual rows when recording.
+// - What the design does: the state is ray-minor ([plane, n_rays]), so a
+//   warp's 32 loads or stores of one plane are one coalesced transaction
+//   and the pipelines pack every plane with one gather; a ray carries its
+//   slot of the monolithic trace and draws with Philox counter (slot,
+//   global bounce), so a trace cut into segments computes the monolithic
+//   kernel's paths (the TPU pipelines reseed each phase instead, their
+//   generator being keyed by tile position).
+// - MISSREC and SEG are template arguments, and their pointers live in a
+//   type of their own (TailParams, added by WithTail): the instantiations
+//   without them keep their parameter block and code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -168,13 +196,41 @@ struct LargeRecordParams : LargeParams {
   uint8_t* res_refl;
 };
 
-template <int MODE, bool RECORD> struct KernelParams {
-  using type = typename KernelParams<(MODE >= BVH ? BVH : BRUTE), RECORD>::type;
+template <int MODE, bool RECORD> struct BaseParams {
+  using type = typename BaseParams<(MODE >= BVH ? BVH : BRUTE), RECORD>::type;
 };
-template <> struct KernelParams<BRUTE, false> { using type = Params; };
-template <> struct KernelParams<BRUTE, true> { using type = RecordParams; };
-template <> struct KernelParams<BVH, false> { using type = LargeParams; };
-template <> struct KernelParams<BVH, true> { using type = LargeRecordParams; };
+template <> struct BaseParams<BRUTE, false> { using type = Params; };
+template <> struct BaseParams<BRUTE, true> { using type = RecordParams; };
+template <> struct BaseParams<BVH, false> { using type = LargeParams; };
+template <> struct BaseParams<BVH, true> { using type = LargeRecordParams; };
+
+// Rows of K6's carried state, [n_planes, n_rays] float32 planes, ray-minor:
+// 14 planes, 20 with the miss planes (record_miss).
+enum {
+  ST_OX, ST_OY, ST_OZ, ST_DX, ST_DY, ST_DZ, ST_TM, ST_THR_R, ST_THR_G, ST_THR_B,
+  ST_RAD_R, ST_RAD_G, ST_RAD_B, ST_ALIVE, ST_MDX, ST_MDY, ST_MDZ, ST_MTR, ST_MTG, ST_MTB
+};
+
+// K6's carried state and the miss planes of record_miss. A type of their
+// own, beside the closest hit's parameters: the kernels without them keep
+// their parameter block and code.
+struct TailParams {
+  const float* state_in;  // K6: carried state in (ST_* rows)
+  float* state_out;       // K6: the same planes after the segment
+  const int* slot;        // K6: [n_rays] each ray's slot in the monolithic trace
+  int bounce0;            // K6: the global bounce of the segment's first bounce
+  float* mdir;            // record_miss (monolithic): [n_rays, 3] direction at the miss
+  float* mthr;            // record_miss (monolithic): [n_rays, 3] throughput at the miss
+};
+
+template <class Base> struct WithTail : Base { TailParams tail; };
+
+// MISSREC: record the miss direction and throughput instead of adding the
+// built-in sky (K1's record_miss). SEG: a resumable depth segment (K6).
+template <int MODE, bool RECORD, bool MISSREC = false, bool SEG = false> struct KernelParams {
+  using base = typename BaseParams<MODE, RECORD>::type;
+  using type = typename std::conditional<MISSREC || SEG, WithTail<base>, base>::type;
+};
 
 // ---- random numbers: Philox-4x32-10 (ops/rng.py) ----
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -501,9 +557,9 @@ __device__ __forceinline__ bool any_alive(bool alive) {
 }
 
 // ---- the bounce loop (K1; K5 with RECORD) ----
-template <int MODE, bool RECORD>
+template <int MODE, bool RECORD, bool MISSREC = false, bool SEG = false>
 __global__ void __launch_bounds__(TPB)
-trace_kernel(typename KernelParams<MODE, RECORD>::type p) {
+trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG>::type p) {
   extern __shared__ float smem[];
   FrontSmem T;
   if constexpr (MODE == BRUTE || MODE == FRONT) {
@@ -538,13 +594,39 @@ trace_kernel(typename KernelParams<MODE, RECORD>::type p) {
 
   const int ray = blockIdx.x * TPB + threadIdx.x;  // the wrapper pads R to TPB
   Ray r;
-  r.ox = p.origin[3 * ray + 0]; r.oy = p.origin[3 * ray + 1]; r.oz = p.origin[3 * ray + 2];
-  r.dx = p.direction[3 * ray + 0]; r.dy = p.direction[3 * ray + 1];
-  r.dz = p.direction[3 * ray + 2];
-  r.tm = p.time[ray];
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
   bool alive = true;
+  // record_miss: direction and throughput at the miss; zero direction = "has not missed"
+  [[maybe_unused]] float mdx = 0.0f, mdy = 0.0f, mdz = 0.0f;
+  [[maybe_unused]] float mtr = 0.0f, mtg = 0.0f, mtb = 0.0f;
+  [[maybe_unused]] const size_t n_rays = (size_t)gridDim.x * TPB;
+  [[maybe_unused]] uint32_t slot = 0;
+  if constexpr (SEG) {  // K6: resume from the carried state, read once
+    const float* __restrict__ S = p.tail.state_in;
+    r.ox = S[ST_OX * n_rays + ray]; r.oy = S[ST_OY * n_rays + ray];
+    r.oz = S[ST_OZ * n_rays + ray];
+    r.dx = S[ST_DX * n_rays + ray]; r.dy = S[ST_DY * n_rays + ray];
+    r.dz = S[ST_DZ * n_rays + ray];
+    r.tm = S[ST_TM * n_rays + ray];
+    thr_r = S[ST_THR_R * n_rays + ray]; thr_g = S[ST_THR_G * n_rays + ray];
+    thr_b = S[ST_THR_B * n_rays + ray];
+    rad_r = S[ST_RAD_R * n_rays + ray]; rad_g = S[ST_RAD_G * n_rays + ray];
+    rad_b = S[ST_RAD_B * n_rays + ray];
+    alive = S[ST_ALIVE * n_rays + ray] > 0.5f;
+    if constexpr (MISSREC) {
+      mdx = S[ST_MDX * n_rays + ray]; mdy = S[ST_MDY * n_rays + ray];
+      mdz = S[ST_MDZ * n_rays + ray];
+      mtr = S[ST_MTR * n_rays + ray]; mtg = S[ST_MTG * n_rays + ray];
+      mtb = S[ST_MTB * n_rays + ray];
+    }
+    slot = (uint32_t)p.tail.slot[ray];
+  } else {
+    r.ox = p.origin[3 * ray + 0]; r.oy = p.origin[3 * ray + 1]; r.oz = p.origin[3 * ray + 2];
+    r.dx = p.direction[3 * ray + 0]; r.dy = p.direction[3 * ray + 1];
+    r.dz = p.direction[3 * ray + 2];
+    r.tm = p.time[ray];
+  }
   const float inf = __int_as_float(0x7f800000);
 
   int dep_end = 0;  // K5: bounces this warp ran; the DEAD fill starts here
@@ -580,17 +662,27 @@ trace_kernel(typename KernelParams<MODE, RECORD>::type p) {
     // sky on a miss (src/camera_cpu.h:23-25)
     const float inv_len = 1.0f / sqrtf(fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f));
     const float m = (alive && !hit) ? 1.0f : 0.0f;
-    const float sky_a = 0.5f * (r.dy * inv_len + 1.0f);
-    rad_r = rad_r + m * thr_r * (1.0f - sky_a + sky_a * 0.5f);
-    rad_g = rad_g + m * thr_g * (1.0f - sky_a + sky_a * 0.7f);
-    rad_b = rad_b + m * thr_b * (1.0f - sky_a + sky_a * 1.0f);
+    if constexpr (MISSREC) {  // record the miss instead (megakernel.py:641-649); it happens once
+      if (m > 0.0f) {
+        mdx = r.dx; mdy = r.dy; mdz = r.dz;
+        mtr = thr_r; mtg = thr_g; mtb = thr_b;
+      }
+    } else {
+      const float sky_a = 0.5f * (r.dy * inv_len + 1.0f);
+      rad_r = rad_r + m * thr_r * (1.0f - sky_a + sky_a * 0.5f);
+      rad_g = rad_g + m * thr_g * (1.0f - sky_a + sky_a * 0.7f);
+      rad_b = rad_b + m * thr_b * (1.0f - sky_a + sky_a * 1.0f);
+    }
 
     // scatter (src/material.h)
     const float udx = r.dx * inv_len, udy = r.dy * inv_len, udz = r.dz * inv_len;
     float u1 = 0.0f, u2 = 0.0f, u3 = 0.0f, u4 = 0.0f;
     if (!p.zero_draws) {
       uint32_t w[4];
-      bounce_bits(p.seed, (uint32_t)ray, (uint32_t)dep, w);
+      if constexpr (SEG)  // keyed as the monolithic trace keys this ray's bounce
+        bounce_bits(p.seed, slot, (uint32_t)(p.tail.bounce0 + dep), w);
+      else
+        bounce_bits(p.seed, (uint32_t)ray, (uint32_t)dep, w);
       u1 = bits_to_uniform(w[0]); u2 = bits_to_uniform(w[1]);
       u3 = bits_to_uniform(w[2]); u4 = bits_to_uniform(w[3]);
     }
@@ -668,9 +760,35 @@ trace_kernel(typename KernelParams<MODE, RECORD>::type p) {
       p.res_refl[q] = 0;
     }
   }
-  p.out[3 * ray + 0] = rad_r;
-  p.out[3 * ray + 1] = rad_g;
-  p.out[3 * ray + 2] = rad_b;
+  if constexpr (SEG) {  // K6: the carried state out, written once
+    float* __restrict__ S = p.tail.state_out;
+    S[ST_OX * n_rays + ray] = r.ox; S[ST_OY * n_rays + ray] = r.oy;
+    S[ST_OZ * n_rays + ray] = r.oz;
+    S[ST_DX * n_rays + ray] = r.dx; S[ST_DY * n_rays + ray] = r.dy;
+    S[ST_DZ * n_rays + ray] = r.dz;
+    S[ST_TM * n_rays + ray] = r.tm;
+    S[ST_THR_R * n_rays + ray] = thr_r; S[ST_THR_G * n_rays + ray] = thr_g;
+    S[ST_THR_B * n_rays + ray] = thr_b;
+    S[ST_RAD_R * n_rays + ray] = rad_r; S[ST_RAD_G * n_rays + ray] = rad_g;
+    S[ST_RAD_B * n_rays + ray] = rad_b;
+    S[ST_ALIVE * n_rays + ray] = alive ? 1.0f : 0.0f;
+    if constexpr (MISSREC) {
+      S[ST_MDX * n_rays + ray] = mdx; S[ST_MDY * n_rays + ray] = mdy;
+      S[ST_MDZ * n_rays + ray] = mdz;
+      S[ST_MTR * n_rays + ray] = mtr; S[ST_MTG * n_rays + ray] = mtg;
+      S[ST_MTB * n_rays + ray] = mtb;
+    }
+  } else {
+    p.out[3 * ray + 0] = rad_r;
+    p.out[3 * ray + 1] = rad_g;
+    p.out[3 * ray + 2] = rad_b;
+    if constexpr (MISSREC) {
+      p.tail.mdir[3 * ray + 0] = mdx; p.tail.mdir[3 * ray + 1] = mdy;
+      p.tail.mdir[3 * ray + 2] = mdz;
+      p.tail.mthr[3 * ray + 0] = mtr; p.tail.mthr[3 * ray + 1] = mtg;
+      p.tail.mthr[3 * ray + 2] = mtb;
+    }
+  }
 }
 
 __global__ void philox_kernel(uint32_t* out, int n, uint32_t seed, uint32_t bounce) {
@@ -694,22 +812,28 @@ size_t smem_bytes(const Params& p, int boxes_in_smem) {
   return 0;
 }
 
-template <int MODE, bool RECORD>
-int launch(const typename KernelParams<MODE, RECORD>::type& p, int n_rays, cudaStream_t stream,
-           int boxes_in_smem = 0) {
+template <int MODE, bool RECORD, bool MISSREC = false, bool SEG = false>
+int launch(const typename KernelParams<MODE, RECORD, MISSREC, SEG>::type& p, int n_rays,
+           cudaStream_t stream, int boxes_in_smem = 0) {
   if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
   if constexpr (RECORD) {
     if (p.max_depth > 0 && !(p.res_idx && p.res_ndx && p.res_ndy && p.res_ndz && p.res_refl))
       return (int)cudaErrorInvalidValue;
   }
+  if constexpr (SEG) {
+    if (!(p.tail.state_in && p.tail.state_out && p.tail.slot) || p.tail.bounce0 < 0)
+      return (int)cudaErrorInvalidValue;
+  } else if constexpr (MISSREC) {
+    if (!(p.tail.mdir && p.tail.mthr)) return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = smem_bytes<MODE>(p, boxes_in_smem);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<MODE, RECORD>,
+    cudaError_t e = cudaFuncSetAttribute((const void*)trace_kernel<MODE, RECORD, MISSREC, SEG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  trace_kernel<MODE, RECORD><<<n_rays / TPB, TPB, smem, stream>>>(p);
+  trace_kernel<MODE, RECORD, MISSREC, SEG><<<n_rays / TPB, TPB, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -753,6 +877,47 @@ LargeParams large_params(const Params& base) {
   return p;
 }
 
+template <class Base>
+WithTail<Base> with_tail(const Base& base, const TailParams& tail) {
+  WithTail<Base> p;
+  static_cast<Base&>(p) = base;
+  p.tail = tail;
+  return p;
+}
+
+// The forward kernel of MODE over `p` or, given the miss planes, its
+// record_miss version.
+template <int MODE, class P>
+int launch_trace(const P& p, int n_rays, cudaStream_t stream, float* mdir, float* mthr,
+                 int boxes_in_smem = 0) {
+  if (!mdir && !mthr) return launch<MODE, false>(p, n_rays, stream, boxes_in_smem);
+  TailParams t{};
+  t.mdir = mdir; t.mthr = mthr;
+  return launch<MODE, false, true>(with_tail(p, t), n_rays, stream, boxes_in_smem);
+}
+
+// K6 over MODE (BRUTE, CHUNKED or FRONT): one depth segment of p.max_depth
+// bounces from the carried state, plain, with the miss planes carried
+// (record_miss: 20 state planes) or recording the residual planes (res_idx
+// given). The JAX package's segment call takes one or the other, never both.
+template <int MODE>
+int launch_segment(const Params& p, int n_rays, cudaStream_t stream, const float* state_in,
+                   float* state_out, const int* slot, int bounce0, int record_miss,
+                   int* res_idx, float* res_ndx, float* res_ndy, float* res_ndz,
+                   unsigned char* res_refl) {
+  TailParams t{};
+  t.state_in = state_in; t.state_out = state_out; t.slot = slot; t.bounce0 = bounce0;
+  if (res_idx) {
+    if (record_miss) return (int)cudaErrorInvalidValue;
+    return launch<MODE, true, false, true>(
+        with_tail(record_params<RecordParams>(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl),
+                  t),
+        n_rays, stream);
+  }
+  if (record_miss) return launch<MODE, false, true, true>(with_tail(p, t), n_rays, stream);
+  return launch<MODE, false, false, true>(with_tail(p, t), n_rays, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -761,13 +926,16 @@ int rtp_rays_per_block() { return TPB; }
 
 const char* rtp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K1 + K2: brute closest hit over a [16, n_spheres] table.
+// K1 + K2: brute closest hit over a [16, n_spheres] table. The forward
+// entries take the miss planes mdir and mthr ([n_rays, 3] each, or both
+// null): given, the kernel records the direction and throughput at each
+// ray's miss instead of adding the built-in sky (record_miss).
 int rtp_trace_brute(const float* origin, const float* direction, const float* time, float* out,
                     int n_rays, const float* sph, int n_spheres, unsigned seed, int max_depth,
-                    float t_min, int zero_draws, void* stream) {
+                    float t_min, int zero_draws, float* mdir, float* mthr, void* stream) {
   Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
                          zero_draws);
-  return launch<BRUTE, false>(p, n_rays, (cudaStream_t)stream);
+  return launch_trace<BRUTE>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
 }
 
 // K1 + K3: front-culled closest hit over the front tables.
@@ -775,12 +943,12 @@ int rtp_trace_front(const float* origin, const float* direction, const float* ti
                     int n_rays, const float* sph, int n_cols, const float* ff, const int* fi,
                     int n_front, const float* wf, int n_words_pad, const float* sf,
                     int n_super, int repack, unsigned seed, int max_depth, float t_min,
-                    int zero_draws, void* stream) {
+                    int zero_draws, float* mdir, float* mthr, void* stream) {
   if (!front_ok(n_front, repack)) return (int)cudaErrorInvalidValue;
   Params p = base_params(origin, direction, time, out, sph, n_cols, seed, max_depth, t_min,
                          zero_draws);
   set_front(p, ff, fi, n_front, wf, n_words_pad, sf, n_super, repack);
-  return launch<FRONT, false>(p, n_rays, (cudaStream_t)stream);
+  return launch_trace<FRONT>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
 }
 
 // K5 (brute): K1 + K2 recording the residual planes, each [max_depth,
@@ -818,10 +986,10 @@ int rtp_record_front(const float* origin, const float* direction, const float* t
 int rtp_trace_brute_chunked(const float* origin, const float* direction, const float* time,
                             float* out, int n_rays, const float* sph, int n_spheres,
                             unsigned seed, int max_depth, float t_min, int zero_draws,
-                            void* stream) {
+                            float* mdir, float* mthr, void* stream) {
   Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
                          zero_draws);
-  return launch<CHUNKED, false>(p, n_rays, (cudaStream_t)stream);
+  return launch_trace<CHUNKED>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
 }
 
 // K5 (brute) over a table of any size.
@@ -841,12 +1009,13 @@ int rtp_record_brute_chunked(const float* origin, const float* direction, const 
 // the leaf-ordered scene, `nodes` the [n_nodes, 8] node words.
 int rtp_trace_bvh(const float* origin, const float* direction, const float* time, float* out,
                   int n_rays, const float* sph, int n_spheres, const float* nodes, int n_nodes,
-                  unsigned seed, int max_depth, float t_min, int zero_draws, void* stream) {
+                  unsigned seed, int max_depth, float t_min, int zero_draws, float* mdir,
+                  float* mthr, void* stream) {
   if (n_nodes <= 0 || !nodes) return (int)cudaErrorInvalidValue;
   LargeParams p = large_params(base_params(origin, direction, time, out, sph, n_spheres, seed,
                                            max_depth, t_min, zero_draws));
   p.nodes = nodes;
-  return launch<BVH, false>(p, n_rays, (cudaStream_t)stream);
+  return launch_trace<BVH>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
 }
 
 // K5 (bvh): K1 + K8 recording the residual planes; idx is a sphere of the
@@ -874,7 +1043,7 @@ int rtp_trace_front_hbm(const float* origin, const float* direction, const float
                         const int* fi, int n_front, const float* wf, int n_words_pad,
                         const float* sf, int n_super, const float* bf, int n_bf, int ksub,
                         int word_earlyout, int boxes_in_smem, unsigned seed, int max_depth,
-                        float t_min, int zero_draws, void* stream) {
+                        float t_min, int zero_draws, float* mdir, float* mthr, void* stream) {
   if (!front_ok(n_front, 1) || (ksub != 0 && (ksub != BLOCK / 8 || !bf || n_bf < n_front * ksub)))
     return (int)cudaErrorInvalidValue;
   Params base = base_params(origin, direction, time, out, sph, n_front * BLOCK, seed, max_depth,
@@ -883,7 +1052,58 @@ int rtp_trace_front_hbm(const float* origin, const float* direction, const float
   LargeParams p = large_params(base);
   p.bf = bf; p.n_bf = n_bf; p.ksub = ksub;
   p.word_earlyout = word_earlyout; p.boxes_in_smem = boxes_in_smem;
-  return launch<HBM, false>(p, n_rays, (cudaStream_t)stream, boxes_in_smem);
+  return launch_trace<HBM>(p, n_rays, (cudaStream_t)stream, mdir, mthr, boxes_in_smem);
+}
+
+// K6, the resumable depth segment (replaces _segment_call,
+// megakernel.py:1759, pallas_call at :1818): `depth` bounces of K1 from the
+// carried state `state_in` ([n_planes, n_rays], the ST_* rows: 14 planes,
+// 20 with record_miss) to `state_out` (the same planes; the time plane is
+// copied through). Ray r draws with Philox counter (slot[r], bounce0 + k)
+// at the segment's bounce k: the words the monolithic trace draws for that
+// ray's bounce, so segments compute the monolithic kernel's paths. With
+// res_idx (and the other residual planes, [depth, n_rays] each) the segment
+// records K5's residuals, rows indexed by segment-local bounce; then
+// record_miss must be 0.
+int rtp_segment_brute(const float* state_in, float* state_out, const int* slot, int n_rays,
+                      const float* sph, int n_spheres, unsigned seed, int bounce0, int depth,
+                      float t_min, int zero_draws, int record_miss, int* res_idx,
+                      float* res_ndx, float* res_ndy, float* res_ndz, unsigned char* res_refl,
+                      void* stream) {
+  Params p = base_params(nullptr, nullptr, nullptr, nullptr, sph, n_spheres, seed, depth, t_min,
+                         zero_draws);
+  return launch_segment<BRUTE>(p, n_rays, (cudaStream_t)stream, state_in, state_out, slot,
+                               bounce0, record_miss, res_idx, res_ndx, res_ndy, res_ndz,
+                               res_refl);
+}
+
+// K6 over a sphere table of any size, staged in chunks.
+int rtp_segment_brute_chunked(const float* state_in, float* state_out, const int* slot,
+                              int n_rays, const float* sph, int n_spheres, unsigned seed,
+                              int bounce0, int depth, float t_min, int zero_draws,
+                              int record_miss, int* res_idx, float* res_ndx, float* res_ndy,
+                              float* res_ndz, unsigned char* res_refl, void* stream) {
+  Params p = base_params(nullptr, nullptr, nullptr, nullptr, sph, n_spheres, seed, depth, t_min,
+                         zero_draws);
+  return launch_segment<CHUNKED>(p, n_rays, (cudaStream_t)stream, state_in, state_out, slot,
+                                 bounce0, record_miss, res_idx, res_ndx, res_ndy, res_ndz,
+                                 res_refl);
+}
+
+// K6 over the front tables (K3's culling); residual idx are padded columns.
+int rtp_segment_front(const float* state_in, float* state_out, const int* slot, int n_rays,
+                      const float* sph, int n_cols, const float* ff, const int* fi, int n_front,
+                      const float* wf, int n_words_pad, const float* sf, int n_super,
+                      int repack, unsigned seed, int bounce0, int depth, float t_min,
+                      int zero_draws, int record_miss, int* res_idx, float* res_ndx,
+                      float* res_ndy, float* res_ndz, unsigned char* res_refl, void* stream) {
+  if (!front_ok(n_front, repack)) return (int)cudaErrorInvalidValue;
+  Params p = base_params(nullptr, nullptr, nullptr, nullptr, sph, n_cols, seed, depth, t_min,
+                         zero_draws);
+  set_front(p, ff, fi, n_front, wf, n_words_pad, sf, n_super, repack);
+  return launch_segment<FRONT>(p, n_rays, (cudaStream_t)stream, state_in, state_out, slot,
+                               bounce0, record_miss, res_idx, res_ndx, res_ndy, res_ndz,
+                               res_refl);
 }
 
 // The generator alone: the four words of `bounce` for ray slots [0, n),

@@ -13,6 +13,7 @@ replay; `xla_trace_record` records with the oracle.
 from raytracingproject_tpu_torch.grad.fast import (
     GEOMETRY_FIELDS,
     make_fast_radiance,
+    make_fast_radiance_twophase,
     make_fast_train_step,
 )
 from raytracingproject_tpu_torch.grad.inverse import (
@@ -24,7 +25,8 @@ from raytracingproject_tpu_torch.grad.inverse import (
     trainable_mask,
 )
 from raytracingproject_tpu_torch.grad.replay import (
-    DEAD, MISS, PathResiduals, replay_radiance, xla_trace_record,
+    DEAD, MISS, PathResiduals, PathResidualsP, replay_radiance, replay_radiance_twophase,
+    xla_trace_record,
 )
 
 __all__ = [
@@ -35,11 +37,14 @@ __all__ = [
     "make_train_step",
     "trainable_mask",
     "PathResiduals",
+    "PathResidualsP",
     "MISS",
     "DEAD",
     "replay_radiance",
+    "replay_radiance_twophase",
     "xla_trace_record",
     "GEOMETRY_FIELDS",
     "make_fast_radiance",
+    "make_fast_radiance_twophase",
     "make_fast_train_step",
 ]

@@ -17,6 +17,10 @@ Materials are read afresh on every forward (`front_with_params`),
 so a materials-only step with a front renders with the current albedo,
 fuzz and ior. (The JAX package's front forward reads the table copied at
 build time instead.)
+
+`make_fast_radiance_twophase` is the same with the two-phase pipeline
+(ops/cuda/depth_tail.py): K6 forward, and a replay whose depth tail runs
+over the packed survivors only (`replay_radiance_twophase`).
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ from raytracingproject_tpu_torch.config import resolve_device
 from raytracingproject_tpu_torch.grad.inverse import (
     SceneParams, apply_params, apply_updates, init_train_state, trainable_mask,
 )
-from raytracingproject_tpu_torch.grad.replay import check_gather, replay_radiance
+from raytracingproject_tpu_torch.grad.replay import (
+    check_gather, replay_radiance, replay_radiance_twophase,
+)
+from raytracingproject_tpu_torch.ops.cuda.depth_tail import (
+    trace_paths_twophase, trace_record_twophase,
+)
 from raytracingproject_tpu_torch.ops.cuda.megakernel import (
     FrontTables, bvh_tables, front_with_params, trace_record,
 )
@@ -69,24 +78,31 @@ class _FastRadiance(torch.autograd.Function):
     def backward(ctx, g):
         origin, direction, time, *leaves = ctx.saved_tensors
         cfg = ctx.cfg
-        needs = ctx.needs_input_grad[5:]
-        grads = [None] * len(leaves)
-        if any(needs):
-            with torch.enable_grad():
-                params = SceneParams(*(x.detach().requires_grad_(n)
-                                       for x, n in zip(leaves, needs)))
-                rad = replay_radiance(params, cfg.scene, origin, direction, time, ctx.res,
-                                      n_groups=cfg.replay_groups,
-                                      skip_dead=cfg.replay_skip_dead)
-                wanted = [k for k, n in enumerate(needs) if n]
-                # a replay that reaches no parameter (every path misses at
-                # once) has no graph: its gradient is zero
-                got = (torch.autograd.grad(rad, [params[k] for k in wanted], g,
-                                           allow_unused=True)
-                       if rad.requires_grad else [None] * len(wanted))
-            for k, gk in zip(wanted, got):
-                grads[k] = torch.zeros_like(leaves[k]) if gk is None else gk
+        grads = _replay_grads(
+            lambda params: replay_radiance(params, cfg.scene, origin, direction, time, ctx.res,
+                                           n_groups=cfg.replay_groups,
+                                           skip_dead=cfg.replay_skip_dead),
+            leaves, ctx.needs_input_grad[5:], g)
         return (None, None, None, None, None, *grads)
+
+
+def _replay_grads(replay: Callable, leaves, needs, g) -> list:
+    """The backward of a fast radiance: gradients of `g`-weighted
+    `replay(params)` for the leaves that need one, None for the others."""
+    grads = [None] * len(leaves)
+    if not any(needs):
+        return grads
+    with torch.enable_grad():
+        params = SceneParams(*(x.detach().requires_grad_(n) for x, n in zip(leaves, needs)))
+        rad = replay(params)
+        wanted = [k for k, n in enumerate(needs) if n]
+        # a replay that reaches no parameter (every path misses at once) has
+        # no graph: its gradient is zero
+        got = (torch.autograd.grad(rad, [params[k] for k in wanted], g, allow_unused=True)
+               if rad.requires_grad else [None] * len(wanted))
+    for k, gk in zip(wanted, got):
+        grads[k] = torch.zeros_like(leaves[k]) if gk is None else gk
+    return grads
 
 
 def make_fast_radiance(scene: Scene, max_depth: int, front: FrontTables | None = None,
@@ -113,6 +129,85 @@ def make_fast_radiance(scene: Scene, max_depth: int, front: FrontTables | None =
     return radiance_fn
 
 
+class _TwoPhaseConfig(NamedTuple):
+    scene: Scene
+    max_depth: int
+    cut: int
+    cap_frac: float
+    front: FrontTables | None
+    zero_draws: bool
+    tracer: Callable
+    recorder: Callable
+
+
+class _FastRadianceTwoPhase(torch.autograd.Function):
+    """forward = trace_paths_twophase, or trace_record_twophase when a
+    gradient will be asked for; backward = autograd through
+    replay_radiance_twophase (the custom VJP of the JAX package's
+    make_fast_radiance_twophase)."""
+
+    @staticmethod
+    def forward(ctx, cfg: _TwoPhaseConfig, record: bool, origin, direction, time, seed: int,
+                *leaves):
+        scene = apply_params(cfg.scene, SceneParams(*leaves))
+        front = None if cfg.front is None else front_with_params(cfg.front, scene)
+        kw = dict(front=front, zero_draws=cfg.zero_draws)
+        if not record:
+            return cfg.tracer(origin, direction, time, scene, seed, cfg.max_depth,
+                              cuts=(cfg.cut,), **kw)
+        rad, *ctx.rec = cfg.recorder(origin, direction, time, scene, seed, cfg.max_depth,
+                                     cut=cfg.cut, **kw)
+        ctx.save_for_backward(origin, direction, time, *leaves)
+        ctx.cfg = cfg
+        return rad
+
+    @staticmethod
+    def backward(ctx, g):
+        origin, direction, time, *leaves = ctx.saved_tensors
+        cfg = ctx.cfg
+        res1 = ctx.rec[0]
+        cap = max(1, int(round(res1.idx.shape[1] * cfg.cap_frac)))
+        grads = _replay_grads(
+            lambda params: replay_radiance_twophase(params, cfg.scene, origin, direction, time,
+                                                    *ctx.rec, cap_rays=cap),
+            leaves, ctx.needs_input_grad[6:], g)
+        return (None, None, None, None, None, None, *grads)
+
+
+def make_fast_radiance_twophase(scene: Scene, max_depth: int, cut: int = 4,
+                                cap_frac: float = 0.25, front: FrontTables | None = None,
+                                zero_draws: bool = False,
+                                tracer: Callable = trace_paths_twophase,
+                                recorder: Callable = trace_record_twophase):
+    """make_fast_radiance with the two-phase pipeline
+    (make_fast_radiance_twophase of the JAX package, grad/fast.py:102-165):
+
+    - forward: `trace_paths_twophase` (bounces [0, cut) for every ray, one
+      compaction, the tail on packed rays), or `trace_record_twophase`,
+      the same with each phase's residuals, when a gradient is wanted;
+    - backward: `replay_radiance_twophase`: `cut` bounces for every ray,
+      then the tail over a survivor capacity of `cap_frac` of the padded
+      ray count, or the full width when the survivors overflow it, so the
+      gradient is always exact.
+
+    The pipelines key their random numbers as the monolithic kernel does,
+    so the radiance and gradients equal make_fast_radiance's for the same
+    rays and seed (up to the front's last-ulp ties). `front`: a
+    FrontTables over `scene` in leaf order, as for make_fast_radiance.
+    `tracer` and `recorder` are the forward pipelines (a check may pass
+    their plain versions, `depth_tail.*_twin`)."""
+    if not 0 < cut < max_depth:
+        raise ValueError(f"two-phase cut {cut} must lie in (0, max_depth {max_depth})")
+    cfg = _TwoPhaseConfig(scene, max_depth, cut, cap_frac, front, zero_draws, tracer, recorder)
+
+    def radiance_fn(params: SceneParams, origin, direction, time, seed: int):
+        record = torch.is_grad_enabled() and any(x.requires_grad for x in params)
+        return _FastRadianceTwoPhase.apply(cfg, record, origin, direction, time, int(seed),
+                                           *params)
+
+    return radiance_fn
+
+
 def make_fast_train_step(
     scene: Scene,
     camera,
@@ -127,6 +222,7 @@ def make_fast_train_step(
     replay_skip_dead: bool | None = None,
     replay_gather: str | None = None,
     two_phase: int | None = None,
+    cap_frac: float = 0.25,
     device=None,
     generator: torch.Generator | None = None,
 ):
@@ -139,6 +235,11 @@ def make_fast_train_step(
     leaf order too) runs the BVH walk there instead: the route for scenes
     whose front does not fit shared memory. With either, any of
     GEOMETRY_FIELDS trainable raises (the boxes would be stale).
+
+    `two_phase` (a cut depth, e.g. 4) takes the two-phase pipeline
+    (make_fast_radiance_twophase) with survivor capacity `cap_frac`; it
+    runs on the brute scan or `front` and refuses `bvh` (K6 has no BVH
+    walk), and the replay_* options do not apply to it.
 
     `optimizer` is a callable that takes the list of trainable tensors and
     returns a torch.optim.Optimizer (default: torch.optim.Adam at
@@ -157,9 +258,10 @@ def make_fast_train_step(
     Each step draws the camera rays, in the JAX order [spp, H, W], and
     then the path seed from `generator` (default: the one given here, else
     a generator on `device` seeded with 0)."""
-    if two_phase is not None:
-        raise NotImplementedError("two-phase tracing is not ported yet (ROADMAP P8 with K6)")
     check_gather(replay_gather)
+    if two_phase is not None and bvh is not None:
+        raise ValueError("two_phase runs K6, which has no BVH walk: pass front= (a "
+                         "FrontTables) or neither")
     if bvh is not None or front is not None:
         geo = set(GEOMETRY_FIELDS if trainable is None else trainable) & set(GEOMETRY_FIELDS)
         if geo:
@@ -179,9 +281,13 @@ def make_fast_train_step(
     width, height = camera.image_size()
     dtype = scene.center0.dtype
     cam = camera.derive(dtype, device)
-    radiance_fn = make_fast_radiance(scene, camera.max_depth, front=front, bvh=bvh,
-                                     replay_groups=replay_groups,
-                                     replay_skip_dead=replay_skip_dead)
+    if two_phase is not None:
+        radiance_fn = make_fast_radiance_twophase(scene, camera.max_depth, cut=two_phase,
+                                                  cap_frac=cap_frac, front=front)
+    else:
+        radiance_fn = make_fast_radiance(scene, camera.max_depth, front=front, bvh=bvh,
+                                         replay_groups=replay_groups,
+                                         replay_skip_dead=replay_skip_dead)
     pix = torch.arange(height * width, device=device).repeat(spp)
     i_idx = (pix % width).to(torch.int32)
     j_idx = (pix // width).to(torch.int32)

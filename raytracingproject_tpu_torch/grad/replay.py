@@ -53,6 +53,18 @@ class PathResiduals(NamedTuple):
     refl: torch.Tensor  # [D, R] bool: dielectric reflect branch taken
 
 
+class PathResidualsP(NamedTuple):
+    """PathResiduals with the direction as three [D, R] planes, as K6
+    writes them (the two-phase record and replay; PathResidualsP of the
+    JAX package)."""
+
+    idx: torch.Tensor   # [D, R] int32: hit sphere / MISS / DEAD
+    ndx: torch.Tensor   # [D, R] float: scattered direction components
+    ndy: torch.Tensor
+    ndz: torch.Tensor
+    refl: torch.Tensor  # [D, R] bool: dielectric reflect branch taken
+
+
 def xla_trace_record(
     scene: Scene,
     origin: torch.Tensor,
@@ -235,13 +247,20 @@ def _replay(step, origin, direction, time, idx, ndir, refl, skip_dead: bool):
     """One replay over a ray slice; `skip_dead` stops after the slice's
     last live bounce."""
     n = origin.shape[0]
-    depth = _live_depth(idx) if skip_dead else idx.shape[0]
     dtype, dev = origin.dtype, origin.device
     carry = (origin, direction, torch.ones((n, 3), dtype=dtype, device=dev),
              torch.zeros((n, 3), dtype=dtype, device=dev))
+    return _scan(step, time, carry, idx, lambda k: ndir[k], refl, skip_dead)[3]
+
+
+def _scan(step, time, carry, idx, ndir_of, refl, skip_dead: bool):
+    """The replay bounces of `idx`'s rows from `carry` (o, d, thr, L);
+    `ndir_of(k)` is row k's [R, 3] direction. `skip_dead` stops after the
+    last row at which any ray is not DEAD."""
+    depth = _live_depth(idx) if skip_dead else idx.shape[0]
     for k in range(depth):
-        carry = step(time, carry, (idx[k], ndir[k], refl[k]))
-    return carry[3]
+        carry = step(time, carry, (idx[k], ndir_of(k), refl[k]))
+    return carry
 
 
 def replay_radiance(
@@ -302,3 +321,73 @@ def replay_radiance(
     ]
     sorted_rad = torch.cat(parts)[:n]
     return sorted_rad[torch.argsort(perm[:n])]
+
+
+def replay_radiance_twophase(
+    params: SceneParams,
+    scene: Scene,
+    origin: torch.Tensor,     # [R, 3]
+    direction: torch.Tensor,  # [R, 3]
+    time: torch.Tensor,       # [R]
+    res1: PathResidualsP,     # [cut, Rp], original ray order
+    res2: PathResidualsP,     # [D - cut, Rp], packed order (alive-first)
+    src: torch.Tensor,        # [Rp / row] int32 row packing permutation
+    dest: torch.Tensor,       # [Rp / row] int32 inverse row permutation
+    n_alive,                  # live rows after the cut (int or 0-dim tensor)
+    cap_rays: int | None = None,
+) -> torch.Tensor:
+    """Differentiable replay of a two-phase recording
+    (`ops.cuda.depth_tail.trace_record_twophase`; replay_radiance_twophase
+    of the JAX package, grad/replay.py:449-562): radiance [R, 3] as a
+    function of `params`.
+
+    Phase 1 replays res1 for every ray. The carry (o, d, thr, L) is then
+    packed by `src` and phase 2 replays res2 over the first `cap_rays`
+    packed rays only: positions past n_alive rows hold all-DEAD rows,
+    which change nothing, so that is exact while n_alive fits the
+    capacity. When it does not, phase 2 runs at full width, also exact: a
+    Python `if` on one host read of `n_alive`. Default capacity: half the
+    padded ray count, rounded up to whole rows. Each phase stops after its
+    last live bounce (one host read each).
+
+    The row width of the packing is Rp / len(src): the recorder's
+    (depth_tail.ROW_WIDTH; 128 for the JAX package's own recording), which
+    take_ray_rows reads from the permutation's length as well."""
+    from raytracingproject_tpu_torch.ops.cuda.depth_tail import take_ray_rows
+
+    table = _attr_table(apply_params(scene, params), scene)
+    step = _make_live_step(table)
+    n = origin.shape[0]
+    r_pad = res1.idx.shape[1]
+    row = r_pad // src.shape[0]
+    cap = r_pad // 2 if cap_rays is None else int(cap_rays)
+    cap = min(max(cap, row), r_pad)
+    cap = -(-cap // row) * row
+
+    def pad(x, fill=0.0):
+        if r_pad == n:
+            return x
+        return torch.cat([x, x.new_full((r_pad - n, *x.shape[1:]), fill)])
+
+    o0, d0, tm = pad(origin), pad(direction, 1.0), pad(time)
+    dtype, dev = origin.dtype, origin.device
+    carry = (o0, d0, torch.ones((r_pad, 3), dtype=dtype, device=dev),
+             torch.zeros((r_pad, 3), dtype=dtype, device=dev))
+
+    def planar(res, sl=slice(None)):
+        """(idx, ndir_of, refl) of PathResidualsP rows over the rays `sl`."""
+        def ndir_of(k):
+            return torch.stack([res.ndx[k, sl], res.ndy[k, sl], res.ndz[k, sl]], dim=-1)
+        return res.idx[:, sl], ndir_of, res.refl[:, sl]
+
+    carry = _scan(step, tm, carry, *planar(res1), skip_dead=True)
+    src, dest = src.detach(), dest.detach()
+    carry = tuple(take_ray_rows(x, src) for x in carry)
+    tm_p = take_ray_rows(tm, src)
+    if cap < r_pad and int(n_alive) * row <= cap:
+        head = _scan(step, tm_p[:cap], tuple(x[:cap] for x in carry),
+                     *planar(res2, slice(0, cap)), skip_dead=True)
+        L = torch.cat([head[3], carry[3][cap:]])
+    else:  # full width: the capacity is the whole frame, or the survivors overflow it
+        L = _scan(step, tm_p, carry, *planar(res2), skip_dead=True)[3]
+    return take_ray_rows(L, dest)[:n]

@@ -40,35 +40,36 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _ERROR_STRING = ([_I], ctypes.c_char_p)
+_RES = [_P] * 5  # residual planes idx, ndx, ndy, ndz, refl
+_MISS = [_P, _P]  # record_miss planes mdir, mthr (or nulls)
+_FRONT = [_P, _I, _P, _P, _I, _P, _I, _P, _I, _I]  # sph, n_cols, ff, fi, n_front, wf, .., repack
+_SEG = [_U, _I, _I, _F, _I, _I, *_RES, _P]  # seed, bounce0, depth, t_min, zero, miss, res, stream
 # library name (csrc/<name>.cu -> build/lib<name>.so) -> its C entry points
 LIBRARIES = {
     "megakernel": {
         "rtp_rays_per_block": ([], _I),
         "rtp_error_string": _ERROR_STRING,
-        "rtp_trace_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
-        "rtp_trace_front": (
-            [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I, _P],
-            _I,
+        "rtp_trace_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_MISS, _P], _I),
+        "rtp_trace_front": ([_P, _P, _P, _P, _I, *_FRONT, _U, _I, _F, _I, *_MISS, _P], _I),
+        "rtp_record_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I),
+        "rtp_record_front": ([_P, _P, _P, _P, _I, *_FRONT, _U, _I, _F, _I, *_RES, _P], _I),
+        "rtp_trace_brute_chunked": (
+            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_MISS, _P], _I,
         ),
-        "rtp_record_brute": (
-            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
-        ),
-        "rtp_record_front": (
-            [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _U, _I, _F, _I,
-             _P, _P, _P, _P, _P, _P], _I,
-        ),
-        "rtp_trace_brute_chunked": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
         "rtp_record_brute_chunked": (
-            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
+            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I,
         ),
-        "rtp_trace_bvh": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
+        "rtp_trace_bvh": ([_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, *_MISS, _P], _I),
         "rtp_record_bvh": (
-            [_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, _P, _P, _P, _P, _P, _P], _I,
+            [_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I,
         ),
         "rtp_trace_front_hbm": (
             [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-             _U, _I, _F, _I, _P], _I,
+             _U, _I, _F, _I, *_MISS, _P], _I,
         ),
+        "rtp_segment_brute": ([_P, _P, _P, _I, _P, _I, *_SEG], _I),
+        "rtp_segment_brute_chunked": ([_P, _P, _P, _I, _P, _I, *_SEG], _I),
+        "rtp_segment_front": ([_P, _P, _P, _I, *_FRONT, *_SEG], _I),
         "rtp_philox": ([_P, _I, _U, _I, _P], _I),
     },
     "closest_hit": {

@@ -3,13 +3,15 @@ plain PyTorch versions of its kernels.
 
 Counterpart of raytracingproject_tpu/ops/pallas/megakernel.py. The kernels
 (K1 bounce loop, K2 brute closest hit, K3 front-culled closest hit, K7 the
-front with its sphere table in global memory, K8 the BVH walk, and K5, the
+front with its sphere table in global memory, K8 the BVH walk, K5, the
 bounce loop that records path residuals over the brute, front or BVH
-closest hit) are hand-written CUDA in csrc/megakernel.cu. `trace_paths`
-and `trace_record` are the public entries: for CUDA tensors they launch a
+closest hit, and K6, the bounce loop as a resumable depth segment) are
+hand-written CUDA in csrc/megakernel.cu. `trace_paths`, `trace_record` and
+`segment_call` are the public entries: for CUDA tensors they launch a
 kernel or raise; for CPU tensors they run the plain versions ("the twin")
 defined here, which the tests hold against the JAX package and which
-chip_smoke.py holds against the kernels.
+chip_smoke.py holds against the kernels. ops/cuda/depth_tail.py drives K6
+(two-phase and segmented tracing).
 
 Which closest hit runs: `front` (FrontTables: K3, tables in shared memory;
 FrontTablesHBM: K7, any size) wins over `bvh` (K8, any size), else the
@@ -59,11 +61,24 @@ DEFAULT_REPACK = 2
 MISS = -1
 DEAD = -2
 
+# K6's carried state: [STATE_ROWS, R] float32 planes, ray-minor (rows: o xyz,
+# d xyz, time, throughput rgb, radiance rgb, alive as 0/1), and with
+# record_miss MISS_ROWS more (the miss direction xyz and throughput rgb; a
+# zero direction means "has not missed"). csrc/megakernel.cu ST_*.
+STATE_ROWS = 14
+MISS_ROWS = 6
+ST_RAD, ST_ALIVE = slice(10, 13), 13
+ST_MDIR, ST_MTHR = slice(14, 17), slice(17, 20)
+
 # Kernel launches per entry point, counted by the wrapper after each
-# successful launch (and nowhere else).
+# successful launch (and nowhere else). `*_miss` are the record_miss
+# versions; `segment_*` are K6 (plain, record_miss, recording).
 LAUNCHES = {"brute": 0, "front": 0, "record_brute": 0, "record_front": 0,
             "brute_chunked": 0, "record_brute_chunked": 0, "bvh": 0, "record_bvh": 0,
-            "front_hbm": 0}
+            "front_hbm": 0, "brute_miss": 0, "front_miss": 0, "brute_chunked_miss": 0,
+            "bvh_miss": 0, "front_hbm_miss": 0}
+LAUNCHES.update({f"segment_{kind}{scan}": 0 for scan in ("brute", "brute_chunked", "front")
+                 for kind in ("", "miss_", "record_")})
 
 
 def reset_launches() -> None:
@@ -170,8 +185,9 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
 
     if sub_block or word_earlyout:
         raise NotImplementedError(
-            "sub_block and word_earlyout are not ported yet (ROADMAP, kernels "
-            "still to port: K3 options)")
+            "sub_block and word_earlyout of the shared-memory front are not ported yet "
+            "(ROADMAP Queue 2, K3 options: sub_block, word_earlyout; front_tables_hbm has "
+            "both)")
     if repack is None:
         repack = DEFAULT_REPACK
     if repack <= 0 or WORD % repack:
@@ -531,39 +547,25 @@ def closest_hit_bvh_twin(tab: torch.Tensor, bvh, ox, oy, oz, dx, dy, dz, tm, a, 
     return bt, win
 
 
-def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_depth: int,
-                     ray0: int = 0, t_min: float = T_MIN, zero_draws: bool = False,
-                     record: bool = False):
-    """K1's plain version: the per-ray bounce loop of the JAX package's
-    _bounce_loop, operation for operation. `tab` is the (16, C) table the
-    winner columns index; `ray0` is the global slot of the first ray (the
-    RNG counter).
-
-    Returns the radiance [R, 3]; with `record` (K5's plain version) also
-    the residual planes (idx, ndx, ndy, ndz, refl), each [max_depth, R],
-    as the recording kernel writes them: idx is the winner column of `tab`
-    on a live hit, MISS on a live miss and DEAD otherwise; nd* is the
-    scattered direction on a live hit, else 0; refl is the dielectric
-    reflect branch of a live hit.
-
-    Values are float32 as in the kernel; float64 rays and table give the
-    same loop in float64 (tests take finite differences through it)."""
-    dev, dt = origin.device, origin.dtype
-    n = origin.shape[0]
+def _bounce_core(state, ray, bounce0: int, depth: int, tab, closest_hit, seed: int,
+                 t_min: float, zero_draws: bool, record: bool, record_miss: bool):
+    """`depth` bounces of K1's loop from the carried `state` (the STATE_ROWS
+    planes as a list of [R] tensors, alive as bool, and with `record_miss`
+    the MISS_ROWS miss planes), the uniforms of bounce k keyed by (seed,
+    `ray`, bounce0 + k). Returns (state after the bounces, residual planes
+    or None)."""
+    (ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
+     alive) = state[:STATE_ROWS]
+    miss = list(state[STATE_ROWS:STATE_ROWS + MISS_ROWS]) if record_miss else []
+    dev, dt = ox.device, ox.dtype
+    n = ox.shape[0]
+    res = None
     if record:
-        res_idx = torch.full((max_depth, n), DEAD, dtype=torch.int32, device=dev)
-        res_nd = [torch.zeros((max_depth, n), dtype=dt, device=dev) for _ in range(3)]
-        res_refl = torch.zeros((max_depth, n), dtype=torch.uint8, device=dev)
-    ox, oy, oz = (origin[:, q].clone() for q in range(3))
-    dx, dy, dz = (direction[:, q].clone() for q in range(3))
-    tm = time
-    one = torch.ones(n, dtype=dt, device=dev)
-    thr_r, thr_g, thr_b = one, one, one
-    rad_r = rad_g = rad_b = torch.zeros(n, dtype=dt, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    ray = torch.arange(ray0, ray0 + n, dtype=torch.int64, device=dev)
+        res = (torch.full((depth, n), DEAD, dtype=torch.int32, device=dev),
+               *(torch.zeros((depth, n), dtype=dt, device=dev) for _ in range(3)),
+               torch.zeros((depth, n), dtype=torch.uint8, device=dev))
     where = torch.where
-    for dep in range(max_depth):
+    for dep in range(depth):
         if not bool(alive.any()):
             break
         a = torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-20)
@@ -592,17 +594,23 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
         sgn = where(front, 1.0, -1.0)
         nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
-        # sky on a miss
+        # sky on a miss, or with record_miss the direction and throughput at
+        # the miss (a miss retires the ray, so it happens once)
         inv_len = 1.0 / torch.sqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-20))
-        m = (alive & ~hit).to(torch.float32)
-        sky_a = 0.5 * (dy * inv_len + 1.0)
-        rad_r = rad_r + m * thr_r * (1.0 - sky_a + sky_a * 0.5)
-        rad_g = rad_g + m * thr_g * (1.0 - sky_a + sky_a * 0.7)
-        rad_b = rad_b + m * thr_b * (1.0 - sky_a + sky_a * 1.0)
+        if record_miss:
+            missed = alive & ~hit
+            miss = [where(missed, v, mv)
+                    for v, mv in zip((dx, dy, dz, thr_r, thr_g, thr_b), miss)]
+        else:
+            m = (alive & ~hit).to(torch.float32)
+            sky_a = 0.5 * (dy * inv_len + 1.0)
+            rad_r = rad_r + m * thr_r * (1.0 - sky_a + sky_a * 0.5)
+            rad_g = rad_g + m * thr_g * (1.0 - sky_a + sky_a * 0.7)
+            rad_b = rad_b + m * thr_b * (1.0 - sky_a + sky_a * 1.0)
 
         # scatter
         udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
-        u1, u2, u3, u4 = bounce_uniforms(seed, ray, dep, zero_draws)
+        u1, u2, u3, u4 = bounce_uniforms(seed, ray, bounce0 + dep, zero_draws)
         uvx, uvy, uvz = unit_vector(u1, u2)
         lam_x, lam_y, lam_z = nx + uvx, ny + uvy, nz + uvz
         u_dot_n = udx * nx + udy * ny + udz * nz
@@ -642,8 +650,9 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
 
         hit_live = alive & hit
         if record:
+            res_idx, res_ndx, res_ndy, res_ndz, res_refl = res
             res_idx[dep] = where(hit_live, win, where(alive & ~hit, MISS, DEAD)).to(torch.int32)
-            for plane, v in zip(res_nd, (sx, sy, sz)):
+            for plane, v in zip((res_ndx, res_ndy, res_ndz), (sx, sy, sz)):
                 plane[dep] = where(hit_live, v, 0.0)
             res_refl[dep] = (hit_live & is_die & do_refl).to(torch.uint8)
         thr_r = thr_r * where(hit_live & ~is_die, har, 1.0)
@@ -655,9 +664,45 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
         # park dead rays where every later slab and sphere test misses
         ox, oy, oz = (where(alive, v, 1e18) for v in (ox, oy, oz))
         dx, dy, dz = (where(alive, v, 1.0) for v in (dx, dy, dz))
-    rad = torch.stack([rad_r, rad_g, rad_b], dim=1)
+    return [ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b, alive,
+            *miss], res
+
+
+def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_depth: int,
+                     ray0: int = 0, t_min: float = T_MIN, zero_draws: bool = False,
+                     record: bool = False, record_miss: bool = False):
+    """K1's plain version: the per-ray bounce loop of the JAX package's
+    _bounce_loop, operation for operation. `tab` is the (16, C) table the
+    winner columns index; `ray0` is the global slot of the first ray (the
+    RNG counter).
+
+    Returns the radiance [R, 3]; with `record` (K5's plain version) also
+    the residual planes (idx, ndx, ndy, ndz, refl), each [max_depth, R],
+    as the recording kernel writes them: idx is the winner column of `tab`
+    on a live hit, MISS on a live miss and DEAD otherwise; nd* is the
+    scattered direction on a live hit, else 0; refl is the dielectric
+    reflect branch of a live hit. With `record_miss` the built-in sky is
+    left out and it returns (radiance, mdir [R, 3], mthr [R, 3]): the
+    direction and throughput at the ray's miss, both exactly 0 where the
+    ray never missed.
+
+    Values are float32 as in the kernel; float64 rays and table give the
+    same loop in float64 (tests take finite differences through it)."""
+    dev, dt = origin.device, origin.dtype
+    n = origin.shape[0]
+    one = torch.ones(n, dtype=dt, device=dev)
+    zero = torch.zeros(n, dtype=dt, device=dev)
+    state = [*(origin[:, q] for q in range(3)), *(direction[:, q] for q in range(3)), time,
+             one, one, one, zero, zero, zero, torch.ones(n, dtype=torch.bool, device=dev)]
+    state += [zero] * (MISS_ROWS if record_miss else 0)
+    ray = torch.arange(ray0, ray0 + n, dtype=torch.int64, device=dev)
+    state, res = _bounce_core(state, ray, 0, max_depth, tab, closest_hit, seed, t_min,
+                              zero_draws, record, record_miss)
+    rad = torch.stack(state[10:13], dim=1)
     if record:
-        return rad, (res_idx, *res_nd, res_refl)
+        return rad, res
+    if record_miss:
+        return rad, torch.stack(state[14:17], dim=1), torch.stack(state[17:20], dim=1)
     return rad
 
 
@@ -668,10 +713,10 @@ def _twin_chunk(n_cols: int) -> int:
 
 def trace_paths_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
                      t_min: float = T_MIN, front=None, zero_draws: bool = False,
-                     bvh=None) -> torch.Tensor:
+                     bvh=None, record_miss: bool = False):
     """Plain PyTorch `trace_paths` on any device, in ray chunks."""
     return _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
-                 bvh, record=False)
+                 bvh, record=False, record_miss=record_miss)
 
 
 def trace_record_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
@@ -730,19 +775,21 @@ def twin_closest_hit(scene: Scene | None, front, bvh, device):
 
 
 def _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
-          record: bool):
+          record: bool, record_miss: bool = False):
     tab, hit, chunk = twin_closest_hit(scene, front, bvh, origin.device)
     outs = []
     for r0 in range(0, max(origin.shape[0], 1), chunk):  # one empty chunk for 0 rays
         sl = slice(r0, r0 + chunk)
         outs.append(bounce_loop_twin(origin[sl], direction[sl], time[sl], tab, hit, seed,
                                      max_depth, ray0=r0, t_min=t_min, zero_draws=zero_draws,
-                                     record=record))
-    if not record:
-        return torch.cat(outs)
-    rad = torch.cat([r for r, _ in outs])
-    planes = tuple(torch.cat([p[q] for _, p in outs], dim=1) for q in range(5))
-    return rad, planes
+                                     record=record, record_miss=record_miss))
+    if record:
+        rad = torch.cat([r for r, _ in outs])
+        planes = tuple(torch.cat([p[q] for _, p in outs], dim=1) for q in range(5))
+        return rad, planes
+    if record_miss:
+        return tuple(torch.cat([o[q] for o in outs]) for q in range(3))
+    return torch.cat(outs)
 
 
 def decode_residuals(planes, n: int, front: FrontTables | None):
@@ -759,6 +806,57 @@ def decode_residuals(planes, n: int, front: FrontTables | None):
         idx = torch.where(idx >= 0, remap[torch.clamp_min(idx, 0).long()], idx)
     return PathResiduals(idx=idx.contiguous(), ndir=torch.stack([ndx, ndy, ndz], dim=-1),
                          refl=refl.bool())
+
+
+def _segment_front(front) -> None:
+    if isinstance(front, FrontTablesHBM):
+        raise ValueError(
+            "K6 (the depth segment) takes the brute scan or a FrontTables, not a "
+            "FrontTablesHBM (nor does the JAX package's _segment_call): trace large scenes "
+            "with the monolithic kernel (trace_paths), or with bvh=")
+
+
+def _state_rows(state: torch.Tensor, record_miss: bool, record: bool) -> int:
+    rows = STATE_ROWS + (MISS_ROWS if record_miss else 0)
+    if record and record_miss:
+        raise ValueError("a segment records residuals or miss planes, not both (as the JAX "
+                         "package's _segment_call is used)")
+    if state.dim() != 2 or state.shape[0] != rows:
+        raise ValueError(f"state has shape {tuple(state.shape)}, expected ({rows}, R)")
+    return rows
+
+
+def segment_twin(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, seed: int,
+                 bounce0: int, depth: int, t_min: float = T_MIN, front=None,
+                 zero_draws: bool = False, record_miss: bool = False, record: bool = False):
+    """K6's plain version: `bounce_loop_twin` resumed from carried state,
+    `depth` bounces. `state` is [STATE_ROWS, R] (with `record_miss`
+    STATE_ROWS + MISS_ROWS) float planes, ray-minor: o xyz, d xyz, time,
+    throughput rgb, radiance rgb, alive (0/1), then the miss direction and
+    throughput; `slot` [R] holds each ray's slot in the monolithic trace,
+    and bounce k of the segment draws the uniforms the monolithic trace
+    draws for (slot, bounce0 + k). Returns the state after the segment (the
+    time plane copied through) and, with `record`, the residual planes
+    (idx, ndx, ndy, ndz, refl), each [depth, R], rows indexed by
+    segment-local bounce (K5's codes; idx a column of the table the closest
+    hit scans)."""
+    _segment_front(front)
+    rows = _state_rows(state, record_miss, record)
+    tab, hit, chunk = twin_closest_hit(scene, front, None, state.device)
+    outs, parts = [], []
+    for r0 in range(0, max(state.shape[1], 1), chunk):
+        sl = slice(r0, r0 + chunk)
+        planes = [state[q, sl] for q in range(rows)]
+        planes[ST_ALIVE] = planes[ST_ALIVE] > 0.5
+        new, res = _bounce_core(planes, slot[sl].long(), bounce0, depth, tab, hit, seed, t_min,
+                                zero_draws, record, record_miss)
+        new[ST_ALIVE] = new[ST_ALIVE].to(state.dtype)
+        outs.append(torch.stack(new))
+        parts.append(res)
+    out = torch.cat(outs, dim=1)
+    if record:
+        return out, tuple(torch.cat([r[q] for r in parts], dim=1) for q in range(5))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -787,7 +885,7 @@ def _pad_rays(x: torch.Tensor, total: int) -> torch.Tensor:
 def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor,
                 scene: Scene | None, seed: int, max_depth: int, t_min: float = T_MIN,
                 front: FrontTables | FrontTablesHBM | None = None, zero_draws: bool = False,
-                bvh=None) -> torch.Tensor:
+                bvh=None, record_miss: bool = False):
     """Radiance [R, 3] of camera rays: the full path trace in one kernel
     (pallas_trace_paths of the JAX package).
 
@@ -801,15 +899,20 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
     (ops/rng.py); `zero_draws` makes every uniform 0.0 (the TPU
     interpreter's PRNG).
 
+    With `record_miss` the kernel adds no sky: it returns (radiance,
+    mdir [R, 3], mthr [R, 3]), the direction and throughput at each ray's
+    miss (zeros where the ray never missed), and the caller adds
+    `mthr * sky(mdir)` (an environment map, `render.sky_color`).
+
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     PyTorch version."""
     dev = origin.device
     if dev.type == "cpu":
         return trace_paths_twin(origin, direction, time, scene, seed, max_depth, t_min,
-                                front, zero_draws, bvh)
-    rad, _ = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
-                     zero_draws, bvh, record=False)
-    return rad
+                                front, zero_draws, bvh, record_miss)
+    out, _ = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
+                     zero_draws, bvh, record=False, record_miss=record_miss)
+    return out
 
 
 def trace_record(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor,
@@ -836,11 +939,55 @@ def trace_record(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tens
     return rad, decode_residuals(planes, origin.shape[0], front)
 
 
+def _check_seed(seed: int, depth: int) -> None:
+    if not 0 <= int(seed) < 2**32:
+        raise ValueError(f"seed {seed} is not a 32-bit unsigned value")
+    if depth < 0:
+        raise ValueError(f"depth {depth} < 0")
+
+
+def _res_planes(depth: int, n: int, dev):
+    """Empty residual planes (idx, ndx, ndy, ndz, refl), [depth, n] each."""
+    return (torch.empty((depth, n), dtype=torch.int32, device=dev),
+            *(torch.empty((depth, n), dtype=torch.float32, device=dev) for _ in range(3)),
+            torch.empty((depth, n), dtype=torch.uint8, device=dev))
+
+
+def _require_front(front: FrontTables, dev) -> None:
+    n_cols = front.sph.shape[1]
+    n_front = front.ff.shape[1]
+    _require(front.sph, "front.sph", (N_ROWS, n_cols), torch.float32, dev)
+    _require(front.ff, "front.ff", (8, n_front), torch.float32, dev)
+    _require(front.fi, "front.fi", (2, n_front), torch.int32, dev)
+    _require(front.wf, "front.wf", (8, front.wf.shape[1]), torch.float32, dev)
+    _require(front.sf, "front.sf", (8, front.sf.shape[1]), torch.float32, dev)
+    smem = 4 * sum(x.numel() for x in (front.sph, front.ff, front.fi, front.wf, front.sf))
+    if smem > SMEM_BUDGET_BYTES:
+        raise ValueError(f"front tables need {smem} B of shared memory "
+                         f"(> {SMEM_BUDGET_BYTES}); build them with front_tables_hbm")
+
+
+def _front_args(front: FrontTables) -> tuple:
+    p = lambda x: x.data_ptr()  # noqa: E731
+    return (p(front.sph), front.sph.shape[1], p(front.ff), p(front.fi), front.ff.shape[1],
+            p(front.wf), front.wf.shape[1], p(front.sf), front.sf.shape[1], front.repack)
+
+
+def _brute_scan(scene: Scene, dev) -> tuple[torch.Tensor, str]:
+    """(sphere table, "brute" or "brute_chunked"): the whole-table kernel
+    while the table fits shared memory, else the chunked one."""
+    tab = scene_table(scene)
+    _require(tab, "sphere table", (N_ROWS, scene.num_spheres), torch.float32, dev)
+    return tab, "brute" if 4 * tab.numel() <= SMEM_BUDGET_BYTES else "brute_chunked"
+
+
 def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
-            record: bool):
+            record: bool, record_miss: bool = False):
     """Check the inputs and launch the kernel `trace_paths` describes (or,
-    with `record`, K5 over the same closest hit) on CUDA tensors:
-    (radiance [R, 3], residual planes [D, R_pad] or None)."""
+    with `record`, K5 over the same closest hit; with `record_miss`, the
+    forward kernel that records the miss planes) on CUDA tensors:
+    (radiance [R, 3] or (radiance, mdir, mthr), residual planes
+    [D, R_pad] or None)."""
     dev = origin.device
     if dev.type != "cuda":
         raise ValueError(f"the megakernel runs on cuda or cpu tensors, not {dev}")
@@ -850,28 +997,25 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
     _require(origin, "origin", (n, 3), torch.float32, dev)
     _require(direction, "direction", (n, 3), torch.float32, dev)
     _require(time, "time", (n,), torch.float32, dev)
-    if not 0 <= int(seed) < 2**32:
-        raise ValueError(f"seed {seed} is not a 32-bit unsigned value")
-    if max_depth < 0:
-        raise ValueError(f"max_depth {max_depth} < 0")
+    _check_seed(seed, max_depth)
     r_pad = -(-n // TILE) * TILE
-    planes = None
-    res_args = []
-    if record:
-        planes = (torch.empty((max_depth, r_pad), dtype=torch.int32, device=dev),
-                  *(torch.empty((max_depth, r_pad), dtype=torch.float32, device=dev)
-                    for _ in range(3)),
-                  torch.empty((max_depth, r_pad), dtype=torch.uint8, device=dev))
-        res_args = [x.data_ptr() for x in planes]
+    planes = _res_planes(max_depth, r_pad, dev) if record else None
+    miss = None
+    if record_miss:
+        miss = tuple(torch.empty((r_pad, 3), dtype=torch.float32, device=dev) for _ in range(2))
+    # the forward entries take the miss planes (or nulls), the recording ones the residuals
+    tail_args = ([x.data_ptr() for x in planes] if record
+                 else [None, None] if miss is None else [x.data_ptr() for x in miss])
     if n == 0:
-        return origin.new_zeros((0, 3)), planes
+        out = origin.new_zeros((0, 3))
+        return ((out, out, out) if record_miss else out), planes
     lib = build.load_library()
     o, d, t = _pad_rays(origin, r_pad), _pad_rays(direction, r_pad), _pad_rays(time, r_pad)
     out = torch.empty((r_pad, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda x: x.data_ptr()  # noqa: E731
     rays = (p(o), p(d), p(t), p(out), r_pad)
-    tail = (int(seed), max_depth, t_min, int(zero_draws), *res_args, stream)
+    tail = (int(seed), max_depth, t_min, int(zero_draws), *tail_args, stream)
     if isinstance(front, FrontTablesHBM):
         n_front = front.ff.shape[1]
         _require(front.sph, "front.sph", (n_front * BLOCK, N_ROWS), torch.float32, dev)
@@ -891,21 +1035,10 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
             None if front.bf is None else p(front.bf), n_bf, front.ksub,
             int(front.word_earlyout), int(boxes <= SMEM_BUDGET_BYTES), *tail)
     elif front is not None:
-        n_cols = front.sph.shape[1]
-        n_front = front.ff.shape[1]
-        _require(front.sph, "front.sph", (N_ROWS, n_cols), torch.float32, dev)
-        _require(front.ff, "front.ff", (8, n_front), torch.float32, dev)
-        _require(front.fi, "front.fi", (2, n_front), torch.int32, dev)
-        _require(front.wf, "front.wf", (8, front.wf.shape[1]), torch.float32, dev)
-        _require(front.sf, "front.sf", (8, front.sf.shape[1]), torch.float32, dev)
-        smem = 4 * sum(x.numel() for x in (front.sph, front.ff, front.fi, front.wf, front.sf))
-        if smem > SMEM_BUDGET_BYTES:
-            raise ValueError(f"front tables need {smem} B of shared memory "
-                             f"(> {SMEM_BUDGET_BYTES}); build them with front_tables_hbm")
+        _require_front(front, dev)
         fn, key = ((lib.rtp_record_front, "record_front") if record
                    else (lib.rtp_trace_front, "front"))
-        err = fn(*rays, p(front.sph), n_cols, p(front.ff), p(front.fi), n_front, p(front.wf),
-                 front.wf.shape[1], p(front.sf), front.sf.shape[1], front.repack, *tail)
+        err = fn(*rays, *_front_args(front), *tail)
     elif bvh is not None:
         tables = bvh_tables(bvh, dev)
         tab = scene_table(scene).t().contiguous()  # sphere-major
@@ -913,15 +1046,79 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
         fn, key = (lib.rtp_record_bvh, "record_bvh") if record else (lib.rtp_trace_bvh, "bvh")
         err = fn(*rays, p(tab), tab.shape[0], p(tables.nodes), tables.nodes.shape[0], *tail)
     else:
-        tab = scene_table(scene)
-        _require(tab, "sphere table", (N_ROWS, scene.num_spheres), torch.float32, dev)
-        scan = "brute" if 4 * tab.numel() <= SMEM_BUDGET_BYTES else "brute_chunked"
+        tab, scan = _brute_scan(scene, dev)
         key = f"record_{scan}" if record else scan
         fn = getattr(lib, f"rtp_record_{scan}" if record else f"rtp_trace_{scan}")
         err = fn(*rays, p(tab), tab.shape[1], *tail)
+    if record_miss:
+        key = f"{key}_miss"
     build.check(err, f"{key} megakernel launch")
     LAUNCHES[key] += 1
+    if record_miss:
+        return (out[:n], miss[0][:n], miss[1][:n]), planes
     return out[:n], planes
+
+
+def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, seed: int,
+                 bounce0: int, depth: int, t_min: float = T_MIN,
+                 front: FrontTables | None = None, zero_draws: bool = False,
+                 record_miss: bool = False, record: bool = False):
+    """K6, one resumable depth segment (`_segment_call` of the JAX package,
+    megakernel.py:1759): `depth` bounces of the bounce loop from the
+    carried `state` ([STATE_ROWS, R] float32, with `record_miss`
+    STATE_ROWS + MISS_ROWS; see `segment_twin`) of the rays whose
+    monolithic slots are `slot` ([R] int32), starting at global bounce
+    `bounce0`. The closest hit is `front`'s (a FrontTables: K3's culling)
+    or the brute scan over `scene` (whole in shared memory or, past its
+    budget, in chunks). Returns the state after the segment and, with
+    `record`, the residual planes (idx, ndx, ndy, ndz, refl) [depth, R].
+    R must be a multiple of TILE; padding rays are dead (alive 0).
+
+    Random numbers: the JAX pipelines reseed each phase
+    (seed ^ s * 0x9E3779B1) because the TPU's generator is keyed by tile
+    position. Here a ray draws with Philox keyed by (seed, its monolithic
+    slot, its global bounce), so a trace cut into segments follows the
+    monolithic kernel's paths exactly, with real draws too.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run
+    `segment_twin`."""
+    if state.device.type == "cpu":
+        return segment_twin(state, slot, scene, seed, bounce0, depth, t_min, front,
+                            zero_draws, record_miss, record)
+    _segment_front(front)
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"the segment kernel runs on cuda or cpu tensors, not {dev}")
+    from raytracingproject_tpu_torch.ops.cuda import build
+
+    rows = _state_rows(state, record_miss, record)
+    n = state.shape[1]
+    if n == 0 or n % TILE:
+        raise ValueError(f"segment of {n} rays: the ray count must be a positive multiple "
+                         f"of {TILE}")
+    _require(state, "state", (rows, n), torch.float32, dev)
+    _require(slot, "slot", (n,), torch.int32, dev)
+    _check_seed(seed, depth)
+    if bounce0 < 0:
+        raise ValueError(f"bounce0 {bounce0} < 0")
+    lib = build.load_library()
+    out = torch.empty_like(state)
+    planes = _res_planes(depth, n, dev) if record else None
+    res = [x.data_ptr() for x in planes] if record else [None] * 5
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (state.data_ptr(), out.data_ptr(), slot.data_ptr(), n)
+    tail = (int(seed), bounce0, depth, t_min, int(zero_draws), int(record_miss), *res, stream)
+    if front is not None:
+        _require_front(front, dev)
+        scan = "front"
+        err = lib.rtp_segment_front(*head, *_front_args(front), *tail)
+    else:
+        tab, scan = _brute_scan(scene, dev)
+        err = getattr(lib, f"rtp_segment_{scan}")(*head, tab.data_ptr(), tab.shape[1], *tail)
+    key = f"segment_{'record_' if record else 'miss_' if record_miss else ''}{scan}"
+    build.check(err, f"{key} launch")
+    LAUNCHES[key] += 1
+    return (out, planes) if record else out
 
 
 def philox_bits(n: int, seed: int, bounce: int, device) -> torch.Tensor:

@@ -6,7 +6,10 @@ ops.cuda.megakernel.trace_paths. Rays are fed in compact screen blocks
 or K7 when the front's tables pass the shared-memory budget, or the brute
 K2 without the BVH; `render_pass(bvh=)` takes the BVH walk K8),
 accumulated in slot space over sample chunks and unpermuted once per
-frame (`blocks_to_image`).
+frame (`blocks_to_image`). `RenderSettings.two_phase` and
+`depth_segment` cut the trace into depth segments of K6 with the live
+rays packed between them (ops/cuda/depth_tail.py); a sky texture makes
+the kernel record each ray's miss, and the texture is looked up here.
 
 The oracle path (`use_megakernel=False`, the JAX package's default):
 render -> render_pass -> ray_color, a Python loop over bounce depth that
@@ -31,6 +34,9 @@ from raytracingproject_tpu_torch.camera import (
 )
 from raytracingproject_tpu_torch.config import T_MIN, RenderSettings
 from raytracingproject_tpu_torch.materials import ScatterDraws, draw_scatter, scatter_from_draws
+from raytracingproject_tpu_torch.ops.cuda.depth_tail import (
+    trace_paths_segmented, trace_paths_twophase,
+)
 from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE, trace_paths
 from raytracingproject_tpu_torch.ops.intersect import closest_hit
 from raytracingproject_tpu_torch.ops.vecmath import normalize
@@ -203,11 +209,6 @@ def _block_order(width: int, height: int, spp: int = 1, tile: int = TILE):
     return slot_pix.astype(np.int32), gather.astype(np.int32)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet "
-                               f"(ROADMAP {item})")
-
-
 def _slot_rays(cam: CameraDerived, width: int, height: int, spp_chunk: int,
                generator: torch.Generator | None, ray_uniforms):
     """Camera rays of every slot in `_block_order`."""
@@ -259,7 +260,15 @@ def render_pass(
 
     The megakernel's closest hit is `front`'s (K3 or K7) when given, else
     the walk of `bvh` (K8; a FlatBVH over `scene` in leaf order), else the
-    brute scan.
+    brute scan. Without `bvh`, `depth_segment` (when below `max_depth`)
+    traces in segments of that many bounces with a compaction between
+    each two, else `two_phase` (when below `max_depth`) traces the first
+    `two_phase` bounces, compacts once and traces the rest
+    (ops/cuda/depth_tail.py); a FrontTablesHBM has no segment kernel, so
+    two-phase falls back to the monolithic trace and segmented raises, as
+    in the JAX package. With `sky_tex` ([Ht, Wt, 3], on the rays' device)
+    the kernel records each ray's miss direction and throughput and the
+    radiance gains `mthr * sky_color(mdir, sky_tex)`.
 
     With `use_megakernel=False` the rays are the image tiled `spp_chunk`
     times in row-major order and go through `ray_color`, which takes `bvh`,
@@ -280,17 +289,26 @@ def render_pass(
     if use_pallas:
         raise ValueError("use_pallas selects the oracle path's fused closest hit (K4); the "
                          "megakernel has its own. Set use_megakernel=False with it")
-    if sky_tex is not None:
-        raise _not_ported("sky textures (record_miss)", "Queue 2, K1 options: record_miss")
-    if depth_segment or two_phase:
-        raise _not_ported("segmented and two-phase tracing", "P8 with K6")
     origin, direction, time = _slot_rays(cam, width, height, spp_chunk, generator,
                                          ray_uniforms)
     if seed is None:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=generator.device))
-    rad = tracer(origin, direction, time, scene, seed, max_depth, front=front,
-                 zero_draws=zero_draws, bvh=bvh)
+    record_miss = sky_tex is not None
+    kw = dict(front=front, zero_draws=zero_draws, record_miss=record_miss)
+    if depth_segment and max_depth > depth_segment and bvh is None:
+        out = trace_paths_segmented(origin, direction, time, scene, seed, max_depth,
+                                    seg_len=depth_segment, **kw)
+    elif two_phase and max_depth > two_phase and bvh is None:
+        out = trace_paths_twophase(origin, direction, time, scene, seed, max_depth,
+                                   cuts=(two_phase,), **kw)
+    else:
+        out = tracer(origin, direction, time, scene, seed, max_depth, bvh=bvh, **kw)
+    if record_miss:
+        rad, mdir, mthr = out
+        rad = rad + mthr * sky_color(mdir, sky_tex)
+    else:
+        rad = out
     if raw_slots:
         return rad
     return blocks_to_image(rad, width, height, spp_chunk)
@@ -360,12 +378,13 @@ def render(
     random number of the render. `settings.use_megakernel` picks the
     megakernel (the port's default) or the oracle loop (`ray_color`, with
     early exit); the oracle takes `use_pallas` (the fused closest hit, K4,
-    which wins over the BVH walk) and `sky_texture` ([Ht, Wt, 3])."""
+    which wins over the BVH walk). `sky_texture` ([Ht, Wt, 3], linear) is
+    the environment map of both: the oracle looks it up at each miss, the
+    megakernel records the misses and `render_pass` looks it up after the
+    kernel. `settings.two_phase` and `depth_segment` pick the depth-tail
+    pipelines (see `render_pass`)."""
     settings = settings or RenderSettings()
     use_megakernel = settings.use_megakernel
-    if sky_texture is not None and use_megakernel:
-        raise _not_ported("sky textures on the megakernel (record_miss)",
-                          "Queue 2, K1 options: record_miss")
     device = settings.resolved_device()
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -377,8 +396,8 @@ def render(
         scene, front = prepare_scene(scene, camera, settings)
     else:
         scene, bvh = prepare_oracle_scene(scene, settings)
-        if sky_texture is not None:
-            sky_texture = torch.as_tensor(sky_texture, dtype=torch.float32, device=device)
+    if sky_texture is not None:
+        sky_texture = torch.as_tensor(sky_texture, dtype=torch.float32, device=device)
 
     spp_chunk = max(1, min(spp, settings.rays_per_batch // max(width * height, 1)))
     acc = torch.zeros((height, width, 3), dtype=torch.float32, device=device)

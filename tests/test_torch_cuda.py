@@ -356,3 +356,190 @@ def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
                                              trainable=("albedo", "fuzz", "ior"))
     params, opt, loss, grads = step(params, opt, None, ref)
     assert params.albedo.is_cuda and torch.isfinite(loss) and mk.LAUNCHES["record_bvh"] == 1
+
+
+# ---- record_miss on the five monolithic modes, K6 and the depth-tail pipelines ----
+
+def _route(mode, scene, front, tree, monkeypatch):
+    """trace_paths' keyword arguments (and launch key) of one closest hit
+    on the cover scene: brute, chunked (budget set low), front, bvh, hbm."""
+    if mode == "chunked":
+        monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
+        return {}, "brute_chunked"
+    if mode == "bvh":
+        return {"bvh": tree}, "bvh"
+    if mode == "hbm":
+        return {"front": mk.front_tables_hbm(scene, tree)}, "front_hbm"
+    return ({"front": front} if mode == "front" else {}), mode
+
+
+@pytest.mark.parametrize("mode", ["brute", "chunked", "front", "bvh", "hbm"])
+def test_record_miss_kernel_matches_twin(cuda_device, mode, monkeypatch):
+    """K1's record_miss on each closest hit: rad + mthr * sky(mdir) equals
+    the kernel without miss recording within 2e-6, never-missed planes are
+    exactly 0, and the three outputs match the plain version (>= 99.9% of
+    rays within 1e-3, bit-equal expected)."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.render import sky_color
+
+    camera = Camera(**COVER)
+    tree = build_bvh(make_cover_scene(0), leaf_size=8)
+    scene = reorder_scene(make_cover_scene(0), tree).to(cuda_device)
+    front = mk.front_tables(scene, tree, order_point=(13.0, 2.0, 3.0), repack=2)
+    w, h = camera.image_size()
+    o, d, t = _slot_rays(camera.derive(torch.float32, cuda_device), w, h, 1,
+                         torch.Generator(device=cuda_device).manual_seed(5), None)
+    kw, key = _route(mode, scene, front, tree, monkeypatch)
+    plain = mk.trace_paths(o, d, t, scene, 31, 16, **kw)
+    before = mk.LAUNCHES[f"{key}_miss"]
+    rad, mdir, mthr = mk.trace_paths(o, d, t, scene, 31, 16, record_miss=True, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[f"{key}_miss"] == before + 1
+    assert torch.abs(rad + mthr * sky_color(mdir) - plain).max().item() <= 2e-6
+    never = (mdir == 0).all(dim=1)
+    assert never.any() and not never.all() and bool((mthr[never] == 0).all())
+    twin = mk.trace_paths_twin(o, d, t, scene, 31, 16, record_miss=True, **kw)
+    for a, b in zip((rad, mdir, mthr), twin):
+        assert _rays_differ(a, b) <= 1e-3
+
+
+def _segment_inputs(device, record_miss, scene=None):
+    """State after a first segment of 2 bounces (plain version) of the
+    cover camera's rays in the cover scene (or `scene`), with the rays
+    packed alive-first, and the scene and the cover scene's front."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    cover, front, (o, d, t) = _cover_rays(device)
+    scene = cover if scene is None else scene
+    state, slot = dt.initial_state(o, d, t, record_miss)
+    state = mk.segment_twin(state, slot, scene, 77, 0, 2, record_miss=record_miss)
+    src, _, _ = dt.alive_first_perm(state[mk.ST_ALIVE])
+    return (scene, front, dt.take_ray_rows(state, src, dim=1).contiguous(),
+            dt.take_ray_rows(slot, src).contiguous())
+
+
+@pytest.mark.parametrize("scan", ["brute", "brute_chunked", "front"])
+@pytest.mark.parametrize("kind", ["plain", "miss", "record"])
+def test_segment_kernel_matches_twin(cuda_device, scan, kind):
+    """K6 (each scan, plain, with miss planes, recording) against its plain
+    version from the carried state a first segment left: every state plane
+    within 1e-3 on >= 99.9% of rays (bit-equal expected), residual idx
+    equal on >= 99.9%, ndir and refl equal where idx is. The chunked scan
+    runs on 5,000 spheres, five staged chunks."""
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    five = make_random_scene(5000, seed=3, device=cuda_device) if scan == "brute_chunked" else None
+    scene, front, state, slot = _segment_inputs(cuda_device, kind == "miss", five)
+    f = front if scan == "front" else None
+    key = f"segment_{'' if kind == 'plain' else kind + '_'}{scan}"
+    kw = dict(front=f, record_miss=kind == "miss", record=kind == "record")
+    before = mk.LAUNCHES[key]
+    got = mk.segment_call(state, slot, scene, 77, 2, 12, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    want = mk.segment_twin(state, slot, scene, 77, 2, 12, **kw)
+    if kind == "record":
+        (got, planes), (want, wplanes) = got, want
+        eq = planes[0] == wplanes[0]
+        assert eq.double().mean().item() >= 0.999
+        for a, b in zip(planes[1:], wplanes[1:]):
+            assert torch.equal(a[eq], b[eq])
+    assert torch.isfinite(got).all()
+    assert ((torch.abs(got - want) <= 1e-3).all(dim=0)).double().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("path", ["brute", "front"])
+def test_depth_tail_equals_monolithic_on_the_card(cuda_device, path):
+    """Philox draws keyed by (seed, slot, bounce): two-phase, segmented and
+    the two-phase record equal the monolithic kernels (brute bit-equal;
+    front <= 0.1% of rays, its culling is decided per warp)."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    scene, front, (o, d, t) = _cover_rays(cuda_device)
+    f = front if path == "front" else None
+    mono = mk.trace_paths(o, d, t, scene, 13, 16, front=f)
+    runs = [dt.trace_paths_twophase(o, d, t, scene, 13, 16, cuts=(4,), front=f),
+            dt.trace_paths_twophase(o, d, t, scene, 13, 16, cuts=(2, 6), front=f),
+            dt.trace_paths_segmented(o, d, t, scene, 13, 16, seg_len=4, front=f)]
+    rad_m, res_m = mk.trace_record(o, d, t, scene, 13, 16, front=f)
+    rad2, res1, res2, _, dest, _ = dt.trace_record_twophase(o, d, t, scene, 13, 16, cut=4,
+                                                            front=f)
+    runs.append(rad2)
+    n = o.shape[0]
+    idx = torch.cat([res1.idx[:, :n], dt.take_ray_rows(res2.idx, dest, dim=1)[:, :n]])
+    for r in runs:
+        assert torch.equal(r, mono) if path == "brute" else _rays_differ(r, mono) <= 1e-3
+    if path == "brute":
+        assert torch.equal(idx, res_m.idx)
+    else:
+        assert (idx == res_m.idx).all(dim=0).double().mean().item() >= 0.999
+    # each pipeline against its plain version (K6's plain version on the card)
+    assert _rays_differ(runs[0], dt.trace_paths_twophase_twin(o, d, t, scene, 13, 16, cuts=(4,),
+                                                              front=f)) <= 1e-3
+    assert _rays_differ(runs[2], dt.trace_paths_segmented_twin(o, d, t, scene, 13, 16,
+                                                               seg_len=4, front=f)) <= 1e-3
+    twin = dt.trace_record_twophase_twin(o, d, t, scene, 13, 16, cut=4, front=f)
+    assert _rays_differ(rad2, twin[0]) <= 1e-3
+    assert (res1.idx == twin[1].idx).double().mean().item() >= 0.999
+
+
+def test_twophase_fast_radiance_kernel_gradients_match_twin(cuda_device):
+    """make_fast_radiance_twophase with the K6 pipelines and with their
+    plain versions on the card give the same gradients (relative norm 1e-5
+    per field, deterministic algorithms, as for the monolithic one), and
+    the monolithic fast radiance's."""
+    from raytracingproject_tpu_torch.grad import (
+        SceneParams, extract_params, make_fast_radiance, make_fast_radiance_twophase,
+    )
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    scene, _, (o, d, t) = _cover_rays(cuda_device)
+    w = torch.rand((o.shape[0], 3), generator=torch.Generator(device=cuda_device).manual_seed(2),
+                   device=cuda_device)
+    fns = [make_fast_radiance_twophase(scene, 12),
+           make_fast_radiance_twophase(scene, 12, tracer=dt.trace_paths_twophase_twin,
+                                       recorder=dt.trace_record_twophase_twin),
+           make_fast_radiance(scene, 12)]
+    grads = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for fn in fns:
+            pp = SceneParams(*(x.clone().requires_grad_(True) for x in extract_params(scene)))
+            grads.append(torch.autograd.grad((fn(pp, o, d, t, 99) * w).sum(), list(pp)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for other in grads[1:]:
+        for name, a, b in zip(SceneParams._fields, grads[0], other):
+            a, b = a.double(), b.double()
+            rel = (torch.linalg.norm(a - b) / (torch.linalg.norm(b) + 1e-6)).item()
+            assert rel <= 1e-5, (name, rel)
+
+
+def test_depth_tail_and_sky_texture_render_on_the_card(cuda_device):
+    """render() with two_phase, depth_segment and a sky texture runs K6 and
+    the record_miss kernels from a CPU scene; images finite, means within
+    5% of the monolithic frame's; a two-phase train step runs K6's
+    recording segments."""
+    from raytracingproject_tpu_torch.grad import make_fast_train_step
+    from raytracingproject_tpu_torch.render import render
+
+    camera = Camera(**dict(COVER, samples_per_pixel=2, max_depth=12))
+    ref = render(make_cover_scene(0), camera)
+    tex = torch.rand((16, 32, 3), generator=torch.Generator().manual_seed(2))
+    for kw, sky in (({"two_phase": 4}, None), ({"depth_segment": 4}, None), ({}, tex),
+                    ({"two_phase": 4}, tex)):
+        mk.reset_launches()
+        img = render(make_cover_scene(0), camera, settings=RenderSettings(**kw), sky_texture=sky)
+        seg = sum(v for k, v in mk.LAUNCHES.items() if k.startswith("segment_"))
+        assert img.is_cuda and torch.isfinite(img).all()
+        assert seg == (0 if not kw else 3 if "depth_segment" in kw else 2)  # one pass
+        if sky is None:
+            assert abs(img.mean().item() - ref.mean().item()) <= 0.05 * ref.mean().item()
+        else:
+            assert mk.LAUNCHES["front_miss"] + mk.LAUNCHES["segment_miss_front"] > 0
+    mk.reset_launches()
+    params, opt, step = make_fast_train_step(make_cover_scene(0), camera, spp=1, two_phase=4,
+                                             trainable=("albedo",))
+    params, opt, loss, grads = step(params, opt, None, ref)
+    assert params.albedo.is_cuda and torch.isfinite(loss)
+    assert mk.LAUNCHES["segment_record_brute"] == 2

@@ -500,8 +500,11 @@ def test_fast_train_step_refuses_what_it_cannot_do():
     with pytest.raises(ValueError, match="FIXED geometry"):
         make_fast_train_step(ps, cam, bvh=object(), trainable=("albedo", "center0"),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="P8"):
-        make_fast_train_step(ps, cam, two_phase=4, device="cpu")
+    with pytest.raises(ValueError, match="no BVH walk"):
+        make_fast_train_step(ps, cam, two_phase=2, bvh=object(), trainable=("albedo",),
+                             device="cpu")
+    with pytest.raises(ValueError, match="two-phase cut"):
+        make_fast_train_step(ps, cam, two_phase=cam.max_depth, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         make_fast_train_step(ps, cam, replay_gather="colT", device="cpu")
     with pytest.raises(ValueError, match="unknown trainable"):

@@ -394,12 +394,18 @@ def test_brute_twin_past_the_whole_table_budget():
 
 def test_every_entry_point_has_a_counter_and_a_chip_smoke_check():
     """Each tracing entry point of the megakernel library has its launch
-    counter, and chip_smoke.py names every counter (it holds each kernel
-    against its plain version and reads each count after a main path)."""
-    entries = {n.removeprefix("rtp_").removeprefix("trace_")
-               for n in build.LIBRARIES["megakernel"]
-               if n.startswith(("rtp_trace_", "rtp_record_"))}
-    assert entries == set(mk.LAUNCHES)
+    counter (the forward ones also one for their record_miss version, the
+    segment ones one for each of their three kinds), and chip_smoke.py
+    names every counter (it holds each kernel against its plain version
+    and reads each count after a main path)."""
+    names = build.LIBRARIES["megakernel"]
+    forward = {n.removeprefix("rtp_trace_") for n in names if n.startswith("rtp_trace_")}
+    record = {n.removeprefix("rtp_") for n in names if n.startswith("rtp_record_")}
+    segment = {f"segment_{kind}{n.removeprefix('rtp_segment_')}"
+               for n in names if n.startswith("rtp_segment_")
+               for kind in ("", "miss_", "record_")}
+    assert len(segment) == 9
+    assert forward | {f"{k}_miss" for k in forward} | record | segment == set(mk.LAUNCHES)
     smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     for key in mk.LAUNCHES:
         assert re.search(rf'"{key}"', smoke), key

@@ -172,3 +172,113 @@ def test_trace_paths_is_independent_of_chunking(monkeypatch):
     monkeypatch.setattr(mk, "_twin_chunk", lambda n_cols: mk.TILE)
     chunked = mk.trace_paths(o, d, t, ps, 99, 6)
     torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
+
+
+# ---- K1's record_miss ----
+
+@pytest.fixture
+def one_torch_thread():
+    """One PyTorch CPU thread for a small-shape test: faster alone, and no
+    oversubscription when the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("path", ["brute", "front"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_record_miss_matches_jax(path):
+    """The plain version with record_miss against
+    pallas_trace_paths(record_miss=True, interpret=True) on the
+    three-sphere scene, zero draws, depth 6: radiance (without the sky),
+    miss direction and miss throughput within 5e-5 on >= 99.9% of rays."""
+    js, jf = _scene_and_front("three")
+    o, d, t = _rays(THREE_CAM, 2048, seed=3)
+    jfront = jf if path == "front" else None
+    ref = pallas_trace_paths(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t), js, jnp.int32(5),
+                             max_depth=6, interpret=True, front=jfront, record_miss=True)
+    got = mk.trace_paths(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t),
+                         _port_scene(js), 5, 6, front=_port_front(jf) if jfront else None,
+                         zero_draws=True, record_miss=True)
+    for name, r, g in zip(("rad", "mdir", "mthr"), ref, got):
+        close = np.all(np.abs(g.numpy() - np.asarray(r)) <= 5e-5, axis=1).mean()
+        print(f"{path} {name}: {close:.5f} of rays within 5e-5")
+        assert close >= 0.999, (name, close)
+
+
+def _identity_route(mode, js, jf, monkeypatch):
+    """trace_paths' keyword arguments for one closest hit of the port on
+    the leaf-ordered three-sphere scene."""
+    from raytracingproject_tpu_torch import bvh as pbvh
+
+    ps = _port_scene(js)
+    tree = pbvh.build_bvh(ps, leaf_size=2)
+    if mode == "chunked":
+        monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 0)
+        monkeypatch.setattr(mk, "_twin_chunk", lambda n_cols: mk.TILE)
+        return {}
+    return {"brute": {}, "front": {"front": _port_front(jf)}, "bvh": {"bvh": tree},
+            "hbm": {"front": mk.front_tables_hbm(ps, tree)}}[mode]
+
+
+@pytest.mark.parametrize("mode", ["brute", "chunked", "front", "bvh", "hbm"])
+@pytest.mark.parametrize("zero_draws", [True, False])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_record_miss_identity(mode, zero_draws, monkeypatch):
+    """On every closest hit, rad + mthr * sky(mdir) equals the run without
+    miss recording within 2e-6 (the same paths, the sky added outside),
+    and a ray that never missed keeps both planes exactly 0."""
+    from raytracingproject_tpu_torch.render import sky_color
+
+    js, jf = _scene_and_front("three")
+    o, d, t = (torch.from_numpy(x) for x in _rays(THREE_CAM, 1024, seed=8))
+    ps = _port_scene(js)
+    kw = _identity_route(mode, js, jf, monkeypatch)
+    plain = mk.trace_paths(o, d, t, ps, 21, 6, zero_draws=zero_draws, **kw)
+    rad, mdir, mthr = mk.trace_paths(o, d, t, ps, 21, 6, zero_draws=zero_draws,
+                                     record_miss=True, **kw)
+    assert torch.abs(rad + mthr * sky_color(mdir) - plain).max().item() <= 2e-6
+    never = (mdir == 0).all(dim=1)
+    assert bool((mthr[never] == 0).all())
+    assert never.any() or zero_draws  # glass or mirrors hold some rays past depth 6
+    assert not never.all()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_record_miss_env_map_matches_ray_color():
+    """tests/test_sky_texture.py's mirror-metal scene and 12x24 texture: the
+    megakernel's plain version with record_miss plus the texture lookup
+    equals the port's ray_color(sky_tex=) and the JAX package's
+    ray_color(sky_tex=) within 2e-5 (metal of fuzz 0 consumes no draws)."""
+    from raytracingproject_tpu.render import ray_color as jray_color
+
+    from raytracingproject_tpu_torch import scene as pscene
+    from raytracingproject_tpu_torch.render import ray_color, sky_color
+
+    mirrors = lambda sb: (sb.add_metal(center=(0.0, 0.0, -1.5), radius=0.5,  # noqa: E731
+                                       albedo=(0.9, 0.8, 0.7), fuzz=0.0)
+                          .add_metal(center=(1.1, 0.2, -2.0), radius=0.4,
+                                     albedo=(0.6, 0.7, 0.9), fuzz=0.0).build())
+    js = mirrors(jscene.SceneBuilder())
+    ps = mirrors(pscene.SceneBuilder())
+    tex = np.random.default_rng(5).random((12, 24, 3)).astype(np.float32) * 0.9 + 0.05
+    # the JAX test's rays: every pixel of the 64x36 image once. (On random
+    # rays a grazing mirror bounce can split the JAX package's own kernel
+    # and ray_color by 1e-3.)
+    cam = JCamera(**dict(THREE_CAM, max_depth=4))
+    w, h = cam.image_size()
+    jj, ii = jnp.meshgrid(jnp.arange(h, dtype=jnp.int32), jnp.arange(w, dtype=jnp.int32),
+                          indexing="ij")
+    o, d, t = (np.array(x) for x in jgenerate_rays(cam.derive(), ii.reshape(-1), jj.reshape(-1),
+                                                   jax.random.PRNGKey(2)))
+    rad, mdir, mthr = mk.trace_paths(*(torch.from_numpy(x) for x in (o, d, t)), ps, 3, 4,
+                                     zero_draws=True, record_miss=True)
+    total = (rad + mthr * sky_color(mdir, torch.from_numpy(tex))).numpy()
+    mine = ray_color(ps, *(torch.from_numpy(x) for x in (o, d, t)), torch.Generator(), 4,
+                     sky_tex=torch.from_numpy(tex)).numpy()
+    ref = np.asarray(jray_color(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t),
+                                jax.random.PRNGKey(9), 4, sky_tex=jnp.asarray(tex)))
+    assert (mdir != 0).any(dim=1).all()  # every path leaves the mirrors
+    np.testing.assert_allclose(total, mine, atol=2e-5)
+    np.testing.assert_allclose(total, ref, atol=2e-5)

@@ -86,3 +86,25 @@ def test_native_bvh_builds_from_the_ports_copy():
     assert sorted(tree.prim_order.tolist()) == sorted(ref.prim_order.tolist()) == [0, 1, 2, 3]
     assert int(tree.leaf_count.sum()) == 4 and torch.isfinite(tree.node_min).all()
     assert np.all(tree.node_min.numpy()[0] <= ref.node_min.numpy()[0] + 1e-5)
+
+
+def test_ctypes_signatures_match_the_c_sources():
+    """Every C entry point bound in `build.LIBRARIES` is declared in its
+    source with the argument types the binding gives ctypes (a pointer as
+    c_void_p, int, unsigned, float), in order: a mismatch would pass a cut
+    or shifted argument to a kernel on the card and nothing on the CPU."""
+    import ctypes
+
+    c_types = {"int": ctypes.c_int, "unsigned": ctypes.c_uint, "float": ctypes.c_float}
+    for name, entries in build.LIBRARIES.items():
+        src = build.source(name).read_text()
+        extern = src[src.index('extern "C"'):]
+        for fn, (argtypes, _) in entries.items():
+            m = re.search(rf"\b(?:int|const char\*) {fn}\(([^)]*)\)", extern)
+            assert m, fn
+            declared = []
+            for param in filter(None, (x.strip() for x in m.group(1).split(","))):
+                words = param.replace("*", " * ").split()[:-1]  # drop the parameter's name
+                words = [w for w in words if w != "const"]
+                declared.append(ctypes.c_void_p if "*" in words else c_types[" ".join(words)])
+            assert declared == list(argtypes), fn

@@ -194,14 +194,20 @@ def test_cuda_device_without_a_card_raises():
         pmk.trace_paths(o, o, torch.zeros(4, device="meta"), None, 0, 1)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch, capsys):
+    """What the port does not run raises, naming its ROADMAP item or the
+    route that does: the CLI's wavefront renderer (not ported), segmented
+    tracing over the global-memory front (K6 takes no FrontTablesHBM, nor
+    does the JAX segment call) and use_pallas on the megakernel."""
     cam = pcamera.Camera(**THREE)
     scene = pscene.make_three_sphere_scene()
-    for kw in ({"two_phase": 2}, {"depth_segment": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prender(scene, cam, settings=RenderSettings(device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prender(scene, cam, settings=RenderSettings(device="cpu"), sky_texture=np.ones((2, 2, 3)))
+    with pytest.raises(SystemExit):
+        cli_main(["--wavefront", "--device", "cpu"])
+    assert "ROADMAP P8: wavefront.py" in capsys.readouterr().err
+    with monkeypatch.context() as m:
+        m.setattr(pmk, "SMEM_BUDGET_BYTES", 0)  # every front goes to global memory (K7)
+        with pytest.raises(ValueError, match="FrontTablesHBM"):
+            prender(scene, cam, settings=RenderSettings(device="cpu", depth_segment=2))
     # use_pallas is the oracle loop's closest hit: with the megakernel it is refused
     with pytest.raises(ValueError, match="use_megakernel=False"):
         prender(scene, cam, settings=RenderSettings(device="cpu", use_pallas=True))
@@ -226,12 +232,15 @@ def test_oracle_options_render(kw):
 
 
 def test_oracle_sky_texture_renders():
-    """A constant sky texture on an all-miss oracle render gives that
-    constant (tests/test_sky_texture.py); on the megakernel it still raises."""
+    """A constant sky texture on an all-miss render gives that constant
+    (tests/test_sky_texture.py), on the oracle loop and on the megakernel
+    (K1's record_miss, the texture looked up after the kernel)."""
     scene = pscene.make_minimal_scene()
     scene = dataclasses.replace(scene, center0=scene.center0 + 1e7)  # park the spheres away
     cam = pcamera.Camera(aspect_ratio=1.0, image_width=16, samples_per_pixel=2, max_depth=3,
                          vfov=60.0)
-    img = prender(scene, cam, settings=RenderSettings(device="cpu", use_megakernel=False),
-                  sky_texture=np.full((4, 8, 3), 0.25, np.float32))
-    np.testing.assert_allclose(img.numpy(), 0.25, atol=1e-5)
+    for use_megakernel in (False, True):
+        img = prender(scene, cam, settings=RenderSettings(device="cpu",
+                                                          use_megakernel=use_megakernel),
+                      sky_texture=np.full((4, 8, 3), 0.25, np.float32))
+        np.testing.assert_allclose(img.numpy(), 0.25, atol=1e-5)
