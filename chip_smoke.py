@@ -58,13 +58,31 @@ through its kernels:
   scans, and so are the brute frames), the two-phase gradients against
   the monolithic ones.
 
+- the probes, right after the build: each probe kernel of csrc/probes.cu
+  (tools/'s FMA peak, mixed closest-hit peak, kfront and kexp) bit-equal
+  to its plain version, then their own main path, what
+  `python -m raytracingproject_tpu_torch.probes.roofline` (and `.kfront`,
+  `.kexp`, on the cover scene and on make_random_scene(2000, seed=3))
+  runs: the card's FFMA rate and mixed sphere-test peak, which every
+  bound below reads.
+
+- K3's options and K1's planted fault: `front_tables(sub_block=,
+  word_earlyout=)` on the cover and 2,000-sphere fronts, each option
+  instantiation (forward, record_miss, K5, K6's three tails) bit-equal
+  to plain K3's and held against its plain version, driven through
+  `render_pass` and `make_fast_train_step`; `<BRUTE, SCHLICK3>` against
+  its plain version and the per-material-region statistic on the card
+  (clean under z = 5, the planted fault past it).
+
 It then times kernels and plain versions at the bench shape (400x225,
 4 spp, depth 16; K4 and the large-scene kernels at one pass of 90,000
 rays, the latter also at the bench shape alone) and the train steps, and
 works out each kernel's bound from the tests this run's rays need (counted
-in the plain versions) and the card's data-sheet rates. Any failed check
-raises and the script exits non-zero. Without a CUDA device it exits 1 and
-prints no result.
+in the plain versions), the FFMA rate it measured (one counted operation
+is one instruction under -fmad=false) and the data sheet's memory rate,
+and for the closest hits their mixed share (sphere tests a second over the
+measured mixed peak). Any failed check raises and the script exits
+non-zero. Without a CUDA device it exits 1 and prints no result.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is {"ok": true, "device": {...}}.
@@ -107,14 +125,39 @@ SEGMENT_KEYS = ("segment_brute", "segment_miss_brute", "segment_record_brute",
                 "segment_record_front")
 # K6: _segment_call's pallas_call, over the brute or the front body
 REPLACES.update({k: "raytracingproject_tpu/ops/pallas/megakernel.py:1818" for k in SEGMENT_KEYS})
+# K3's options (sub_block, word_earlyout): the forward body :869 with its
+# options (:464-527), K5's front core :1578 and K6's front segment :1737 with
+# word_earlyout; K1's planted fault inject_bug="schlick3" (:683-688) on the
+# brute body :832
+OPTION_KEYS = ("front_opts", "front_opts_miss", "record_front_opts", "segment_front_opts",
+               "segment_miss_front_opts", "segment_record_front_opts")
+REPLACES.update({"front_opts": REPLACES["front"], "front_opts_miss": REPLACES["front"],
+                 "record_front_opts": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
+                 "segment_front_opts": REPLACES["segment_front"],
+                 "segment_miss_front_opts": REPLACES["segment_front"],
+                 "segment_record_front_opts": REPLACES["segment_front"],
+                 "brute_schlick3": REPLACES["brute"]})
+# The probe kernels (csrc/probes.cu) and the pallas_call each replaces
+PROBE_SOURCE = "raytracingproject_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {"fma": "tools/roofline.py:92", "mixed": "tools/roofline.py:160",
+                  "kfront_front": "tools/kfront.py:191", "kfront_brute": "tools/kfront.py:210",
+                  **{f"kexp_{v}": "tools/kexp.py:106" for v in
+                     ("full", "full_u4", "full_u8", "slim", "slim_u4", "slim_u8")}}
 MODES = {0: "BRUTE", 1: "FRONT", 2: "CHUNKED", 3: "BVH", 4: "HBM"}
-# Registers of the nine trace_kernel instantiations that came before K6 and
-# record_miss, as -Xptxas -v reported them for the source without either
-# (the record front's 80 with a 60 B spill): (mode, record, record_miss,
-# segment) -> registers.
-OLD_REGISTERS = {(0, 0, 0, 0): 64, (1, 0, 0, 0): 64, (0, 1, 0, 0): 64, (1, 1, 0, 0): 80,
-                 (2, 0, 0, 0): 61, (2, 1, 0, 0): 63, (3, 0, 0, 0): 57, (3, 1, 0, 0): 59,
-                 (4, 0, 0, 0): 98}
+OPTS = {0: "", 1: ", SCHLICK3", 2: ", FRONT_OPTS"}
+# Registers of the 23 trace_kernel instantiations that came before the
+# OPT template argument (K3's options, SCHLICK3), as -Xptxas -v reported
+# them for the source without it: (mode, record, record_miss, segment, opt)
+# -> registers. The nine that came before K6 and record_miss had the same
+# counts before those were added (the record front's 80 with a 60 B spill).
+OLD_REGISTERS = {(0, 0, 0, 0, 0): 64, (1, 0, 0, 0, 0): 64, (0, 1, 0, 0, 0): 64,
+                 (1, 1, 0, 0, 0): 80, (2, 0, 0, 0, 0): 61, (2, 1, 0, 0, 0): 63,
+                 (3, 0, 0, 0, 0): 57, (3, 1, 0, 0, 0): 59, (4, 0, 0, 0, 0): 98,
+                 (0, 0, 0, 1, 0): 64, (0, 0, 1, 0, 0): 64, (0, 0, 1, 1, 0): 75,
+                 (0, 1, 0, 1, 0): 64, (1, 0, 0, 1, 0): 60, (1, 0, 1, 0, 0): 64,
+                 (1, 0, 1, 1, 0): 64, (1, 1, 0, 1, 0): 80, (2, 0, 0, 1, 0): 64,
+                 (2, 0, 1, 0, 0): 64, (2, 0, 1, 1, 0): 64, (2, 1, 0, 1, 0): 63,
+                 (3, 0, 1, 0, 0): 61, (4, 0, 1, 0, 0): 80}
 COVER_CAMERA = dict(aspect_ratio=16.0 / 9.0, image_width=400, vfov=20.0,
                     lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                     defocus_angle=0.6, focus_dist=10.0)
@@ -139,26 +182,20 @@ GRAD32_TOL = 1e-4
 # The card's data-sheet rates (NVIDIA H100 SXM at its full 700 W limit):
 # float32 outside the tensor cores, which counts a fused multiply-add as
 # two operations, and HBM3. The kernels are built without FMA contraction,
-# so each of their operations is one instruction and the issue rate alone
-# (half of PEAK_FP32 a second, at the 1.98 GHz the data sheet assumes)
-# keeps them at or above twice an operations bound.
+# so each of their operations is one instruction: bounds take as the
+# operations rate the larger of the FFMA instruction rate this run
+# measures (`RATE`, probes.roofline.fma_peak) and the data sheet's
+# PEAK_FP32 / 2 instructions, so that no bound sits below the card's rate.
 PEAK_FP32 = 67e12   # operations per second
 PEAK_BYTES = 3.35e12  # bytes per second
-# Floating-point operations of one test, counted line by line in the plain
-# versions (one per multiply, add, subtract, negate, compare, select, sqrt).
-# A ray against a sphere, `_sphere_t` and `_first_min`: the moving centre 6
-# (3 mul, 3 add), o - c 3, half_b 5 (3 mul, 2 add), c 7 (4 mul, 2 add,
-# 1 sub), disc 3, its test, guard and sqrt 3, the two roots 5 (1 neg, 2 add,
-# 2 mul), the interval tests and selects 5, the strict-< best 3 (compare,
-# select t, select idx): 40. A ray against a box, `subtree_slab_mask`: 6 an
-# axis (2 sub, 2 mul, min, max) = 18, the y axis folded in 2, the z axis
-# with its t_min clamp 3, the final compare 1: 24 (the reciprocals of the
-# direction are per ray, not per box). The rest of a bounce (hit geometry,
-# sky, the Philox draws' integer work, the scatter rules) is left out: the
-# bound counts the tests alone, which makes it lower, so a kernel's share
-# of it is if anything understated.
-OPS_PER_PAIR = 40
-OPS_PER_BOX = 24
+# This run's measured peaks: "ops", FFMA instructions a second; "pairs",
+# sphere tests a second of the brute closest hit (the mixed peak).
+RATE = {"ops": None, "pairs": None}
+# Floating-point operations a ray-sphere pair and a ray-box test are
+# charged: probes/roofline.py counts them in the plain versions, and main
+# sets these from it (one count for the script and the probes).
+OPS_PER_PAIR = None
+OPS_PER_BOX = None
 
 
 def check(cond: bool, what: str) -> None:
@@ -297,10 +334,17 @@ def replay_on_card(mk, scene, front, o, d, t) -> None:
         check(max(same.values()) <= 1e-5, f"{path}: kernel and twin forward gradients agree")
 
 
+def ops_rate() -> float:
+    """Instructions a second a bound charges: the measured FFMA rate or the
+    data sheet's (PEAK_FP32 / 2), whichever is larger."""
+    return max(RATE["ops"], PEAK_FP32 / 2)
+
+
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(milliseconds, what bounds it): the least time the card could take
-    for `ops` float32 operations on `nbytes` bytes moved once."""
-    t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    for `ops` float32 operations (one instruction each) at `ops_rate()`, on
+    `nbytes` bytes moved once."""
+    t_ops, t_bytes = 1e3 * ops / ops_rate(), 1e3 * nbytes / PEAK_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -394,13 +438,14 @@ def pass_rays(cam, gen):
     return step_rays(dataclasses.replace(cam, samples_per_pixel=1), gen, seed=False)
 
 
-def closest_hit_against_twin(trace, card: str) -> tuple[float, float, float, tuple[float, str]]:
+def closest_hit_against_twin(trace, card: str) -> tuple[float, float, float, tuple[float, str],
+                                                        int]:
     """K4 on the card: against its plain version on the cover scene's
     90,000 primary rays of one 400x225 pass, on the same rays after one
     scatter (incoherent) and on 65,536 random rays with random times over
     2,000 random spheres, most of them moving (two shared-memory chunks);
     then both timed at the main path's shape (CUDA events, warm). Returns
-    (max |t diff|, ms, plain ms, bound)."""
+    (max |t diff|, ms, plain ms, bound, pair tests)."""
     import torch
 
     from raytracingproject_tpu_torch.camera import Camera
@@ -451,12 +496,12 @@ def closest_hit_against_twin(trace, card: str) -> tuple[float, float, float, tup
     if per_pair is None:
         print("closest_hit SASS: instructions per pair not measured")
     else:
-        issue_ms = 1e3 * pairs * per_pair / (PEAK_FP32 / 2)
+        issue_ms = 1e3 * pairs * per_pair / ops_rate()
         print(f"closest_hit SASS: {per_pair:.1f} instructions per pair in the sphere loop; at "
-              f"one instruction per lane and cycle ({PEAK_FP32 / 2:.3g}/s, 132 SMs x 128 lanes "
-              f"at 1.98 GHz) they alone take {issue_ms:.4f} ms, {issue_ms / ms:.3f} of the "
-              "kernel's time")
-    return err, ms, plain_ms, (b_ms, b_by)
+              f"{ops_rate():.4g} instructions/s (measured FFMA {RATE['ops']:.4g}, data sheet "
+              f"{PEAK_FP32 / 2:.3g}) they alone take {issue_ms:.4f} ms, {issue_ms / ms:.3f} of "
+              "the kernel's time")
+    return err, ms, plain_ms, (b_ms, b_by), pairs
 
 
 @contextlib.contextmanager
@@ -1109,6 +1154,9 @@ def counting_hit(mk, scene, front, bvh, device, counts: dict):
                 n_grp = front.fi[0].long() // mk.UNROLL  # groups a subtree scans
         else:
             sub = front.column_subtree()
+            if front.bf is not None:  # K3's sub-block boxes (the forward kernel's option)
+                grp = torch.arange(front.sph.shape[1], device=device) // mk.UNROLL
+                n_grp = front.fi[1].long() // mk.UNROLL
         n_words = front.ff.shape[1] // mk.WORD
         n_super = -(-n_words // mk.WORD)
         word_of = torch.arange(front.ff.shape[1], device=device) // mk.WORD
@@ -1525,7 +1573,7 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
             "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[key], "launches": launches[key],
             "max_abs_err": max_err[key], "ms": ms[name], "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "pairs": counts["pairs"],
         })
     print(f"seconds per frame (K7, {N_LARGE} spheres, 400x225, 30 spp, depth 50) {frame_s:.4f} s; "
           f"through K8 {frame8_s:.4f} s; bench-shape frames " +
@@ -1535,13 +1583,13 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
 
 
 def ptxas_registers(log: str) -> dict:
-    """(mode, record, record_miss, segment) -> (registers, spill store
+    """(mode, record, record_miss, segment, opt) -> (registers, spill store
     bytes) of every `trace_kernel` instantiation in nvcc's -Xptxas -v
     output."""
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"trace_kernelILi(\d)ELb([01])ELb([01])ELb([01])E", line)
+            m = re.search(r"trace_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELi(\d)E", line)
             cur = tuple(int(x) for x in m.groups()) if m else None
         elif cur is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -1552,9 +1600,9 @@ def ptxas_registers(log: str) -> dict:
 
 
 def instantiation(key) -> str:
-    mode, record, miss, seg = key
+    mode, record, miss, seg, opt = key
     return (f"trace_kernel<{MODES[mode]}{', record' if record else ''}"
-            f"{', record_miss' if miss else ''}{', segment' if seg else ''}>")
+            f"{', record_miss' if miss else ''}{', segment' if seg else ''}{OPTS[opt]}>")
 
 
 def hold_state(what: str, k, p) -> float:
@@ -1814,6 +1862,7 @@ def depth_tail(mk, card: str) -> list[dict]:
     ms: dict[str, float] = {}
     plain_ms: dict[str, float] = {}
     bounds: dict[str, tuple[float, str]] = {}
+    pairs_of: dict[str, float] = {}
 
     def worst(key, err):
         max_err[key] = max(max_err.get(key, 0.0), err)
@@ -1845,6 +1894,7 @@ def depth_tail(mk, card: str) -> list[dict]:
             nbytes = 2 * (n1 * (8 * rows + 4) + tab_bytes) + (n1 * depth * 17 if record else 0)
             bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
                                 nbytes)
+            pairs_of[key] = counts["pairs"]
             print(f"{key}: kernel {k_ms[0]:.3f} + {k_ms[1]:.3f} ms (bounces [0, {cut}) of {n1} "
                   f"rays, then [{cut}, {depth}) packed), plain version {p_ms[0]:.1f} + "
                   f"{p_ms[1]:.1f} ms; these rays need {counts}; bound {bounds[key][0]:.4f} ms "
@@ -1936,6 +1986,7 @@ def depth_tail(mk, card: str) -> list[dict]:
         b_ms, b_by = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
                            n1 * 64 + tab_bytes)
         bounds[key] = (b_ms, b_by)
+        pairs_of[key] = counts["pairs"]
         print(f"{key}: kernel {ms[key]:.3f} ms, plain version {p_ms:.1f} ms ({n1} rays, depth "
               f"16, {sc.num_spheres} spheres); these rays need about "
               f"{({k: round(v) for k, v in counts.items()})}; bound {b_ms:.4f} ms by {b_by}, the "
@@ -2209,9 +2260,429 @@ def depth_tail(mk, card: str) -> list[dict]:
             "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[key], "launches": launches[key], "max_abs_err": max_err[key],
             "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
-            "bound_by": bounds[key][1], "library_ms": None,
+            "bound_by": bounds[key][1], "library_ms": None, "pairs": pairs_of[key],
         })
     return entries
+
+
+def ffma_loop(library: Path) -> tuple[int, int] | None:
+    """(FFMA, all instructions) in the loop of fma_kernel's iterations, read
+    from `cuobjdump -sass`: the backward-branch loop of the function whose
+    name holds fma_kernel with the most FFMA. None where cuobjdump is
+    missing or the loop is not found."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True).stdout
+    funcs = [f for f in out.split("Function : ")[1:] if "fma_kernel" in f.split("\n", 1)[0]]
+    if not funcs:
+        return None
+    code = [(int(m.group(1), 16), m.group(2)) for m in
+            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", funcs[0])]
+    best = None
+    for k, (addr, text) in enumerate(code):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m is None or int(m.group(1), 16) >= addr:
+            continue
+        body = [t for a, t in code[:k + 1] if a >= int(m.group(1), 16)]
+        n_ffma = sum(bool(re.search(r"\bFFMA\b", t)) for t in body)
+        if best is None or n_ffma > best[0]:
+            best = (n_ffma, len(body))
+    return best
+
+
+def probe_kernels(card: str) -> list[dict]:
+    """Phase 1b, the probes (csrc/probes.cu): each probe kernel against its
+    plain version at the shapes its measurement gives it (bit-equal), then
+    the probes' main path as `python -m raytracingproject_tpu_torch.probes.*`
+    drives it: the FFMA rate and the mixed peak (`roofline.measure`), kfront
+    and kexp on the cover scene and on make_random_scene(2000, seed=3) at
+    the 400x225 primary rays, with the probes' launches counted. Sets RATE
+    (every later bound reads it) and returns the probes' `kernels` entries."""
+    import torch
+
+    from raytracingproject_tpu_torch import probes
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.ops.cuda import build
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+    from raytracingproject_tpu_torch.probes import kexp, kfront, roofline
+
+    dev = torch.device("cuda")
+    loop = ffma_loop(build.library("probes"))
+    print("fma_kernel SASS: " + ("loop not found" if loop is None else
+                                 f"{loop[0]} FFMA of {loop[1]} instructions in its loop"))
+    check(loop is not None and loop[0] >= 0.95 * loop[1], "the FMA probe's loop is FFMA")
+    n = roofline.full_waves(dev)
+    x = torch.linspace(0.99, 1.01, n, device=dev)
+    tab = roofline.mixed_table(488).to(dev)
+    ox = torch.linspace(10.0, 14.0, n, device=dev)
+    err, plain_ms = {}, {}
+
+    def hold(key, kern, plain, what):
+        k, p = kern(), plain()
+        torch.cuda.synchronize()
+        fin = torch.isfinite(p)
+        e = (k[fin] - p[fin]).abs().max().item() if fin.any() else 0.0
+        print(f"{key} probe vs its plain version ({what}): bit-equal {torch.equal(k, p)}, "
+              f"max |diff| {e:.3e}")
+        check(torch.equal(k, p), f"{key} probe bit-equal to its plain version ({what})")
+        err[key] = max(err.get(key, 0.0), e)
+        if key not in plain_ms:
+            plain_ms[key] = cuda_ms(plain, 1)
+
+    hold("fma", lambda: roofline.fma_chains(x), lambda: roofline.fma_chains_plain(x),
+         f"{n} elements")
+    hold("mixed", lambda: roofline.mixed_hits(tab, ox),
+         lambda: roofline.mixed_hits_plain(tab, ox), f"{n} rays, {tab.shape[1]} spheres")
+    scenes = {"cover": kfront.probe_scene(None), "2000": kfront.probe_scene(2000)}
+    rays = kfront.primary_rays(dev)
+    for name, sc in scenes.items():
+        sph = mk.scene_table(sc).to(dev)
+        for v in kexp.VARIANTS:
+            hold(f"kexp_{v}", lambda: kexp.run(rays, sph, v),  # noqa: B023
+                 lambda: kexp.run_plain(rays, sph, v), f"{name}")  # noqa: B023
+        sphb = mk.scene_table(reorder_scene(sc, build_bvh(sc, leaf_size=8))).to(dev)
+        hold("kfront_brute", lambda: kfront.run_brute(rays, sphb),  # noqa: B023
+             lambda: kfront.run_brute_plain(rays, sphb), name)  # noqa: B023
+        for f in kfront.FRONTS:
+            tabs = [t_.to(dev) for t_ in kfront.pack_front_tables(sc, max_nodes=f)]
+            hold("kfront_front", lambda: kfront.run_front(rays, *tabs),  # noqa: B023
+                 lambda: kfront.run_front_plain(rays, *tabs), f"{name}, F={f}")  # noqa: B023
+
+    # ---- the probes' main path ----
+    probes.reset_launches()
+    peaks = roofline.measure(dev)
+    kf = {name: kfront.measure(sc, dev) for name, sc in scenes.items()}
+    kx = {name: kexp.measure(sc, dev) for name, sc in scenes.items()}
+    launches = dict(probes.LAUNCHES)
+    print(f"probes' main path (roofline, kfront and kexp measurements): launches {launches}")
+    for key in PROBE_REPLACES:
+        check(launches[key] > 0, f"the {key} probe ran on the probes' main path")
+    RATE["ops"], RATE["pairs"] = peaks["ffma_per_s"], peaks["mixed_pairs_per_s"]
+    print(json.dumps(peaks))
+    print(f"measured peaks on {card}: {peaks['ffma_per_s']:.5g} FFMA instructions/s "
+          f"= {peaks['fp32_flops_per_s'] / 1e12:.4g} TFLOP/s float32 (data sheet "
+          f"{PEAK_FP32 / 1e12:.4g} TFLOP/s); mixed {peaks['mixed_pairs_per_s']:.5g} sphere tests/s"
+          f" ({peaks['mixed_ops_over_ffma']:.3f} of the FFMA rate at {OPS_PER_PAIR} operations a "
+          "test); bounds below use the larger of the measured FFMA rate and the data sheet's "
+          f"{PEAK_FP32 / 2:.4g}")
+    for name, r in kf.items():
+        print(f"kfront on {name} ({r['spheres']} spheres, {r['rays']} primary rays): brute "
+              f"{r['brute_ms']:.4f} ms = {r['rays'] / r['brute_ms'] / 1e3:.2f} Mrays/s; "
+              + "; ".join(f"front F={f} ({v['columns']} columns) {v['ms']:.4f} ms = "
+                          f"{r['rays'] / v['ms'] / 1e3:.2f} Mrays/s, parity {v['parity']:.6f}, "
+                          f"{v['pairs'] / r['rays']:.1f} tests a ray"
+                          for f, v in r["front"].items()) + f"; on {card}")
+        check(all(v["parity"] == 1.0 for v in r["front"].values()),
+              f"kfront on {name}: the front probe finds the brute probe's t on every ray")
+    for name, r in kx.items():
+        print(f"kexp on {name} ({r['spheres']} spheres, {r['rays']} primary rays): "
+              + ", ".join(f"{v} {r[v]['ms']:.4f} ms" for v in kexp.VARIANTS) + f"; on {card}")
+        check(all(r[v]["max_abs"] == 0.0 for v in kexp.VARIANTS),
+              f"kexp on {name}: unrolling changes no value")
+
+    entries = []
+
+    def entry(key, ms, pairs, b):
+        entries.append({
+            "name": f"probe_{key}", "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": PROBE_REPLACES[key], "launches": launches[key], "max_abs_err": err[key],
+            "ms": ms, "plain_ms": plain_ms[key], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "pairs": pairs,
+        })
+
+    entry("fma", peaks["fma_ms"], None,
+          bound(n * roofline.FMAS_PER_ELEMENT, 8 * n))
+    n_pad = peaks["mixed_spheres"]
+    entry("mixed", peaks["mixed_ms"], n * n_pad,
+          bound(n * n_pad * OPS_PER_PAIR, 8 * n + 4 * tab.numel()))
+    # kfront and kexp from the 2,000-sphere scene: tens of waves of work,
+    # where the cover scene's 0.1-0.2 ms passes vary by half between calls
+    big = kf["2000"]
+    r, n_sph = big["rays"], scenes["2000"].num_spheres
+    entry("kfront_brute", big["brute_ms"], r * n_sph,
+          bound(r * n_sph * OPS_PER_PAIR, 32 * r + 64 * n_sph))
+    f24 = big["front"][kfront.FRONTS[0]]
+    entry("kfront_front", f24["ms"], f24["pairs"],
+          bound(f24["pairs"] * OPS_PER_PAIR + f24["boxes"] * OPS_PER_BOX,
+                32 * r + 64 * f24["columns"]))
+    for v in kexp.VARIANTS:
+        entry(f"kexp_{v}", kx["2000"][v]["ms"], r * n_sph,
+              bound(r * n_sph * OPS_PER_PAIR, 32 * r + 64 * n_sph))
+    return entries
+
+
+def front_options(mk, card: str) -> list[dict]:
+    """Phase 12g, K3's options: `front_tables(sub_block=, word_earlyout=)`
+    on the cover scene and on make_random_scene(2000, seed=3), with the
+    front `default_front_nodes` gives and a front of fewer, bigger subtrees
+    (24) for sub_block. Each option instantiation bit-equal to plain K3's on
+    the bench shape (forward, record_miss, K5) and on one pass cut at 4 then
+    12 bounces (K6's three tails), and held against its plain version; the
+    options' main path: `render_pass` with the options' front (plain, with
+    a sky texture, two-phase, both), `make_fast_train_step` with a
+    word_earlyout front (monolithic and two-phase), launches counted; times
+    against plain K3 and bounds. Returns the six `kernels` entries."""
+    import torch
+
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.grad import make_fast_train_step
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+    from raytracingproject_tpu_torch.render import _slot_rays, render_pass
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+
+    dev = torch.device("cuda")
+    bench_cam = Camera(**COVER_CAMERA, samples_per_pixel=4, max_depth=16)
+    w, h = bench_cam.image_size()
+    bench = _slot_rays(bench_cam.derive(torch.float32, dev), w, h, 4,
+                       torch.Generator(device=dev).manual_seed(1), None)
+    rays1 = _slot_rays(bench_cam.derive(torch.float32, dev), w, h, 1,
+                       torch.Generator(device=dev).manual_seed(31), None)
+    n_b, n1 = w * h * 4, rays1[0].shape[0]
+    cmp = tuple(x[:N_CMP].contiguous() for x in bench)
+    op = COVER_CAMERA["lookfrom"]
+    max_err, ms, plain_ms, bounds, pairs = {}, {}, {}, {}, {}
+    fronts_of = {}
+    for name, cpu in (("cover", make_cover_scene(0)), ("2000", make_random_scene(2000, seed=3))):
+        tree = build_bvh(cpu, leaf_size=8)
+        sc = reorder_scene(cpu, tree).to(dev)
+        ft = lambda **kw: mk.front_tables(sc, tree, order_point=op, repack=2, **kw)  # noqa: E731
+        fr = {"plain": ft(), "word_earlyout": ft(word_earlyout=True),
+              "sub_block": ft(sub_block=True), "both": ft(sub_block=True, word_earlyout=True),
+              "plain, 24 subtrees": ft(max_nodes=mk.WORD),
+              "sub_block, 24 subtrees": ft(max_nodes=mk.WORD, sub_block=True),
+              "both, 24 subtrees": ft(max_nodes=mk.WORD, sub_block=True, word_earlyout=True)}
+        fronts_of[name] = (sc, fr)
+        print(f"K3 options on {name} ({sc.num_spheres} spheres): default front "
+              f"{fr['plain'].ff.shape[1]} subtrees over {fr['plain'].sph.shape[1]} columns (ksub "
+              f"{fr['both'].ksub}), 24 subtrees (ksub {fr['both, 24 subtrees'].ksub})")
+
+        def worst(key, e):
+            max_err[key] = max(max_err.get(key, 0.0), e)
+
+        # forward and record_miss: bit-equal to plain K3 (bench shape), held against the twin
+        for kname, f in fr.items():
+            if "plain" in kname:
+                continue
+            base = fr["plain, 24 subtrees"] if "24" in kname else fr["plain"]
+            k = mk.trace_paths(*bench, sc, 99, 16, front=f)
+            check(torch.equal(k, mk.trace_paths(*bench, sc, 99, 16, front=base)),
+                  f"front_opts ({kname}, {name}): bit-equal to plain K3")
+            p = mk.trace_paths_twin(*cmp, sc, 99, 16, front=f)
+            e = (k[:N_CMP] - p).abs()
+            frac = (e <= 1e-3).all(dim=1).double().mean().item()
+            km = mk.trace_paths(*rays1, sc, 98, 16, front=f, record_miss=True)
+            bm = mk.trace_paths(*rays1, sc, 98, 16, front=base, record_miss=True)
+            check(all(torch.equal(a, b) for a, b in zip(km, bm)),
+                  f"front_opts_miss ({kname}, {name}): bit-equal to plain K3's")
+            pm = mk.trace_paths_twin(*rays1, sc, 98, 16, front=f, record_miss=True)
+            em = max((a - b).abs().max().item() for a, b in zip(km, pm))
+            print(f"  {kname}: forward == plain K3 True, vs its plain version ({N_CMP} rays, "
+                  f"depth 16) {frac:.6f} within 1e-3, bit-equal {torch.equal(k[:N_CMP], p)}; "
+                  f"record_miss == plain K3 True, vs its plain version max |diff| {em:.3e}")
+            check(frac >= 0.999 and e.mean().item() < 1e-5,
+                  f"front_opts ({kname}, {name}): >= 99.9% within 1e-3 of its plain version")
+            check(em <= 1e-3, f"front_opts_miss ({kname}, {name}): within 1e-3 of its plain "
+                  "version")
+            worst("front_opts", e.max().item())
+            worst("front_opts_miss", em)
+        # K5 with word_earlyout: bit-equal to plain K5 front, held against its plain version
+        we = fr["word_earlyout"]
+        ra, pa = mk.trace_record(*bench, sc, 99, 16, front=fr["plain"])
+        rb, pb = mk.trace_record(*bench, sc, 99, 16, front=we)
+        check(torch.equal(ra, rb) and all(torch.equal(getattr(pa, x), getattr(pb, x))
+                                          for x in ("idx", "ndir", "refl")),
+              f"record_front_opts ({name}): bit-equal to plain K5 front")
+        worst("record_front_opts", hold_record(mk, f"word_earlyout, {name}", *cmp, sc, we, 99,
+                                               16, False))
+        # K6's three tails with word_earlyout
+        for kind in ("", "miss_", "record_"):
+            key = f"segment_{kind}front_opts"
+            miss, rec = kind == "miss_", kind == "record_"
+            state, slot = dt.initial_state(*rays1, miss)
+            for b0, nb in ((0, 4), (4, 12)):
+                a = mk.segment_call(state, slot, sc, 41, b0, nb, front=fr["plain"],
+                                    record_miss=miss, record=rec)
+                b = mk.segment_call(state, slot, sc, 41, b0, nb, front=we, record_miss=miss,
+                                    record=rec)
+                same = (torch.equal(a[0], b[0]) and all(torch.equal(x, y)
+                                                        for x, y in zip(a[1], b[1]))
+                        if rec else torch.equal(a, b))
+                check(same, f"{key} ({name}, bounces [{b0}, {b0 + nb})): bit-equal to plain K6")
+                state = b[0] if rec else b
+                src, _, _ = dt.alive_first_perm(state[mk.ST_ALIVE])
+                state, slot = dt.take_ray_rows(state, src, dim=1), dt.take_ray_rows(slot, src)
+            err, k_ms, p_ms = hold_segments(mk, dt, f"{key} ({name})", rays1, sc, we, 41, 4, 16,
+                                            miss, rec, timed=True)
+            worst(key, err)
+            if name == "cover":
+                ms[key], plain_ms[key] = sum(k_ms), sum(p_ms)
+                counts = segment_counts(mk, dt, rays1, sc, we, 41, 4, 16)
+                pairs[key] = counts["pairs"]
+                rows = mk.STATE_ROWS + (mk.MISS_ROWS if miss else 0)
+                tab_bytes = 4 * (we.sph.numel() + we.ff.numel())
+                nbytes = 2 * (n1 * (8 * rows + 4) + tab_bytes) + (n1 * 16 * 17 if rec else 0)
+                bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR
+                                    + counts["boxes"] * OPS_PER_BOX, nbytes)
+
+    # ---- the options' main path: render_pass and make_fast_train_step with the options ----
+    sc, fr = fronts_of["cover"]
+    train_cam = Camera(**COVER_CAMERA, samples_per_pixel=2, max_depth=50)
+    sky = torch.rand((256, 512, 3), generator=torch.Generator(device=dev).manual_seed(8),
+                     device=dev)
+    target = torch.full((h, w, 3), 0.5, device=dev)
+    mk.reset_launches()
+    derived = bench_cam.derive(torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for kw in ({}, dict(sky_tex=sky), dict(two_phase=4), dict(two_phase=4, sky_tex=sky)):
+        img = render_pass(sc, derived, gen, width=w, height=h, max_depth=16, spp_chunk=4,
+                          front=fr["both"], **kw)
+        check(torch.isfinite(img).all().item(), f"render_pass with the options' front {kw}: "
+              "finite")
+    for tp in (None, 4):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        params, opt, step = make_fast_train_step(sc, train_cam, spp=2, front=fr["word_earlyout"],
+                                                 trainable=("albedo",), two_phase=tp,
+                                                 generator=gen)
+        params, opt, loss, _ = step(params, opt, None, target)
+        check(torch.isfinite(loss).item(), f"train step with a word_earlyout front "
+              f"(two_phase={tp}): finite loss")
+    torch.cuda.synchronize()
+    launches = {k: mk.LAUNCHES[k] for k in OPTION_KEYS}
+    print(f"the options' main path (render_pass with sub_block + word_earlyout: plain, sky "
+          f"texture, two-phase, both; make_fast_train_step with word_earlyout, monolithic and "
+          f"two-phase): launches {launches}")
+    for key in OPTION_KEYS:
+        check(launches[key] > 0, f"{key} ran on the options' main path")
+
+    # ---- times: the bench shape (forward, K5), one pass (record_miss); against plain K3 ----
+    for name, (sc, fr) in fronts_of.items():
+        line = []
+        for kname, f in fr.items():
+            t_ms = cuda_ms(lambda: mk.trace_paths(*bench, sc, 99, 16, front=f), 10)  # noqa: B023
+            line.append(f"{kname} {t_ms:.4f} ms")
+        print(f"K3 forward at the bench shape ({n_b} rays, depth 16) on {name}: "
+              + ", ".join(line) + f"; on {card}")
+    sc, fr = fronts_of["cover"]
+    timed = {"front_opts": (fr["both"], False, bench, {}),
+             "front_opts_miss": (fr["both"], False, rays1, dict(record_miss=True)),
+             "record_front_opts": (fr["word_earlyout"], True, bench, {})}
+    for key, (f, rec, rays, kw) in timed.items():
+        fn, tw = (mk.trace_record, mk.trace_record_twin) if rec else (mk.trace_paths,
+                                                                      mk.trace_paths_twin)
+        ms[key] = cuda_ms(lambda: fn(*rays, sc, 99, 16, front=f, **kw), 10)  # noqa: B023
+        plain_ms[key] = cuda_ms(lambda: tw(*rays, sc, 99, 16, front=f, **kw), 1)  # noqa: B023
+        ms[key.replace("_opts", "")] = cuda_ms(
+            lambda: fn(*rays, sc, 99, 16, front=fr["plain"], **kw), 10)  # noqa: B023
+        counts = count_tests(mk, *rays, sc, f, 99, 16)
+        pairs[key] = counts["pairs"]
+        n = rays[0].shape[0]
+        tab_bytes = 4 * (f.sph.numel() + f.ff.numel() + (0 if f.bf is None else f.bf.numel()))
+        if kw:
+            bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
+                                n * 64 + tab_bytes)
+        else:
+            bounds[key] = megakernel_bound(counts, n, 16, tab_bytes, rec)
+        print(f"{key}: kernel {ms[key]:.4f} ms (plain K3's instantiation "
+              f"{ms[key.replace('_opts', '')]:.4f} ms), plain version {plain_ms[key]:.1f} ms "
+              f"({n} rays, depth 16, cover); these rays need {counts}; bound "
+              f"{bounds[key][0]:.4f} ms by {bounds[key][1]}, the kernel reaches "
+              f"{bounds[key][0] / ms[key]:.3f} of it; on {card}")
+    for key in ("segment_front_opts", "segment_miss_front_opts", "segment_record_front_opts"):
+        print(f"{key}: kernel {ms[key]:.4f} ms ({n1} rays cut at 4, then 12 bounces packed, "
+              f"cover), plain version {plain_ms[key]:.1f} ms; bound {bounds[key][0]:.4f} ms by "
+              f"{bounds[key][1]}, the kernel reaches {bounds[key][0] / ms[key]:.3f} of it")
+    return [{
+        "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[key], "launches": launches[key], "max_abs_err": max_err[key],
+        "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+        "bound_by": bounds[key][1], "library_ms": None, "pairs": pairs[key],
+    } for key in OPTION_KEYS]
+
+
+def region_stats(scene, rays, radiance) -> dict:
+    """{primary-hit sphere (-1: sky): (samples, mean rgb, std rgb)} of
+    per-sample radiance (tests/test_tpu_lane.py's _region_stats)."""
+    import numpy as np
+    import torch
+
+    from raytracingproject_tpu_torch.ops.intersect import closest_hit
+
+    o, d, t = rays
+    rec = closest_hit(o, d, t, scene.center0, scene.center_delta, scene.radius)
+    region = torch.where(rec.hit, rec.idx, -1).cpu().numpy()
+    rad = radiance.double().cpu().numpy()
+    return {int(r): (int((region == r).sum()), rad[region == r].mean(axis=0),
+                     rad[region == r].std(axis=0)) for r in np.unique(region)}
+
+
+def region_statistic(mk, card: str) -> dict:
+    """Phase 12h, K1's planted fault on `<BRUTE, SCHLICK3>`: the kernel
+    against its plain version, then the per-material-region statistic of
+    tests/test_tpu_lane.py:180-254 on the card (the three-sphere scene,
+    160x90, depth 16, at 256 spp: tests/test_torch_region.py's SPP_CARD;
+    the brute kernel against the oracle `ray_color`): clean, every region
+    of > 1,000 samples under z = 5; with inject_bug="schlick3", the
+    dielectric (region 2) past z = 5. The statistic's run is this kernel's
+    main path. Returns its `kernels` entry."""
+    import numpy as np
+    import torch
+
+    from raytracingproject_tpu_torch.camera import Camera, generate_rays
+    from raytracingproject_tpu_torch.render import ray_color
+    from raytracingproject_tpu_torch.scene import make_three_sphere_scene
+
+    dev = torch.device("cuda")
+    scene = make_three_sphere_scene(device=dev)
+    spp = 256
+    cam = Camera(aspect_ratio=16 / 9, image_width=160, samples_per_pixel=spp, max_depth=16,
+                 vfov=90.0, lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0))
+    w, h = cam.image_size()
+    pix = torch.arange(w * h, device=dev).repeat(spp)
+    rays = generate_rays(cam.derive(torch.float32, dev), (pix % w).to(torch.int32),
+                         (pix // w).to(torch.int32), torch.Generator(device=dev).manual_seed(3))
+    k = mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3")
+    p = mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3")
+    torch.cuda.synchronize()
+    err = (k - p).abs().max().item()
+    print(f"brute_schlick3 vs its plain version ({pix.shape[0]} rays, depth 16, philox): "
+          f"bit-equal {torch.equal(k, p)}, max |diff| {err:.3e}")
+    check(torch.equal(k, p), "brute_schlick3: bit-equal to its plain version")
+    plain_ms = cuda_ms(lambda: mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3"),
+                       1)
+    oracle = ray_color(scene, *rays, torch.Generator(device=dev).manual_seed(9), 16,
+                       early_exit=True)
+    so = region_stats(scene, rays, oracle)
+    mk.reset_launches()
+    z = {}
+    for bug in (None, "schlick3"):
+        rad = mk.trace_paths(*rays, scene, 21, 16, inject_bug=bug)
+        sk = region_stats(scene, rays, rad)
+        z[bug] = {r: np.abs(sk[r][1] - so[r][1]) / (np.sqrt((sk[r][2] ** 2 + so[r][2] ** 2)
+                                                            / sk[r][0]) + 1e-6) for r in sk}
+        print(f"region statistic ({'inject_bug=' + bug if bug else 'clean'}, {pix.shape[0]} "
+              f"samples): " + ", ".join(f"region {r} ({sk[r][0]} samples) z max "
+                                        f"{z[bug][r].max():.2f}" for r in sorted(sk)))
+    launches = mk.LAUNCHES["brute_schlick3"]
+    check(launches > 0, "the region statistic ran brute_schlick3")
+    for r, zr in z[None].items():
+        if so[r][0] > 1000:
+            check(zr.max() < 5.0, f"clean region {r}: z {zr.max():.2f} < 5")
+    zd = z["schlick3"][2].max()
+    check(zd > 5.0, f"schlick3 caught: dielectric z {zd:.2f} > 5")
+    ms = cuda_ms(lambda: mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3"), 5)
+    counts = count_tests(mk, *rays, scene, None, 21, 16)
+    b = megakernel_bound(counts, pix.shape[0], 16, 4 * mk.N_ROWS * scene.num_spheres, False)
+    print(f"brute_schlick3: kernel {ms:.4f} ms ({pix.shape[0]} rays, depth 16, 4 spheres), plain "
+          f"version {plain_ms:.1f} ms; bound {b[0]:.4f} ms by {b[1]}, reaches {b[0] / ms:.3f} of "
+          f"it; on {card}")
+    return {"name": "megakernel_brute_schlick3", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES["brute_schlick3"], "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "pairs": counts["pairs"]}
 
 
 def main() -> int:
@@ -2233,15 +2704,14 @@ def main() -> int:
     from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
     from raytracingproject_tpu_torch.ops.cuda import trace
     from raytracingproject_tpu_torch.ops.rng import bounce_bits
+    from raytracingproject_tpu_torch.probes.roofline import card_line
     from raytracingproject_tpu_torch.render import (
         _slot_rays, prepare_scene, render, render_image,
     )
     from raytracingproject_tpu_torch.scene import make_cover_scene
     from raytracingproject_tpu_torch.utils.ppm import read_ppm
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)  # name, power limit: nvidia-smi's own line
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2262,10 +2732,17 @@ def main() -> int:
     regs = ptxas_registers(str(build.BUILD_INFO["log"]))
     for key in sorted(regs):
         print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill stores"
-              + (f" (before K6: {OLD_REGISTERS[key]})" if key in OLD_REGISTERS else ""))
-    check(len(regs) == 23, f"23 instantiations of trace_kernel (got {len(regs)})")
+              + (f" (before the options: {OLD_REGISTERS[key]})" if key in OLD_REGISTERS else ""))
+    check(len(regs) == 30, f"30 instantiations of trace_kernel (got {len(regs)})")
     for key, n in OLD_REGISTERS.items():
         check(regs.get(key, (None,))[0] == n, f"{instantiation(key)} keeps its {n} registers")
+
+    # ---- 1b. the probes: the card's measured peaks, which every bound below reads ----
+    global OPS_PER_PAIR, OPS_PER_BOX
+    from raytracingproject_tpu_torch.probes import roofline
+
+    OPS_PER_PAIR, OPS_PER_BOX = roofline.OPS_PER_PAIR, roofline.OPS_PER_BOX
+    probe_entries = probe_kernels(card)
 
     # ---- 2. the generator: kernel against ops/rng.py, bit for bit ----
     ray = torch.arange(N_CMP, dtype=torch.int64, device=dev)
@@ -2384,6 +2861,7 @@ def main() -> int:
             "replaces": REPLACES[path], "launches": launches[path],
             "max_abs_err": max_err[path], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "pairs": counts[path]["pairs"],
         })
 
     # ---- 8. K5 (brute and front) against its plain version ----
@@ -2418,6 +2896,7 @@ def main() -> int:
             "replaces": REPLACES[key], "launches": train_launches[key],
             "max_abs_err": max(rec_err[path], train_err[path]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "pairs": counts[path]["pairs"],
         })
 
     # ---- 12e. large scenes: chunked brute, K8, K5 bvh and K7 on up to 50,000 spheres ----
@@ -2426,8 +2905,15 @@ def main() -> int:
     # ---- 12f. the depth tail: K6 (two-phase, segmented) and K1's record_miss ----
     kernels.extend(depth_tail(mk, card))
 
+    # ---- 12g. K3's options (sub_block, word_earlyout) ----
+    kernels.extend(front_options(mk, card))
+
+    # ---- 12h. K1's planted fault (schlick3) and the per-material-region statistic ----
+    kernels.append(region_statistic(mk, card))
+
     # ---- 13. K4 against its plain version, and its time at the main path's shape ----
-    k4_err, k4_ms, k4_plain_ms, (k4_bound_ms, k4_bound_by) = closest_hit_against_twin(trace, card)
+    k4_err, k4_ms, k4_plain_ms, (k4_bound_ms, k4_bound_by), k4_pairs = closest_hit_against_twin(
+        trace, card)
 
     # ---- 14. the oracle's main path (render_image, render with K4), K4 end to end, the BVH walk
     k4_launches = oracle_frame(trace, card, m_k)
@@ -2435,7 +2921,7 @@ def main() -> int:
         "name": "closest_hit", "route": "cuda", "source": K4_SOURCE,
         "replaces": REPLACES["closest_hit"], "launches": k4_launches, "max_abs_err": k4_err,
         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
-        "bound_by": k4_bound_by, "library_ms": None,
+        "bound_by": k4_bound_by, "library_ms": None, "pairs": k4_pairs,
     })
 
     oracle_profile(trace, card)
@@ -2448,6 +2934,19 @@ def main() -> int:
 
     # ---- 17. the oracle's gradients against the replay of its own record ----
     oracle_against_replay(card)
+    kernels.extend(probe_entries)
+    print(f"bounds at {ops_rate():.5g} instructions/s, the larger of the measured "
+          f"{RATE['ops']:.5g} FFMA instructions/s and the data sheet's {PEAK_FP32 / 2:.4g} (its "
+          f"{PEAK_FP32:.3g} operations/s count an FMA as two); mixed share: the closest hit's "
+          f"sphere tests a second over the measured mixed peak, {RATE['pairs']:.5g}/s (the "
+          f"mixed probe defines it, so it has none); on {card}")
+    for k in kernels:
+        pairs = k.pop("pairs", None)
+        mixed = (f", mixed share {pairs / k['ms'] * 1e3 / RATE['pairs']:.4f}"
+                 if pairs and k["name"] != "probe_mixed" else "")
+        print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']}, share {k['bound_ms'] / k['ms']:.4f}{mixed}; launches "
+              f"{k['launches']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

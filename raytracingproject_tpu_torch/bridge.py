@@ -46,13 +46,16 @@ def bvh_from_arrays(node_min, node_max, miss_link, leaf_start, leaf_count,
     )
 
 
-def front_from_arrays(sph, ff, fi, wf, sf, remap, repack: int, device="cpu") -> FrontTables:
-    """FrontTables from the arrays of a JAX FrontTables and its `repack`."""
+def front_from_arrays(sph, ff, fi, wf, sf, remap, repack: int, device="cpu", bf=None,
+                      ksub: int = 0, word_earlyout: bool = False) -> FrontTables:
+    """FrontTables from the arrays of a JAX FrontTables and its `repack`,
+    `bf`, `ksub` and `word_earlyout`."""
     f, i = torch.float32, torch.int32
     return FrontTables(
         sph=_t(sph, f, device), ff=_t(ff, f, device), fi=_t(fi, i, device),
         wf=_t(wf, f, device), sf=_t(sf, f, device), remap=_t(remap, i, device),
-        repack=int(repack),
+        repack=int(repack), bf=None if bf is None else _t(bf, f, device), ksub=int(ksub),
+        word_earlyout=bool(word_earlyout),
     )
 
 

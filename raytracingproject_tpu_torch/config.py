@@ -3,7 +3,9 @@
 `RenderSettings` keeps the JAX package's fields and defaults, with three
 exceptions:
 
-- `dtype` is a torch dtype;
+- `dtype` is a torch dtype: the oracle loop's working type (camera rays,
+  bounce loop, accumulator); the megakernel computes and returns float32
+  whatever it says, as the JAX package's megakernel does;
 - `device` is added: the device the render runs on;
 - `use_megakernel` and `use_bvh` default to True: the port renders on the
   megakernel (K1 with the brute K2 or the front-culled K3 closest hit)
@@ -52,6 +54,8 @@ class RenderSettings:
     height: int = 768
     sphere_count: int = 20
 
+    # The oracle loop's working type (use_megakernel=False): its camera
+    # rays, bounces and accumulator. The megakernel ignores it: float32.
     dtype: torch.dtype = torch.float32
     # Device of the render: "cuda" runs the hand-written kernels and raises
     # when there is no card; "cpu" runs their plain PyTorch versions. None

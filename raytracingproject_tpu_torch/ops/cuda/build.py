@@ -42,7 +42,8 @@ _F = ctypes.c_float
 _ERROR_STRING = ([_I], ctypes.c_char_p)
 _RES = [_P] * 5  # residual planes idx, ndx, ndy, ndz, refl
 _MISS = [_P, _P]  # record_miss planes mdir, mthr (or nulls)
-_FRONT = [_P, _I, _P, _P, _I, _P, _I, _P, _I, _I]  # sph, n_cols, ff, fi, n_front, wf, .., repack
+# sph, n_cols, ff, fi, n_front, wf, .., repack, then K3's options bf, n_bf, ksub, word_earlyout
+_FRONT = [_P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I]
 _SEG = [_U, _I, _I, _F, _I, _I, *_RES, _P]  # seed, bounce0, depth, t_min, zero, miss, res, stream
 # library name (csrc/<name>.cu -> build/lib<name>.so) -> its C entry points
 LIBRARIES = {
@@ -50,6 +51,7 @@ LIBRARIES = {
         "rtp_rays_per_block": ([], _I),
         "rtp_error_string": _ERROR_STRING,
         "rtp_trace_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_MISS, _P], _I),
+        "rtp_trace_brute_schlick3": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
         "rtp_trace_front": ([_P, _P, _P, _P, _I, *_FRONT, _U, _I, _F, _I, *_MISS, _P], _I),
         "rtp_record_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I),
         "rtp_record_front": ([_P, _P, _P, _P, _I, *_FRONT, _U, _I, _F, _I, *_RES, _P], _I),
@@ -75,6 +77,14 @@ LIBRARIES = {
     "closest_hit": {
         "rtp_error_string": _ERROR_STRING,
         "rtp_closest_hit": ([_P, _P, _P, _P, _I, _I, _F, _P, _P, _P], _I),
+    },
+    "probes": {
+        "rtp_error_string": _ERROR_STRING,
+        "rtp_probe_fma": ([_P, _P, _I, _P], _I),
+        # variant, unroll, out, sph, n, 7 ray planes, out, n_rays, stream
+        "rtp_probe_hit": ([_I, _I, _I, _P, _I, *[_P] * 7, _P, _I, _P], _I),
+        # sph, n_cols, ff, fi, n_front, 7 ray planes, out, n_rays, stream
+        "rtp_probe_front": ([_P, _I, _P, _P, _I, *[_P] * 7, _P, _I, _P], _I),
     },
 }
 
@@ -134,11 +144,12 @@ def build(names=None) -> None:
 
 def load_library(name: str = "megakernel") -> ctypes.CDLL:
     """The library of csrc/<name>.cu, built first if it is missing or older
-    than its source."""
+    than its source or a shared header (csrc/*.cuh)."""
     if name in _libs:
         return _libs[name]
     so, src = library(name), source(name)
-    if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [src, *src.parent.glob("*.cuh")])
+    if not so.exists() or so.stat().st_mtime < newest:
         build([name])
     lib = ctypes.CDLL(str(so))
     for fn_name, (args, res) in LIBRARIES[name].items():

@@ -73,12 +73,21 @@ ST_MDIR, ST_MTHR = slice(14, 17), slice(17, 20)
 # Kernel launches per entry point, counted by the wrapper after each
 # successful launch (and nowhere else). `*_miss` are the record_miss
 # versions; `segment_*` are K6 (plain, record_miss, recording).
+# `*_opts` are K3 with its options (sub_block, word_earlyout);
+# `brute_schlick3` is the brute kernel with the planted Schlick fault.
 LAUNCHES = {"brute": 0, "front": 0, "record_brute": 0, "record_front": 0,
             "brute_chunked": 0, "record_brute_chunked": 0, "bvh": 0, "record_bvh": 0,
             "front_hbm": 0, "brute_miss": 0, "front_miss": 0, "brute_chunked_miss": 0,
-            "bvh_miss": 0, "front_hbm_miss": 0}
-LAUNCHES.update({f"segment_{kind}{scan}": 0 for scan in ("brute", "brute_chunked", "front")
+            "bvh_miss": 0, "front_hbm_miss": 0, "front_opts": 0, "front_opts_miss": 0,
+            "record_front_opts": 0, "brute_schlick3": 0}
+LAUNCHES.update({f"segment_{kind}{scan}": 0 for scan in ("brute", "brute_chunked", "front",
+                                                          "front_opts")
                  for kind in ("", "miss_", "record_")})
+
+# The planted physics faults `trace_paths(inject_bug=)` takes (megakernel.py
+# of the JAX package, :683-688): "schlick3", Schlick's reflectance with the
+# exponent 3 instead of 5, which the per-material-region statistic must catch.
+INJECT_BUGS = ("schlick3",)
 
 
 def reset_launches() -> None:
@@ -103,7 +112,16 @@ def scene_table(scene: Scene, dtype=torch.float32) -> torch.Tensor:
 @dataclasses.dataclass
 class FrontTables:
     """Tables of the front-culled closest hit (K3), built by `front_tables`.
-    Same arrays and layout as the JAX package's FrontTables."""
+    Same arrays, options and layout as the JAX package's FrontTables.
+
+    Options (both only cull, so the closest hit is the same): `bf` and
+    `ksub` (sub-block descent: inside a live subtree, the boxes of its
+    8-column groups, column j of `bf` bounding padded columns [8j, 8j + 8);
+    ksub is the biggest subtree's group count, 0 without) and
+    `word_earlyout` (a live word's union box re-tested against the best t
+    before its subtrees). The forward kernel takes both; the recording (K5)
+    and segment (K6) kernels take `word_earlyout` and scan without the
+    sub-block boxes, as the JAX package's do."""
 
     sph: torch.Tensor    # (16, Np) front-padded sphere table
     ff: torch.Tensor     # (8, F) f32 subtree boxes (min xyz, max xyz, 0, 0)
@@ -112,6 +130,9 @@ class FrontTables:
     sf: torch.Tensor     # (8, S) f32 super-word union boxes
     remap: torch.Tensor  # (Np,) i32 padded column -> leaf-order sphere
     repack: int = 1
+    bf: torch.Tensor | None = None   # (8, Np // 8 + ksub) f32 boxes of 8-column groups
+    ksub: int = 0
+    word_earlyout: bool = False
 
     def to(self, device) -> "FrontTables":
         t = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
@@ -180,14 +201,15 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     ValueError) when the tables exceed `smem_budget` bytes, the kernel's shared memory; None
     skips the check (the plain version has no such limit). A front of more
     than 576 subtrees (super-words) pads to over 4608 columns, past the
-    budget, so the kernel meets one only with the global-memory front (K7)."""
+    budget, so the kernel meets one only with the global-memory front (K7).
+
+    `sub_block` adds the boxes of every 8 padded columns (`bf`, with ksub
+    degenerate 1e30 columns at its end as the JAX package pads them; the
+    kernel stages them in shared memory too); it pairs with fewer, bigger
+    subtrees (a small `max_nodes`). `word_earlyout` re-tests a live word's
+    union box against the best t. See FrontTables."""
     from raytracingproject_tpu_torch.bvh import bvh_front
 
-    if sub_block or word_earlyout:
-        raise NotImplementedError(
-            "sub_block and word_earlyout of the shared-memory front are not ported yet "
-            "(ROADMAP Queue 2, K3 options: sub_block, word_earlyout; front_tables_hbm has "
-            "both)")
     if repack is None:
         repack = DEFAULT_REPACK
     if repack <= 0 or WORD % repack:
@@ -225,7 +247,23 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     ff[3:6] = fr.fmax.T
     fi = np.stack([new_start, new_count]).astype(np.int32)
     wf, sf = _union_boxes(fr.fmin, fr.fmax, fr.count > 0)
-    smem_bytes = 4 * (sph_pad.size + ff.size + fi.size + wf.size + sf.size)
+    bf, ksub = None, 0
+    if sub_block:
+        c0 = sph_pad[0:3]
+        c1 = c0 + sph_pad[3:6]
+        rad = np.abs(sph_pad[6])
+        nblk = sph_pad.shape[1] // UNROLL
+        ksub = int(new_count.max() // UNROLL)
+        if ksub > 31:
+            raise ValueError(f"a subtree of {ksub * UNROLL} spheres: sub_block packs at most 31 "
+                             "groups of 8 (build the front with more, smaller subtrees)")
+        bf = np.zeros((8, nblk + ksub), np.float32)
+        bf[0:6] = 1e30
+        bf[0:3, :nblk] = (np.minimum(c0, c1) - rad).reshape(3, nblk, UNROLL).min(axis=2)
+        bf[3:6, :nblk] = (np.maximum(c0, c1) + rad).reshape(3, nblk, UNROLL).max(axis=2)
+        bf[6:8, :nblk] = 0.0
+    smem_bytes = 4 * (sph_pad.size + ff.size + fi.size + wf.size + sf.size
+                      + (0 if bf is None else bf.size))
     if smem_budget is not None and smem_bytes > smem_budget:
         raise FrontOverBudget(
             f"front tables need {smem_bytes} B of shared memory (> {smem_budget} "
@@ -235,7 +273,8 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     return FrontTables(
         sph=t(sph_pad).to(device), ff=t(ff).to(device), fi=t(fi).to(device),
         wf=t(wf).to(device), sf=t(sf).to(device), remap=t(remap).to(device),
-        repack=repack,
+        repack=repack, bf=None if bf is None else t(bf).to(device), ksub=ksub,
+        word_earlyout=bool(word_earlyout),
     )
 
 
@@ -462,8 +501,14 @@ def closest_hit_front_twin(front: FrontTables, col_subtree: torch.Tensor,
     """K3's plain version: spheres of subtrees the ray's slab test misses
     are masked out, then the first minimum over the padded table. Equals
     K3 up to last-ulp ties (culled subtrees cannot hold a strictly closer
-    hit; K3's extra best-t clamp only drops farther ones)."""
+    hit; K3's extra best-t clamp only drops farther ones). With sub-block
+    boxes (`front.bf`), columns of 8-column groups the ray misses are masked
+    out too; `word_earlyout` is a best-t test, which drops only farther
+    hits, so like the clamp it has no counterpart here."""
     live = subtree_slab_mask(front.ff, ox, oy, oz, dx, dy, dz, t_min)[:, col_subtree]
+    if front.bf is not None:
+        group = torch.arange(front.sph.shape[1], device=ox.device) // UNROLL
+        live &= subtree_slab_mask(front.bf, ox, oy, oz, dx, dy, dz, t_min)[:, group]
     t = _sphere_t(front.sph, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
     return _first_min(torch.where(live, t, math.inf))
 
@@ -548,12 +593,13 @@ def closest_hit_bvh_twin(tab: torch.Tensor, bvh, ox, oy, oz, dx, dy, dz, tm, a, 
 
 
 def _bounce_core(state, ray, bounce0: int, depth: int, tab, closest_hit, seed: int,
-                 t_min: float, zero_draws: bool, record: bool, record_miss: bool):
+                 t_min: float, zero_draws: bool, record: bool, record_miss: bool,
+                 inject_bug: str | None = None):
     """`depth` bounces of K1's loop from the carried `state` (the STATE_ROWS
     planes as a list of [R] tensors, alive as bool, and with `record_miss`
     the MISS_ROWS miss planes), the uniforms of bounce k keyed by (seed,
-    `ray`, bounce0 + k). Returns (state after the bounces, residual planes
-    or None)."""
+    `ray`, bounce0 + k). `inject_bug` plants a fault (INJECT_BUGS). Returns
+    (state after the bounces, residual planes or None)."""
     (ox, oy, oz, dx, dy, dz, tm, thr_r, thr_g, thr_b, rad_r, rad_g, rad_b,
      alive) = state[:STATE_ROWS]
     miss = list(state[STATE_ROWS:STATE_ROWS + MISS_ROWS]) if record_miss else []
@@ -629,7 +675,10 @@ def _bounce_core(state, ray, bounce0: int, depth: int, tab, closest_hit, seed: i
         r0s = (1.0 - ratio) / (1.0 + ratio)
         r0s = r0s * r0s
         one_m = 1.0 - cos_t
-        schlick = r0s + (1.0 - r0s) * one_m * one_m * one_m * one_m * one_m
+        if inject_bug == "schlick3":  # the planted fault: exponent 3
+            schlick = r0s + (1.0 - r0s) * one_m * one_m * one_m
+        else:
+            schlick = r0s + (1.0 - r0s) * one_m * one_m * one_m * one_m * one_m
         do_refl = cannot | (schlick > u4)
         perp_x = ratio * (udx + cos_t * nx)
         perp_y = ratio * (udy + cos_t * ny)
@@ -670,7 +719,8 @@ def _bounce_core(state, ray, bounce0: int, depth: int, tab, closest_hit, seed: i
 
 def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_depth: int,
                      ray0: int = 0, t_min: float = T_MIN, zero_draws: bool = False,
-                     record: bool = False, record_miss: bool = False):
+                     record: bool = False, record_miss: bool = False,
+                     inject_bug: str | None = None):
     """K1's plain version: the per-ray bounce loop of the JAX package's
     _bounce_loop, operation for operation. `tab` is the (16, C) table the
     winner columns index; `ray0` is the global slot of the first ray (the
@@ -687,7 +737,8 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
     ray never missed.
 
     Values are float32 as in the kernel; float64 rays and table give the
-    same loop in float64 (tests take finite differences through it)."""
+    same loop in float64 (tests take finite differences through it).
+    `inject_bug` plants a physics fault (INJECT_BUGS), for tests."""
     dev, dt = origin.device, origin.dtype
     n = origin.shape[0]
     one = torch.ones(n, dtype=dt, device=dev)
@@ -697,7 +748,7 @@ def bounce_loop_twin(origin, direction, time, tab, closest_hit, seed: int, max_d
     state += [zero] * (MISS_ROWS if record_miss else 0)
     ray = torch.arange(ray0, ray0 + n, dtype=torch.int64, device=dev)
     state, res = _bounce_core(state, ray, 0, max_depth, tab, closest_hit, seed, t_min,
-                              zero_draws, record, record_miss)
+                              zero_draws, record, record_miss, inject_bug)
     rad = torch.stack(state[10:13], dim=1)
     if record:
         return rad, res
@@ -713,10 +764,16 @@ def _twin_chunk(n_cols: int) -> int:
 
 def trace_paths_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
                      t_min: float = T_MIN, front=None, zero_draws: bool = False,
-                     bvh=None, record_miss: bool = False):
+                     bvh=None, record_miss: bool = False, inject_bug: str | None = None):
     """Plain PyTorch `trace_paths` on any device, in ray chunks."""
+    _check_inject_bug(inject_bug)
     return _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws,
-                 bvh, record=False, record_miss=record_miss)
+                 bvh, record=False, record_miss=record_miss, inject_bug=inject_bug)
+
+
+def _check_inject_bug(inject_bug) -> None:
+    if inject_bug is not None and inject_bug not in INJECT_BUGS:
+        raise ValueError(f"inject_bug {inject_bug!r} is not one of {INJECT_BUGS}")
 
 
 def trace_record_twin(origin, direction, time, scene: Scene | None, seed: int, max_depth: int,
@@ -775,14 +832,15 @@ def twin_closest_hit(scene: Scene | None, front, bvh, device):
 
 
 def _twin(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
-          record: bool, record_miss: bool = False):
+          record: bool, record_miss: bool = False, inject_bug: str | None = None):
     tab, hit, chunk = twin_closest_hit(scene, front, bvh, origin.device)
     outs = []
     for r0 in range(0, max(origin.shape[0], 1), chunk):  # one empty chunk for 0 rays
         sl = slice(r0, r0 + chunk)
         outs.append(bounce_loop_twin(origin[sl], direction[sl], time[sl], tab, hit, seed,
                                      max_depth, ray0=r0, t_min=t_min, zero_draws=zero_draws,
-                                     record=record, record_miss=record_miss))
+                                     record=record, record_miss=record_miss,
+                                     inject_bug=inject_bug))
     if record:
         rad = torch.cat([r for r, _ in outs])
         planes = tuple(torch.cat([p[q] for _, p in outs], dim=1) for q in range(5))
@@ -885,7 +943,7 @@ def _pad_rays(x: torch.Tensor, total: int) -> torch.Tensor:
 def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor,
                 scene: Scene | None, seed: int, max_depth: int, t_min: float = T_MIN,
                 front: FrontTables | FrontTablesHBM | None = None, zero_draws: bool = False,
-                bvh=None, record_miss: bool = False):
+                bvh=None, record_miss: bool = False, inject_bug: str | None = None):
     """Radiance [R, 3] of camera rays: the full path trace in one kernel
     (pallas_trace_paths of the JAX package).
 
@@ -904,14 +962,22 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
     miss (zeros where the ray never missed), and the caller adds
     `mthr * sky(mdir)` (an environment map, `render.sky_color`).
 
+    `inject_bug` ("schlick3", for tests) plants a physics fault: Schlick's
+    reflectance with the exponent 3 instead of 5, which the
+    per-material-region statistic must catch. The plain version takes it
+    on every closest hit; the card has it for the brute scan whole in
+    shared memory alone (other routes raise ValueError).
+
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     PyTorch version."""
     dev = origin.device
     if dev.type == "cpu":
         return trace_paths_twin(origin, direction, time, scene, seed, max_depth, t_min,
-                                front, zero_draws, bvh, record_miss)
+                                front, zero_draws, bvh, record_miss, inject_bug)
+    _check_inject_bug(inject_bug)
     out, _ = _launch(origin, direction, time, scene, seed, max_depth, t_min, front,
-                     zero_draws, bvh, record=False, record_miss=record_miss)
+                     zero_draws, bvh, record=False, record_miss=record_miss,
+                     inject_bug=inject_bug)
     return out
 
 
@@ -953,7 +1019,7 @@ def _res_planes(depth: int, n: int, dev):
             torch.empty((depth, n), dtype=torch.uint8, device=dev))
 
 
-def _require_front(front: FrontTables, dev) -> None:
+def _require_front(front: FrontTables, dev, sub_block: bool) -> None:
     n_cols = front.sph.shape[1]
     n_front = front.ff.shape[1]
     _require(front.sph, "front.sph", (N_ROWS, n_cols), torch.float32, dev)
@@ -961,16 +1027,31 @@ def _require_front(front: FrontTables, dev) -> None:
     _require(front.fi, "front.fi", (2, n_front), torch.int32, dev)
     _require(front.wf, "front.wf", (8, front.wf.shape[1]), torch.float32, dev)
     _require(front.sf, "front.sf", (8, front.sf.shape[1]), torch.float32, dev)
-    smem = 4 * sum(x.numel() for x in (front.sph, front.ff, front.fi, front.wf, front.sf))
+    tables = [front.sph, front.ff, front.fi, front.wf, front.sf]
+    if sub_block and front.ksub:
+        _require(front.bf, "front.bf", (8, n_cols // UNROLL + front.ksub), torch.float32, dev)
+        tables.append(front.bf)
+    smem = 4 * sum(x.numel() for x in tables)
     if smem > SMEM_BUDGET_BYTES:
         raise ValueError(f"front tables need {smem} B of shared memory "
                          f"(> {SMEM_BUDGET_BYTES}); build them with front_tables_hbm")
 
 
-def _front_args(front: FrontTables) -> tuple:
+def _front_args(front: FrontTables, sub_block: bool) -> tuple:
+    """The front entries' table arguments and K3's options; without
+    `sub_block` (K5 and K6, as the JAX package's recording and segment
+    kernels) the sub-block boxes are left out."""
     p = lambda x: x.data_ptr()  # noqa: E731
+    bf = front.bf if sub_block and front.ksub else None
     return (p(front.sph), front.sph.shape[1], p(front.ff), p(front.fi), front.ff.shape[1],
-            p(front.wf), front.wf.shape[1], p(front.sf), front.sf.shape[1], front.repack)
+            p(front.wf), front.wf.shape[1], p(front.sf), front.sf.shape[1], front.repack,
+            None if bf is None else p(bf), 0 if bf is None else bf.shape[1],
+            0 if bf is None else front.ksub, int(front.word_earlyout))
+
+
+def _front_opts(front: FrontTables, sub_block: bool) -> bool:
+    """Does this launch take K3's options (their own instantiations)?"""
+    return bool(front.word_earlyout or (sub_block and front.ksub))
 
 
 def _brute_scan(scene: Scene, dev) -> tuple[torch.Tensor, str]:
@@ -982,7 +1063,7 @@ def _brute_scan(scene: Scene, dev) -> tuple[torch.Tensor, str]:
 
 
 def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
-            record: bool, record_miss: bool = False):
+            record: bool, record_miss: bool = False, inject_bug: str | None = None):
     """Check the inputs and launch the kernel `trace_paths` describes (or,
     with `record`, K5 over the same closest hit; with `record_miss`, the
     forward kernel that records the miss planes) on CUDA tensors:
@@ -993,6 +1074,11 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
         raise ValueError(f"the megakernel runs on cuda or cpu tensors, not {dev}")
     from raytracingproject_tpu_torch.ops.cuda import build
 
+    if inject_bug is not None and (record or record_miss or front is not None
+                                   or bvh is not None
+                                   or 4 * N_ROWS * scene.num_spheres > SMEM_BUDGET_BYTES):
+        raise ValueError(f"inject_bug={inject_bug!r} runs on the plain version and, on the "
+                         "card, on the forward brute scan whole in shared memory alone")
     n = origin.shape[0]
     _require(origin, "origin", (n, 3), torch.float32, dev)
     _require(direction, "direction", (n, 3), torch.float32, dev)
@@ -1035,16 +1121,23 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
             None if front.bf is None else p(front.bf), n_bf, front.ksub,
             int(front.word_earlyout), int(boxes <= SMEM_BUDGET_BYTES), *tail)
     elif front is not None:
-        _require_front(front, dev)
+        sub_block = not record
+        _require_front(front, dev, sub_block)
         fn, key = ((lib.rtp_record_front, "record_front") if record
                    else (lib.rtp_trace_front, "front"))
-        err = fn(*rays, *_front_args(front), *tail)
+        if _front_opts(front, sub_block):
+            key = f"{key}_opts"
+        err = fn(*rays, *_front_args(front, sub_block), *tail)
     elif bvh is not None:
         tables = bvh_tables(bvh, dev)
         tab = scene_table(scene).t().contiguous()  # sphere-major
         _require(tab, "sphere table", (scene.num_spheres, N_ROWS), torch.float32, dev)
         fn, key = (lib.rtp_record_bvh, "record_bvh") if record else (lib.rtp_trace_bvh, "bvh")
         err = fn(*rays, p(tab), tab.shape[0], p(tables.nodes), tables.nodes.shape[0], *tail)
+    elif inject_bug is not None:
+        tab, _ = _brute_scan(scene, dev)
+        key = f"brute_{inject_bug}"
+        err = lib.rtp_trace_brute_schlick3(*rays, p(tab), tab.shape[1], *tail[:4], stream)
     else:
         tab, scan = _brute_scan(scene, dev)
         key = f"record_{scan}" if record else scan
@@ -1068,8 +1161,9 @@ def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, s
     carried `state` ([STATE_ROWS, R] float32, with `record_miss`
     STATE_ROWS + MISS_ROWS; see `segment_twin`) of the rays whose
     monolithic slots are `slot` ([R] int32), starting at global bounce
-    `bounce0`. The closest hit is `front`'s (a FrontTables: K3's culling)
-    or the brute scan over `scene` (whole in shared memory or, past its
+    `bounce0`. The closest hit is `front`'s (a FrontTables: K3's culling,
+    with its `word_earlyout`; its sub-block boxes are not used, as in the
+    JAX package's segment kernel) or the brute scan over `scene` (whole in shared memory or, past its
     budget, in chunks). Returns the state after the segment and, with
     `record`, the residual planes (idx, ndx, ndy, ndz, refl) [depth, R].
     R must be a multiple of TILE; padding rays are dead (alive 0).
@@ -1109,9 +1203,9 @@ def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, s
     head = (state.data_ptr(), out.data_ptr(), slot.data_ptr(), n)
     tail = (int(seed), bounce0, depth, t_min, int(zero_draws), int(record_miss), *res, stream)
     if front is not None:
-        _require_front(front, dev)
-        scan = "front"
-        err = lib.rtp_segment_front(*head, *_front_args(front), *tail)
+        _require_front(front, dev, sub_block=False)
+        scan = "front_opts" if _front_opts(front, False) else "front"
+        err = lib.rtp_segment_front(*head, *_front_args(front, False), *tail)
     else:
         tab, scan = _brute_scan(scene, dev)
         err = getattr(lib, f"rtp_segment_{scan}")(*head, tab.data_ptr(), tab.shape[1], *tail)

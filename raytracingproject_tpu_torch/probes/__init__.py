@@ -1,0 +1,95 @@
+"""Probe kernels: measurements of the card and of the closest hit alone
+(counterpart of tools/roofline.py, tools/kfront.py, tools/kexp.py and
+tools/measure.py of the JAX package).
+
+- `measure.marginal_ms`: the marginal time of one pass between two pass
+  counts, on CUDA events.
+- `roofline`: `fma_peak` (FFMA instructions a second) and `mixed_peak`
+  (sphere tests a second of the brute closest hit, every carry consumed),
+  and the operation counts a test is charged (`OPS_PER_PAIR`,
+  `OPS_PER_BOX`). `python -m raytracingproject_tpu_torch.probes.roofline`.
+- `kfront`: the front-culled closest hit without shading against the
+  unrolled brute one (`pack_front_tables`, `run_front`, `run_brute`).
+  `python -m raytracingproject_tpu_torch.probes.kfront [n_spheres]`.
+- `kexp`: closest-hit variants, the full hit carry against best t and
+  winner alone, unrolled x1, x4, x8 (`run`).
+  `python -m raytracingproject_tpu_torch.probes.kexp [n_spheres]`.
+
+The kernels are hand-written CUDA in csrc/probes.cu. Each wrapper runs its
+plain PyTorch version for CPU tensors and launches the kernel (or raises)
+for CUDA tensors; `LAUNCHES` counts the launches. The measurements need a
+card: they raise without one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracingproject_tpu_torch.ops.cuda import build
+from raytracingproject_tpu_torch.ops.cuda.megakernel import _pad_rays, _require
+
+# closest-hit variants of the kexp probe: the full hit carry or best t and
+# winner alone ("slim"), unrolled x1 (no suffix), x4 or x8
+KEXP_VARIANTS = ("full", "full_u4", "full_u8", "slim", "slim_u4", "slim_u8")
+
+# Kernel launches by probe, counted after each successful launch.
+LAUNCHES = {"fma": 0, "mixed": 0, "kfront_front": 0, "kfront_brute": 0,
+            **{f"kexp_{v}": 0 for v in KEXP_VARIANTS}}
+
+# Threads per block of the probes (PTPB in csrc/probes.cu): rays are padded
+# to a multiple.
+PTPB = 256
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def require_card(device) -> torch.device:
+    """The CUDA device a measurement runs on; raises without one."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"the probes measure a CUDA card, not {dev}")
+    return dev
+
+
+def stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def call(key: str, fn_name: str, *args) -> None:
+    """Launch csrc/probes.cu's entry `fn_name`, check it and count it."""
+    err = getattr(build.load_library("probes"), fn_name)(*args)
+    build.check(err, f"{key} probe launch", "probes")
+    LAUNCHES[key] += 1
+
+
+def blocks(r: int) -> int:
+    """`r` rays rounded up to whole blocks of PTPB threads."""
+    return -(-r // PTPB) * PTPB
+
+
+def padded(rays) -> list[torch.Tensor]:
+    """The seven ray planes padded to whole blocks with copies of ray 0
+    (no copy when they fill them already). The measurements pad their
+    pools so, outside the timed passes."""
+    return [_pad_rays(x, blocks(x.shape[0])) for x in rays]
+
+
+def kernel_rays(rays) -> list[torch.Tensor]:
+    """The seven ray planes (ox, oy, oz, dx, dy, dz, tm; [R] float32,
+    contiguous, on one device) as the kernels take them: padded to whole
+    blocks. Raises on anything else."""
+    r, dev = rays[0].shape[0], rays[0].device
+    for name, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), rays, strict=True):
+        _require(x, name, (r,), torch.float32, dev)
+    return padded(rays)
+
+
+def ray_planes(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor):
+    """(ox, oy, oz, dx, dy, dz, tm) of [R, 3], [R, 3], [R] rays, float32."""
+    o, d = origin.float(), direction.float()
+    return (o[:, 0].contiguous(), o[:, 1].contiguous(), o[:, 2].contiguous(),
+            d[:, 0].contiguous(), d[:, 1].contiguous(), d[:, 2].contiguous(),
+            time.float().contiguous())

@@ -382,14 +382,20 @@ def render(
     the environment map of both: the oracle looks it up at each miss, the
     megakernel records the misses and `render_pass` looks it up after the
     kernel. `settings.two_phase` and `depth_segment` pick the depth-tail
-    pipelines (see `render_pass`)."""
+    pipelines (see `render_pass`).
+
+    `settings.dtype` is the oracle's working type: its camera rays, bounce
+    loop and accumulator (float64 for finite-difference checks). The
+    megakernel computes and returns float32 whatever `dtype` says, as the
+    JAX package's megakernel does (its config.py, `use_megakernel`)."""
     settings = settings or RenderSettings()
     use_megakernel = settings.use_megakernel
     device = settings.resolved_device()
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     width, height = camera.image_size()
-    cam = camera.derive(torch.float32, device)
+    dtype = torch.float32 if use_megakernel else settings.dtype
+    cam = camera.derive(dtype, device)
     spp = camera.samples_per_pixel
     bvh = front = None
     if use_megakernel:
@@ -400,7 +406,7 @@ def render(
         sky_texture = torch.as_tensor(sky_texture, dtype=torch.float32, device=device)
 
     spp_chunk = max(1, min(spp, settings.rays_per_batch // max(width * height, 1)))
-    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+    acc = torch.zeros((height, width, 3), dtype=dtype, device=device)
     slot_acc = None
     done = 0
     while done < spp:

@@ -109,13 +109,23 @@ def test_front_tables_super_words_equal():
 
 
 def test_front_tables_unported_options_raise():
+    """The options that once raised here (sub_block, word_earlyout) now
+    build their tables; an option that has no meaning still raises: a
+    repack that does not divide 24."""
     _, ps, leaf = _pair("three")
     pb = pbvh.build_bvh(ps, leaf_size=leaf)
-    for kw in ({"sub_block": True}, {"word_earlyout": True}):
-        with pytest.raises(NotImplementedError):
-            pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, **kw)
+    rs = pbvh.reorder_scene(ps, pb)
+    plain = pmk.front_tables(rs, pb)
+    sub = pmk.front_tables(rs, pb, sub_block=True)
+    assert sub.ksub == int(plain.fi[1].max()) // pmk.UNROLL and not sub.word_earlyout
+    assert tuple(sub.bf.shape) == (8, plain.sph.shape[1] // pmk.UNROLL + sub.ksub)
+    early = pmk.front_tables(rs, pb, word_earlyout=True)
+    assert early.word_earlyout and early.bf is None and early.ksub == 0
+    for f in ("sph", "ff", "fi", "wf", "sf", "remap"):
+        assert torch.equal(getattr(sub, f), getattr(plain, f))
+        assert torch.equal(getattr(early, f), getattr(plain, f))
     with pytest.raises(ValueError):
-        pmk.front_tables(pbvh.reorder_scene(ps, pb), pb, repack=5)
+        pmk.front_tables(rs, pb, repack=5)
 
 
 def test_default_front_nodes_equal():

@@ -543,3 +543,135 @@ def test_depth_tail_and_sky_texture_render_on_the_card(cuda_device):
     params, opt, loss, grads = step(params, opt, None, ref)
     assert params.albedo.is_cuda and torch.isfinite(loss)
     assert mk.LAUNCHES["segment_record_brute"] == 2
+
+
+# ---- the probe kernels (csrc/probes.cu) ----
+
+def test_fma_and_mixed_probes_match_their_plain_versions(cuda_device):
+    from raytracingproject_tpu_torch import probes
+    from raytracingproject_tpu_torch.probes import roofline
+
+    x = torch.linspace(0.5, 1.5, 5000, device=cuda_device)
+    before = dict(probes.LAUNCHES)
+    assert torch.equal(roofline.fma_chains(x), roofline.fma_chains_plain(x))
+    tab = roofline.mixed_table(488).to(cuda_device)
+    ox = torch.linspace(-14.0, 14.0, 3000, device=cuda_device)
+    k, p = roofline.mixed_hits(tab, ox), roofline.mixed_hits_plain(tab, ox)
+    assert torch.equal(k, p) and torch.isfinite(p).any()
+    assert probes.LAUNCHES["fma"] == before["fma"] + 1
+    assert probes.LAUNCHES["mixed"] == before["mixed"] + 1
+
+
+@pytest.mark.parametrize("n_spheres", [None, 2000])
+def test_closest_hit_probes_match_their_plain_versions(cuda_device, n_spheres):
+    """kexp's six variants, kfront's brute and front probes, bit-equal to
+    their plain versions on the 400x225 primary rays (cover scene, and
+    2,000 random spheres: shared memory past 48 KB)."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.probes import kexp, kfront
+
+    scene = kfront.probe_scene(n_spheres)
+    rays = kfront.primary_rays(cuda_device)
+    sph = mk.scene_table(scene).to(cuda_device)
+    for v in kexp.VARIANTS:
+        assert torch.equal(kexp.run(rays, sph, v), kexp.run_plain(rays, sph, v)), v
+    sphb = mk.scene_table(reorder_scene(scene, build_bvh(scene, leaf_size=8))).to(cuda_device)
+    brute = kfront.run_brute(rays, sphb)
+    assert torch.equal(brute, kfront.run_brute_plain(rays, sphb))
+    for f in kfront.FRONTS:
+        tabs = [t.to(cuda_device) for t in kfront.pack_front_tables(scene, max_nodes=f)]
+        front = kfront.run_front(rays, *tabs)
+        assert torch.equal(front, kfront.run_front_plain(rays, *tabs))
+        assert torch.equal(front, brute)
+
+
+# ---- K3's options and K1's planted fault ----
+
+def _option_fronts(device, max_nodes=None):
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+
+    cpu = make_cover_scene(0)
+    tree = build_bvh(cpu, leaf_size=8)
+    scene = reorder_scene(cpu, tree).to(device)
+    kw = dict(max_nodes=max_nodes, order_point=COVER["lookfrom"], repack=2)
+    return scene, {"plain": mk.front_tables(scene, tree, **kw),
+                   "word_earlyout": mk.front_tables(scene, tree, word_earlyout=True, **kw),
+                   "sub_block": mk.front_tables(scene, tree, sub_block=True, **kw),
+                   "both": mk.front_tables(scene, tree, sub_block=True, word_earlyout=True, **kw)}
+
+
+@pytest.mark.parametrize("option", ["word_earlyout", "sub_block", "both"])
+@pytest.mark.parametrize("record_miss", [False, True])
+def test_front_option_kernels_equal_plain_front(cuda_device, option, record_miss):
+    """The forward instantiations with K3's options (plain and record_miss)
+    bit-equal to plain K3 and to their plain versions."""
+    scene, fronts = _option_fronts(cuda_device)
+    _, _, rays = _cover_rays(cuda_device)
+    key = "front_opts_miss" if record_miss else "front_opts"
+    before = mk.LAUNCHES[key]
+    k = mk.trace_paths(*rays, scene, 77, 16, front=fronts[option], record_miss=record_miss)
+    assert mk.LAUNCHES[key] == before + 1
+    base = mk.trace_paths(*rays, scene, 77, 16, front=fronts["plain"], record_miss=record_miss)
+    p = mk.trace_paths_twin(*rays, scene, 77, 16, front=fronts[option], record_miss=record_miss)
+    k, base, p = ((x,) if not record_miss else x for x in (k, base, p))
+    assert all(torch.equal(a, b) for a, b in zip(k, base))
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
+def test_record_and_segment_kernels_with_word_earlyout(cuda_device):
+    """K5's front core and K6's three front tails with word_earlyout,
+    bit-equal to their plain K3 instantiations; a FrontTables with
+    sub-block boxes records and segments without them."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    scene, fronts = _option_fronts(cuda_device)
+    _, _, rays = _cover_rays(cuda_device)
+    ra, pa = mk.trace_record(*rays, scene, 5, 12, front=fronts["plain"])
+    before = mk.LAUNCHES["record_front_opts"]
+    rb, pb = mk.trace_record(*rays, scene, 5, 12, front=fronts["both"])
+    assert mk.LAUNCHES["record_front_opts"] == before + 1
+    assert torch.equal(ra, rb)
+    assert all(torch.equal(getattr(pa, f), getattr(pb, f)) for f in ("idx", "ndir", "refl"))
+    for miss, rec in ((False, False), (True, False), (False, True)):
+        state, slot = dt.initial_state(*rays, miss)
+        key = f"segment_{'record_' if rec else 'miss_' if miss else ''}front_opts"
+        before = mk.LAUNCHES[key]
+        a = mk.segment_call(state, slot, scene, 9, 2, 6, front=fronts["plain"],
+                            record_miss=miss, record=rec)
+        b = mk.segment_call(state, slot, scene, 9, 2, 6, front=fronts["word_earlyout"],
+                            record_miss=miss, record=rec)
+        assert mk.LAUNCHES[key] == before + 1
+        if rec:
+            assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        else:
+            assert torch.equal(a, b)
+
+
+def test_sub_block_with_fewer_bigger_subtrees(cuda_device):
+    """sub_block on a front of 24 subtrees over 2,000 spheres (ksub > 8)."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    cpu = make_random_scene(2000, seed=3)
+    tree = build_bvh(cpu, leaf_size=8)
+    scene = reorder_scene(cpu, tree).to(cuda_device)
+    plain = mk.front_tables(scene, tree, max_nodes=24, order_point=COVER["lookfrom"])
+    sub = mk.front_tables(scene, tree, max_nodes=24, order_point=COVER["lookfrom"],
+                          sub_block=True, word_earlyout=True)
+    assert sub.ksub > 8
+    _, _, rays = _cover_rays(cuda_device)
+    assert torch.equal(mk.trace_paths(*rays, scene, 3, 16, front=sub),
+                       mk.trace_paths(*rays, scene, 3, 16, front=plain))
+
+
+def test_schlick3_kernel_matches_its_plain_version(cuda_device):
+    from raytracingproject_tpu_torch.scene import make_three_sphere_scene
+
+    scene = make_three_sphere_scene(device=cuda_device)
+    _, _, rays = _cover_rays(cuda_device)
+    before = mk.LAUNCHES["brute_schlick3"]
+    k = mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3")
+    assert mk.LAUNCHES["brute_schlick3"] == before + 1
+    assert torch.equal(k, mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3"))
+    with pytest.raises(ValueError, match="inject_bug"):
+        mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3", record_miss=True)

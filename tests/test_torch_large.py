@@ -395,9 +395,11 @@ def test_brute_twin_past_the_whole_table_budget():
 def test_every_entry_point_has_a_counter_and_a_chip_smoke_check():
     """Each tracing entry point of the megakernel library has its launch
     counter (the forward ones also one for their record_miss version, the
-    segment ones one for each of their three kinds), and chip_smoke.py
-    names every counter (it holds each kernel against its plain version
-    and reads each count after a main path)."""
+    segment ones one for each of their three kinds; the front entries
+    also one for each of these with K3's options; the planted faults,
+    forward only, none for record_miss), and chip_smoke.py names every
+    counter (it holds each kernel against its plain version and reads
+    each count after a main path)."""
     names = build.LIBRARIES["megakernel"]
     forward = {n.removeprefix("rtp_trace_") for n in names if n.startswith("rtp_trace_")}
     record = {n.removeprefix("rtp_") for n in names if n.startswith("rtp_record_")}
@@ -405,7 +407,13 @@ def test_every_entry_point_has_a_counter_and_a_chip_smoke_check():
                for n in names if n.startswith("rtp_segment_")
                for kind in ("", "miss_", "record_")}
     assert len(segment) == 9
-    assert forward | {f"{k}_miss" for k in forward} | record | segment == set(mk.LAUNCHES)
+    faults = {f"brute_{bug}" for bug in mk.INJECT_BUGS}
+    assert faults <= forward
+    with_miss = forward | {f"{k}_miss" for k in forward - faults}
+    options = ({f"{k}_opts" for k in (forward | record | segment) if k.endswith("front")}
+               | {f"{k}_opts_miss" for k in forward if k.endswith("front")})
+    assert len(options) == 6
+    assert with_miss | record | segment | options == set(mk.LAUNCHES)
     smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     for key in mk.LAUNCHES:
         assert re.search(rf'"{key}"', smoke), key

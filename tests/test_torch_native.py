@@ -34,7 +34,7 @@ def test_native_sources_are_the_ports_own_copies(name):
 
 
 def test_build_paths_lie_inside_the_port():
-    assert set(build.LIBRARIES) == {"megakernel", "closest_hit"}
+    assert set(build.LIBRARIES) == {"megakernel", "closest_hit", "probes"}
     for name in build.LIBRARIES:
         assert build.source(name).is_file() and build.source(name).parent == PORT / "csrc"
         assert build.library(name).parent == PORT / "build"
