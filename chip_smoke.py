@@ -41,7 +41,13 @@ through its kernels:
   90,000 rays of one pass at depth 16; K5 bvh also on one train step's
   180,000 rays at depth 50); K7, K8 and the chunked brute scan against
   each other, and their first hits against K4 on the 90,000 primary rays
-  of a pass.
+  of a pass. The chunked scan's six instantiations are held bit-equal to
+  their plain versions (`torch.equal`) at their paths' shapes and on its
+  edge cases: blocks with 1, 33, 129 and 256 live rays, and a scene where
+  every hit is an exact tie; its registers and blocks per SM are printed,
+  with the live rays a block-bounce and the SM load behind its time; the
+  5,000-sphere geometry train step (the chunked recording kernel) is
+  timed.
 
 - the depth tail: `render` with `RenderSettings(two_phase=4)` and
   `depth_segment=8` and with a sky texture (K1's record_miss; on the
@@ -91,6 +97,7 @@ kernel; the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -145,19 +152,22 @@ PROBE_REPLACES = {"fma": "tools/roofline.py:92", "mixed": "tools/roofline.py:160
                      ("full", "full_u4", "full_u8", "slim", "slim_u4", "slim_u8")}}
 MODES = {0: "BRUTE", 1: "FRONT", 2: "CHUNKED", 3: "BVH", 4: "HBM"}
 OPTS = {0: "", 1: ", SCHLICK3", 2: ", FRONT_OPTS"}
-# Registers of the 23 trace_kernel instantiations that came before the
-# OPT template argument (K3's options, SCHLICK3), as -Xptxas -v reported
-# them for the source without it: (mode, record, record_miss, segment, opt)
-# -> registers. The nine that came before K6 and record_miss had the same
-# counts before those were added (the record front's 80 with a 60 B spill).
+# Registers of the 17 trace_kernel instantiations that came before the
+# OPT template argument (K3's options, SCHLICK3) and are not the chunked
+# brute scan, as -Xptxas -v reported them for the source without it:
+# (mode, record, record_miss, segment, opt) -> registers. The seven that
+# came before K6 and record_miss had the same counts before those were
+# added (the record front's 80 with a 60 B spill). The six chunked
+# instantiations (mode 2) have a closest hit of their own since its
+# redesign; their registers and blocks per SM are printed, not held.
 OLD_REGISTERS = {(0, 0, 0, 0, 0): 64, (1, 0, 0, 0, 0): 64, (0, 1, 0, 0, 0): 64,
-                 (1, 1, 0, 0, 0): 80, (2, 0, 0, 0, 0): 61, (2, 1, 0, 0, 0): 63,
-                 (3, 0, 0, 0, 0): 57, (3, 1, 0, 0, 0): 59, (4, 0, 0, 0, 0): 98,
-                 (0, 0, 0, 1, 0): 64, (0, 0, 1, 0, 0): 64, (0, 0, 1, 1, 0): 75,
-                 (0, 1, 0, 1, 0): 64, (1, 0, 0, 1, 0): 60, (1, 0, 1, 0, 0): 64,
-                 (1, 0, 1, 1, 0): 64, (1, 1, 0, 1, 0): 80, (2, 0, 0, 1, 0): 64,
-                 (2, 0, 1, 0, 0): 64, (2, 0, 1, 1, 0): 64, (2, 1, 0, 1, 0): 63,
+                 (1, 1, 0, 0, 0): 80, (3, 0, 0, 0, 0): 57, (3, 1, 0, 0, 0): 59,
+                 (4, 0, 0, 0, 0): 98, (0, 0, 0, 1, 0): 64, (0, 0, 1, 0, 0): 64,
+                 (0, 0, 1, 1, 0): 75, (0, 1, 0, 1, 0): 64, (1, 0, 0, 1, 0): 60,
+                 (1, 0, 1, 0, 0): 64, (1, 0, 1, 1, 0): 64, (1, 1, 0, 1, 0): 80,
                  (3, 0, 1, 0, 0): 61, (4, 0, 1, 0, 0): 80}
+# The chunked brute scan's six instantiations: (record, record_miss, segment)
+CHUNKED_KINDS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1), (1, 0, 1))
 COVER_CAMERA = dict(aspect_ratio=16.0 / 9.0, image_width=400, vfov=20.0,
                     lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                     defocus_angle=0.6, focus_dist=10.0)
@@ -165,6 +175,7 @@ N_CMP = 65536  # camera rays in the kernel-against-twin comparisons
 N_LARGE = 50000  # spheres of the large-scene path: make_random_scene(N_LARGE, seed=3)
 N_LARGE_CMP = 8192  # camera rays of the large-scene kernel-against-twin comparisons
 CHUNK = 1024  # spheres a chunk of the chunked brute scan stages (csrc/megakernel.cu)
+LIVE_PER_BLOCK = (1, 33, 129, 256)  # live rays of the blocks the chunked scan's edge cases run
 TRAIN_STEPS = 7  # per full-width configuration: 2 warm-up, 5 timed
 # Descent check (three-sphere scene, 128x72, 4 spp, depth 8, albedo only,
 # 40 steps): mean loss of the last 5 steps over the first 5 must stay
@@ -236,14 +247,14 @@ def rel_err(a, b) -> float:
 
 
 def hold_record(mk, what: str, o, d, t, scene, front, seed: int, depth: int,
-                zero: bool, bvh=None, twin=None) -> float:
+                zero: bool, bvh=None, twin=None, exact: bool = False) -> float:
     """K5 (front with `front`, else bvh with `bvh`, else brute) against its
     plain version on one set of rays: radiance bit-equal to the forward kernel's and
     within 1e-3 of the twin's on >= 99.9% of rays; idx equal on >= 99.9% of
-    entries; ndir and refl equal wherever idx is. `twin` is the plain
-    version's result on these arguments where the caller has it already.
-    Returns the max |diff| (radiance against the twin, and ndir where idx
-    is equal)."""
+    entries; ndir and refl equal wherever idx is; with `exact` (the
+    chunked scan) all of it bit-equal. `twin` is the plain version's
+    result on these arguments where the caller has it already. Returns the
+    max |diff| (radiance against the twin, and ndir where idx is equal)."""
     import torch
 
     path = "front" if front is not None else "bvh" if bvh is not None else "brute"
@@ -270,6 +281,9 @@ def hold_record(mk, what: str, o, d, t, scene, front, seed: int, depth: int,
     check(idx_frac >= 0.999, f"record_{path} ({what}): idx equal on >= 99.9% of entries")
     check(nd_diff == 0.0 and refl_ok, f"record_{path} ({what}): ndir, refl equal where "
           "idx is")
+    if exact:
+        check(torch.equal(rad, prad) and all(torch.equal(a, b) for a, b in zip(res, pres)),
+              f"record_{path} ({what}): radiance and residuals bit-equal to the plain version")
     return max(rad_diff.max().item(), nd_diff)
 
 
@@ -1222,12 +1236,13 @@ def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> d
 
 
 def hold_large(mk, what: str, key: str, o, d, t, scene, seed: int, depth: int, twin=None,
-               **route) -> float:
+               exact: bool = False, **route) -> float:
     """One large-scene kernel (route: front=<FrontTablesHBM>, bvh=<tree> or
     neither for the chunked brute scan; key its launch counter) against its
     plain version on one set of rays: >= 99.9% of rays within 1e-3,
-    bit-equal expected. `twin` is the plain version's result on these
-    arguments where the caller has it already. Returns the max |diff|."""
+    bit-equal expected (required with `exact`, the chunked scan). `twin`
+    is the plain version's result on these arguments where the caller has
+    it already. Returns the max |diff|."""
     import torch
 
     before = mk.LAUNCHES[key]
@@ -1241,7 +1256,129 @@ def hold_large(mk, what: str, key: str, o, d, t, scene, seed: int, depth: int, t
           f"1e-3, max |diff| {diff.max().item():.3e}, bit-equal {torch.equal(k, p)}")
     check(torch.isfinite(k).all().item(), f"{what}: radiance finite")
     check(frac >= 0.999, f"{what}: >= 99.9% of rays within 1e-3 of the plain version")
+    check(not exact or torch.equal(k, p), f"{what}: bit-equal to the plain version")
     return diff.max().item()
+
+
+def chunked_edge_cases(mk, rays) -> dict:
+    """The chunked scan's six instantiations on four blocks with 1, 33, 129
+    and 256 live rays of `rays` (block b traces rays b, b + 4, ...; the
+    rest parked from the start: dead in K6's carried state, a miss at the
+    first bounce in the monolithic kernels), on 2,000 spheres (two chunks;
+    the table fits, so the whole-table kernel is held too), 5,000 (five
+    chunks) and a scene of every sphere twice, at columns i and 1999 - i,
+    where every hit is an exact tie: each bit-equal to its plain version
+    and, where the table fits, to the whole-table kernel. Returns each
+    launch key's max |diff| against the plain version (0 when bit-equal)."""
+    import numpy as np
+    import torch
+
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    dev = rays[0].device
+    n = mk.TILE * len(LIVE_PER_BLOCK)
+    o, d, t = (x[::x.shape[0] // n][:n].clone() for x in rays)  # over the whole image
+    rng = np.random.default_rng(7)
+    live = np.zeros(n, bool)
+    blocks = len(LIVE_PER_BLOCK)
+    for b, k in enumerate(LIVE_PER_BLOCK):  # thread t of block b traces ray t * blocks + b
+        live[rng.choice(mk.TILE, k, replace=False) * blocks + b] = True
+    live = torch.from_numpy(live).to(dev)
+    o[~live], d[~live] = 1e18, 1.0
+    states = {}
+    for miss in (False, True):
+        states[miss], slot = dt.initial_state(o, d, t, miss)
+        states[miss][mk.ST_ALIVE] = live.float()
+    half = make_random_scene(1000, seed=3)
+    twice = torch.cat([torch.arange(1000), torch.arange(999, -1, -1)])
+    scenes = {"2,000 spheres": (make_random_scene(2000, seed=3, device=dev), True),
+              "5,000 spheres": (make_random_scene(5000, seed=3, device=dev), False),
+              "every hit a tie": (half.take(twice).to(dev), True)}
+    # launch key -> (kernel call, plain version) over a scene
+    seg = dict(zip(("segment_brute_chunked", "segment_miss_brute_chunked",
+                    "segment_record_brute_chunked"),
+                   ((False, False), (True, False), (False, True))))
+    runs = {"brute_chunked": lambda sc: (mk.trace_paths(o, d, t, sc, 5, 8),
+                                         mk.trace_paths_twin(o, d, t, sc, 5, 8)),
+            "record_brute_chunked": lambda sc: (mk.trace_record(o, d, t, sc, 5, 8),
+                                                mk.trace_record_twin(o, d, t, sc, 5, 8)),
+            "brute_chunked_miss": lambda sc: (
+                mk.trace_paths(o, d, t, sc, 5, 8, record_miss=True),
+                mk.trace_paths_twin(o, d, t, sc, 5, 8, record_miss=True))}
+    for key, (miss, record) in seg.items():
+        runs[key] = lambda sc, miss=miss, record=record: tuple(
+            f(states[miss], slot, sc, 77, 3, 8, record_miss=miss, record=record)
+            for f in (mk.segment_call, mk.segment_twin))
+
+    def tensors(x):
+        return [y for v in x for y in tensors(v)] if isinstance(x, (tuple, list)) else [x]
+
+    err = {}
+    budget = mk.SMEM_BUDGET_BYTES
+    for what, (sc, fits) in scenes.items():
+        for key, run in runs.items():
+            before = mk.LAUNCHES[key]
+            mk.SMEM_BUDGET_BYTES = 0  # the chunked route, whatever the table's size
+            try:
+                got, plain = run(sc)
+            finally:
+                mk.SMEM_BUDGET_BYTES = budget
+            torch.cuda.synchronize()
+            check(mk.LAUNCHES[key] == before + 1, f"{key} ({what}): one launch")
+            got, plain = tensors(got), tensors(plain)
+            same = all(torch.equal(a, b) for a, b in zip(got, plain))
+            whole = fits and all(torch.equal(a, b) for a, b in zip(got, tensors(run(sc)[0])))
+            err[key] = max([err.get(key, 0.0)] + [torch.abs(a.double() - b.double()).max().item()
+                                                  for a, b in zip(got, plain)])
+            print(f"{key}, blocks with {LIVE_PER_BLOCK} live rays, {what}: bit-equal to the "
+                  f"plain version {same}" + (f", to the whole-table kernel {whole}" if fits else ""))
+            check(same and (whole or not fits),
+                  f"{key} ({what}): bit-equal to the plain version"
+                  + (" and the whole-table kernel" if fits else ""))
+            if what == "every hit a tie" and key == "record_brute_chunked":
+                idx = got[1]
+                check(bool((idx >= 0).any()) and bool((idx[idx >= 0] < 1000).all()),
+                      "ties: every winner is the first copy of its sphere")
+    return err
+
+
+def chunked_blocks(mk, idx, n_cols: int, kernel_ms: float, card: str) -> None:
+    """Where the chunked scan's time goes, from a record's idx [D, R] of
+    its rays (a ray is live at a bounce its idx is not DEAD; thread t of
+    block b traces ray t x blocks + b): the live rays L of each block at
+    each bounce, the share of the block's threads a bounce keeps busy
+    (L x G of 256, G the lanes a ray), the longest block's path (n / G
+    tests a thread, summed over its bounces), the tests each SM is given
+    with the blocks dealt round-robin (all are resident at once), and the
+    times the measured mixed peak puts on the tests balanced and as dealt."""
+    import torch
+
+    n_blocks = idx.shape[1] // mk.TILE
+    dev = idx.device
+    live = torch.zeros((idx.shape[0], n_blocks), dtype=torch.float64, device=dev)
+    live.index_add_(1, torch.arange(idx.shape[1], device=dev) % n_blocks,
+                    (idx != mk.DEAD).double())  # [D, B]
+    ran = live > 0
+    groups = torch.where(ran, torch.exp2(torch.floor(torch.log2(mk.TILE / live.clamp_min(1)))),
+                         0.0)
+    busy = (live * groups).sum().item() / (mk.TILE * ran.sum().item())
+    path = torch.where(ran, n_cols / groups.clamp_min(1), 0.0).sum(dim=0)
+    tests = n_cols * live.sum(dim=0)  # per block
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = torch.zeros(n_sm, dtype=torch.float64, device=dev)
+    per_sm.index_add_(0, torch.arange(n_blocks, device=dev) % n_sm, tests)
+    bounds = torch.tensor([1, 2, 5, 33, 129, 257], dtype=torch.float64, device=dev)
+    hist = [int(((live >= lo) & (live < hi)).sum()) for lo, hi in zip(bounds[:-1], bounds[1:])]
+    peak, skew = RATE["pairs"], (per_sm.max() / per_sm.mean()).item()
+    print(f"chunked scan, one pass ({idx.shape[1]} rays, depth {idx.shape[0]}, {n_cols} spheres): "
+          f"{int(ran.sum())} block-bounces of {n_blocks} blocks; live rays a block-bounce in "
+          f"[1,2) [2,5) [5,33) [33,129) [129,256]: {hist}; threads busy {busy:.3f}; the longest "
+          f"block's path {path.max().item():.4g} tests a thread (mean {path.mean().item():.4g}); "
+          f"sphere tests {tests.sum().item():.4g} (every one needed); at the mixed peak "
+          f"{peak:.4g}/s balanced {1e3 * tests.sum().item() / peak:.2f} ms, dealt round-robin to "
+          f"{n_sm} SMs {1e3 * per_sm.max().item() * n_sm / peak:.2f} ms (the most loaded SM "
+          f"{skew:.3f}x the mean); the kernel {kernel_ms:.3f} ms; on {card}")
 
 
 def large_scenes(mk, trace, card: str) -> list[dict]:
@@ -1315,10 +1452,13 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
           f"{runs[2][1]:.3f}; on {card}")
     five = make_random_scene(5000, seed=3, device=dev)
     worst("brute_chunked", hold_large(mk, "brute past the budget (5,000 spheres)",
-                                      "brute_chunked", oc[:4096], dc[:4096], tc[:4096], five, 7, 4))
+                                      "brute_chunked", oc[:4096], dc[:4096], tc[:4096], five, 7, 4,
+                                      exact=True))
     worst("record_brute_chunked", hold_record(mk, "5,000 spheres", oc[:4096], dc[:4096],
-                                              tc[:4096], five, None, 7, 4, False))
+                                              tc[:4096], five, None, 7, 4, False, exact=True))
     del five
+    for key, err in chunked_edge_cases(mk, (o, d, t)).items():
+        worst(key, err)
 
     # ---- L2. 50,000 spheres: every kernel against its plain version ----
     host = {}
@@ -1483,11 +1623,18 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
                                              trainable=("albedo", "center0", "radius"),
                                              generator=torch.Generator(device=dev).manual_seed(3))
     mk.reset_launches()
-    for _ in range(3):
-        params, opt, loss, grads = step(params, opt, None, target)
+    geo_times = []
+    for _ in range(TRAIN_STEPS):
+        (params, opt, loss, grads), sec = synced_s(lambda: step(params, opt, None, target))
+        geo_times.append(sec)
         check(torch.isfinite(loss).item(), "5,000-sphere geometry step: finite loss")
     launches["record_brute_chunked"] = mk.LAUNCHES["record_brute_chunked"]
-    check(launches["record_brute_chunked"] == 3, "the chunked recording kernel ran once a step")
+    check(launches["record_brute_chunked"] == TRAIN_STEPS,
+          "the chunked recording kernel ran once a step")
+    geo_step_s = statistics.median(geo_times[2:])
+    print(f"train step, geometry + albedo (the chunked recording kernel), 5,000 spheres, 400x225, "
+          f"2 spp, depth 50: seconds per step (median of {len(geo_times) - 2} warm) "
+          f"{geo_step_s:.4f} s on {card}")
     del params, opt, step, grads, target
 
     # ---- L7. times: the bench shape on three scene sizes, then one pass's shape ----
@@ -1508,7 +1655,7 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
                 fn(*rays, sc, 99, 16, **route)  # noqa: B023
 
             kern()
-            ms[name] = cuda_ms(kern, 2 if "chunked" in name else 5)
+            ms[name] = cuda_ms(kern, 5)
         return ms
 
     for n in (5000, 16000, N_LARGE):
@@ -1539,6 +1686,8 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     ms = kernel_ms(rays1, big, tables, fronts)
     print(f"{N_LARGE} spheres, one pass ({n1} camera rays, depth 16): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    chunked_blocks(mk, mk.trace_record(*rays1, big, 99, 16)[1].idx, big.num_spheres,
+                   ms["brute_chunked"], card)
     entries = []
     for key in ("brute_chunked", "record_brute_chunked", "bvh", "record_bvh", "front_hbm"):
         name = "front_hbm plain" if key == "front_hbm" else key
@@ -1551,10 +1700,12 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
             1)
         if key.startswith("record"):
             worst(key, hold_record(mk, f"one pass's rays, {N_LARGE} spheres", *rays1, big, None,
-                                   99, 16, False, bvh=tree_k, twin=kept[0]))
+                                   99, 16, False, bvh=tree_k, twin=kept[0],
+                                   exact="chunked" in key))
         else:
             worst(key, hold_large(mk, f"{key} (one pass's rays, {N_LARGE} spheres)", key, *rays1,
-                                  big, 99, 16, twin=kept[0], front=front, bvh=tree_k))
+                                  big, 99, 16, twin=kept[0], exact="chunked" in key,
+                                  front=front, bvh=tree_k))
         del kept
         counts = count_tests(mk, *sub1, big, front, 99, 16, bvh=tree_k)
         counts = {k: v * scale for k, v in counts.items()}
@@ -1578,7 +1729,8 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     print(f"seconds per frame (K7, {N_LARGE} spheres, 400x225, 30 spp, depth 50) {frame_s:.4f} s; "
           f"through K8 {frame8_s:.4f} s; bench-shape frames " +
           ", ".join(f"{n} spheres {s:.4f} s" for n, s in frames.items()) +
-          f"; train step (K5 bvh) {step_s:.4f} s; on {card}")
+          f"; train step (K5 bvh) {step_s:.4f} s; 5,000-sphere geometry step (chunked) "
+          f"{geo_step_s:.4f} s; on {card}")
     return entries
 
 
@@ -1605,12 +1757,13 @@ def instantiation(key) -> str:
             f"{', record_miss' if miss else ''}{', segment' if seg else ''}{OPTS[opt]}>")
 
 
-def hold_state(what: str, k, p) -> float:
+def hold_state(what: str, k, p, exact: bool = False) -> float:
     """One K6 launch against its plain version on the same carried state:
     every state plane of >= 99.9% of rays within 1e-3 (and, recording,
     residual idx equal on >= 99.9% of entries, ndir and refl equal where
-    idx is). Returns the max |diff| over the radiance, throughput and miss
-    planes and the ndir where idx is equal."""
+    idx is); with `exact` (the chunked scan) all of it bit-equal. Returns
+    the max |diff| over the radiance, throughput and miss planes and the
+    ndir where idx is equal."""
     import torch
 
     (k, kres), (p, pres) = (k, p) if isinstance(k, tuple) else ((k, None), (p, None))
@@ -1631,11 +1784,15 @@ def hold_state(what: str, k, p) -> float:
     print(line)
     check(torch.isfinite(k).all().item(), f"{what}: state finite")
     check(frac >= 0.999, f"{what}: >= 99.9% of rays within 1e-3 of the plain version")
+    if exact:
+        same = torch.equal(k, p) and (kres is None
+                                      or all(torch.equal(a, b) for a, b in zip(kres, pres)))
+        check(same, f"{what}: bit-equal to the plain version")
     return err
 
 
 def hold_segments(mk, dt, what: str, rays, scene, front, seed: int, cut: int, depth: int,
-                  record_miss: bool, record: bool, timed: bool = False):
+                  record_miss: bool, record: bool, timed: bool = False, exact: bool = False):
     """K6 against its plain version on the two segments of a two-phase
     trace of `rays` (bounces [0, cut) from the camera rays, then [cut,
     depth) on the rays packed alive-first after the cut), each from the
@@ -1648,7 +1805,7 @@ def hold_segments(mk, dt, what: str, rays, scene, front, seed: int, cut: int, de
         k = mk.segment_call(state, slot, scene, seed, b0, n, **kw)
         p = mk.segment_twin(state, slot, scene, seed, b0, n, **kw)
         err = max(err, hold_state(f"{what}, bounces [{b0}, {b0 + n}) of {slot.shape[0]} rays",
-                                  k, p))
+                                  k, p, exact))
         if timed:
             ms.append(cuda_ms(lambda: mk.segment_call(state, slot, scene, seed, b0, n, **kw),  # noqa: B023
                               10))
@@ -1879,13 +2036,14 @@ def depth_tail(mk, card: str) -> list[dict]:
             key = f"segment_{kind}{scan}"
             miss, record = kind == "miss_", kind == "record_"
             before = mk.LAUNCHES[key]
+            exact = scan == "brute_chunked"
             err, k_ms, p_ms = hold_segments(mk, dt, key, rays1, sc, f, 41, cut, depth, miss,
-                                            record, timed=True)
+                                            record, timed=True, exact=exact)
             check(mk.LAUNCHES[key] > before, f"{key}: the segments launched {key}")
             worst(key, err)
             if record:
                 worst(key, hold_segments(mk, dt, f"{key} (a train step's rays)", (so, sd, st),
-                                         sc, f, s_seed, cut, 50, False, True))
+                                         sc, f, s_seed, cut, 50, False, True, exact=exact))
             ms[key], plain_ms[key] = sum(k_ms), sum(p_ms)
             counts = seg_counts[scan]
             rows = mk.STATE_ROWS + (mk.MISS_ROWS if miss else 0)
@@ -1967,6 +2125,7 @@ def depth_tail(mk, card: str) -> list[dict]:
               f"{frac:.6f} of rays within 1e-3 (bit-equal {bit}); "
               f"{never.double().mean().item():.4f} of rays never missed")
         check(ident <= 2e-6, f"{key}: the miss planes rebuild the kernel's sky within 2e-6")
+        check(bit or name != "brute_chunked", f"{key}: bit-equal to the plain version")
         check(frac >= 0.999, f"{key}: >= 99.9% of rays within 1e-3 of the plain version")
         check(bool((mthr[never] == 0).all()), f"{key}: never-missed planes are 0")
         worst(key, max(d.max().item() for d in diffs))
@@ -2736,6 +2895,12 @@ def main() -> int:
     check(len(regs) == 30, f"30 instantiations of trace_kernel (got {len(regs)})")
     for key, n in OLD_REGISTERS.items():
         check(regs.get(key, (None,))[0] == n, f"{instantiation(key)} keeps its {n} registers")
+    lib = build.load_library()
+    for kind in CHUNKED_KINDS:  # the chunked scan's occupancy, as the launch gets it
+        key, blocks = (2, *kind, 0), ctypes.c_int()
+        build.check(lib.rtp_chunked_blocks_per_sm(*kind, ctypes.byref(blocks)), "occupancy")
+        print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill "
+              f"stores, {blocks.value} blocks of {mk.TILE} threads per SM")
 
     # ---- 1b. the probes: the card's measured peaks, which every bound below reads ----
     global OPS_PER_PAIR, OPS_PER_BOX

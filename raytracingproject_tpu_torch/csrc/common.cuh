@@ -8,6 +8,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int N_ROWS = 16;
@@ -32,6 +34,13 @@ struct RecordHit : Hit {
 template <bool RECORD> struct HitOf { using type = Hit; };
 template <> struct HitOf<true> { using type = RecordHit; };
 
+// The chunked scan's carry: the best t and its column alone; the winner's
+// other fields are read once, after the scan.
+struct ColumnHit {
+  float bt;
+  int col;
+};
+
 // _hit_init: no hit yet (a recording hit's column is set by its caller).
 __device__ __forceinline__ void hit_init(Hit& h) {
   h.bt = __int_as_float(0x7f800000); h.hx = 0.0f; h.hy = 0.0f; h.hz = 0.0f; h.hrad = 1.0f;
@@ -43,11 +52,11 @@ struct Ray {
 };
 
 // _sphere_test_ld: exact reference quadratic (src/sphere.h:30-57), open
-// interval (t_min, best_t), moving-sphere centre lerp.
-template <bool RECORD>
+// interval (t_min, best_t), moving-sphere centre lerp. H is the carry:
+// HitOf<RECORD>'s, or a ColumnHit (idx0 + s is then the winner's column).
+template <bool RECORD, class H>
 __device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, int s,
-                                            const Ray& r, float t_min,
-                                            typename HitOf<RECORD>::type& h, int idx0 = 0) {
+                                            const Ray& r, float t_min, H& h, int idx0 = 0) {
   const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
   const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
   const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
@@ -64,13 +73,17 @@ __device__ __forceinline__ void sphere_test(const float* __restrict__ S, int n, 
   const bool in1 = (r1 > t_min) && (r1 < h.bt);
   if (dpos && (in0 || in1)) {
     h.bt = in0 ? r0 : r1;
-    h.hx = ccx; h.hy = ccy; h.hz = ccz;
-    h.hrad = rad;
-    h.hmat = (int)S[ROW_MAT * n + s];
-    if constexpr (RECORD) h.hidx = idx0 + s;
-    h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
-    h.hfz = S[ROW_FUZZ * n + s];
-    h.hio = S[ROW_IOR * n + s];
+    if constexpr (std::is_same<H, ColumnHit>::value) {
+      h.col = idx0 + s;
+    } else {
+      h.hx = ccx; h.hy = ccy; h.hz = ccz;
+      h.hrad = rad;
+      h.hmat = (int)S[ROW_MAT * n + s];
+      if constexpr (RECORD) h.hidx = idx0 + s;
+      h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
+      h.hfz = S[ROW_FUZZ * n + s];
+      h.hio = S[ROW_IOR * n + s];
+    }
   }
 }
 

@@ -65,16 +65,45 @@
 //
 // Large scenes (tables past the card's shared memory), three more closest
 // hits under the same bounce loop, selected by the MODE template argument:
-// - CHUNKED, the brute scan (K2) for a table that does not fit whole: the
-//   block stages the table through a 1,024-sphere shared-memory buffer, as
-//   csrc/closest_hit.cu does, and scans chunk after chunk in column order,
-//   so it equals the whole-table scan bit for bit. Staging needs the whole
-//   block at each chunk, so the bounce loop runs while any ray of the
-//   BLOCK lives (__syncthreads_or), not of the warp. That wait and the
-//   re-staging every bounce cost 1.3x where the table fits (cover scene,
-//   360,000 rays, depth 16, H100 at 700 W: 5.1 ms against the whole-table
-//   kernel's 3.9 ms, forward and recording alike), which is why BRUTE
-//   stays and the wrapper picks between the two by table size.
+// - CHUNKED, the brute scan (K2; _closest_hit_brute :159 in _megakernel
+//   :832 and K5's brute core :1599) for a table that does not fit whole in
+//   shared memory. What bounds it on an H100: sphere tests, ~60 instruction slots
+//   each, and the block: staging needs every thread of it, so a bounce
+//   runs while any of its 256 rays lives. A one-ray-a-thread scan there
+//   made parked rays test every sphere beside the live ones and left a lone
+//   ray's 50,000 tests in one thread (186.9 ms a pass of 90,112 rays at
+//   depth 16 on 50,000 spheres, 0.059 of its bound, on an NVIDIA H100 80GB
+//   HBM3 at 700 W; PERF.md). What the design does, each bounce:
+//   * the block's live rays enter a list in shared memory (a warp ballot,
+//     then the 8 warp counts), and the loop runs while the list is not
+//     empty (`__syncthreads_count`);
+//   * each live ray gets G = the largest power of two <= 256 / L of the
+//     block's threads (L live rays): lane g of its group tests columns
+//     g, g + G, ... of every chunk in ascending order with sphere_test's
+//     arithmetic and strict `<`, carrying (t, column) alone; neighbouring
+//     lanes read neighbouring columns (no bank conflicts), and a ray's
+//     tests are spread over G threads, not 1;
+//   * the groups reduce (t, column) lexicographically, least t and on
+//     equal t least column (shuffles within a warp, shared memory across
+//     warps): what a strict-`<` scan in column order keeps, since a
+//     sphere's candidate root does not read the running best, so the
+//     result equals the whole-table scan and the plain version's first
+//     minimum bit for bit, ties included;
+//   * the ray's own thread reads its winner's row from global memory
+//     (the moving centre recomputed as sphere_test computes it) and shades
+//     as every other mode does;
+//   * only the 7 rows the test reads (centre, velocity, radius) are staged,
+//     1,024 columns a chunk, into two buffers: cp.async fills chunk k+1
+//     while chunk k is scanned, one barrier a chunk;
+//   * thread t of block b traces ray t * gridDim.x + b, not 256 neighbours:
+//     neighbouring rays live and die together, so blocks of them left some
+//     SMs with three long-lived blocks and others idle (the most loaded SM
+//     1.43x the mean). Interleaved, every block's live count follows the
+//     launch's (1.17x), for 0.68x the time at the one-pass shape (same
+//     card; PERF.md). Random numbers are keyed by the ray, so no value
+//     moves; the ray's loads and stores no longer coalesce, which costs
+//     less.
+//   The block size, group size and chunk size are fixed; there is no knob.
 // - BVH (K8, replaces _closest_hit_bvh :180 in _megakernel_bvh :850; with
 //   RECORD, K5's bvh core :1621): a stackless miss-link walk of the flat
 //   tree. The TPU walks ONE node pointer per 1,024-ray tile and descends
@@ -402,21 +431,155 @@ __device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Para
                    [&](int w) { front_word<RECORD, OPTS, SUB>(T, p, w, r, inv, h, o, bf); });
 }
 
-// The brute scan over a table too large for shared memory: the block
-// stages CHUNK columns at a time into `buf` ([N_ROWS, CHUNK]) and scans
-// them in column order. Every thread of the block must call it.
+// ---- CHUNKED: the brute scan over a table too large for shared memory ----
+constexpr int SCAN_ROWS = ROW_RAD + 1;  // rows sphere_test reads: centre, velocity, radius
+constexpr int RAY_WORDS = 9;            // a live ray in the list: o, d, tm, a, inv_a
+
+// CHUNKED's shared memory: two chunk buffers of the scanned rows
+// ([2][SCAN_ROWS][CHUNK]), the block's live rays ([RAY_WORDS][TPB], ray j
+// in column j), each (ray, 32-lane part)'s winner t and column, and each
+// warp's live count.
+struct ChunkSmem {
+  float* buf;
+  float* ray;
+  float* win_t;
+  int* win_c;
+  int* warp_live;
+};
+
+constexpr size_t CHUNK_SMEM_BYTES =
+    sizeof(float) * (2 * SCAN_ROWS * CHUNK + RAY_WORDS * TPB + 2 * TPB + TPB / 32);
+
+__device__ __forceinline__ ChunkSmem chunk_smem(float* smem) {
+  ChunkSmem c;
+  c.buf = smem;
+  c.ray = c.buf + 2 * SCAN_ROWS * CHUNK;
+  c.win_t = c.ray + RAY_WORDS * TPB;
+  c.win_c = reinterpret_cast<int*>(c.win_t + TPB);
+  c.warp_live = c.win_c + TPB;
+  return c;
+}
+
+// This thread's place in the block's list of live rays, and its length.
+struct LiveList {
+  int slot, n;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Start copying chunk k's scanned rows into buffer k % 2 (16-byte copies
+// when the rows allow it); cp_async_wait_all and a barrier complete it.
+__device__ __forceinline__ void stage_chunk(const ChunkSmem& C, const Params& p, int k) {
+  const int c0 = k * CHUNK;
+  const int n = min(CHUNK, p.n_cols - c0);
+  const bool vec = p.n_cols % 4 == 0 && (reinterpret_cast<uintptr_t>(p.sph) & 15) == 0;
+  float* dst = C.buf + (k & 1) * SCAN_ROWS * CHUNK;
+  for (int row = 0; row < SCAN_ROWS; ++row) {
+    const float* src = p.sph + (size_t)row * p.n_cols + c0;
+    if (vec)
+      for (int q = 4 * threadIdx.x; q < n; q += 4 * TPB) cp_async16(dst + row * CHUNK + q, src + q);
+    else
+      for (int q = threadIdx.x; q < n; q += TPB) cp_async4(dst + row * CHUNK + q, src + q);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Keep (ot, oc) if it is lexicographically less than the carry.
+__device__ __forceinline__ void take_less(ColumnHit& b, float ot, int oc) {
+  if (ot < b.bt || (ot == b.bt && oc < b.col)) {
+    b.bt = ot;
+    b.col = oc;
+  }
+}
+
+// The closest hit of every live ray of the block (see CHUNKED above).
+// Every thread of the block calls it; `h` is filled for a live ray.
 template <bool RECORD>
-__device__ __forceinline__ void closest_hit_chunked(float* buf, const Params& p, const Ray& r,
+__device__ __forceinline__ void closest_hit_chunked(const ChunkSmem& C, const Params& p,
+                                                    const Ray& r, bool alive,
+                                                    const LiveList& live,
                                                     typename HitOf<RECORD>::type& h) {
-  for (int c0 = 0; c0 < p.n_cols; c0 += CHUNK) {
-    const int n = min(CHUNK, p.n_cols - c0);
-    __syncthreads();  // the previous chunk is scanned by every warp
-    for (int row = 0; row <= ROW_IOR; ++row)
-      for (int q = threadIdx.x; q < n; q += TPB)
-        buf[row * CHUNK + q] = p.sph[row * p.n_cols + c0 + q];
-    __syncthreads();
-#pragma unroll 8
-    for (int s = 0; s < n; ++s) sphere_test<RECORD>(buf, CHUNK, s, r, p.t_min, h, c0);
+  const int tid = threadIdx.x;
+  const int n_chunks = (p.n_cols + CHUNK - 1) / CHUNK;
+  stage_chunk(C, p, 0);
+  if (alive) {
+    float* w = C.ray + live.slot;
+    w[0 * TPB] = r.ox; w[1 * TPB] = r.oy; w[2 * TPB] = r.oz;
+    w[3 * TPB] = r.dx; w[4 * TPB] = r.dy; w[5 * TPB] = r.dz;
+    w[6 * TPB] = r.tm; w[7 * TPB] = r.a; w[8 * TPB] = r.inv_a;
+  }
+  cp_async_wait_all();
+  __syncthreads();  // chunk 0 and the live list
+
+  const int lg = 31 - __clz(TPB / live.n);  // G = 2^lg lanes a live ray
+  const int G = 1 << lg;
+  const int j = tid >> lg, g = tid & (G - 1);
+  const bool scans = j < live.n;
+  Ray q{};
+  if (scans) {
+    const float* w = C.ray + j;
+    q.ox = w[0 * TPB]; q.oy = w[1 * TPB]; q.oz = w[2 * TPB];
+    q.dx = w[3 * TPB]; q.dy = w[4 * TPB]; q.dz = w[5 * TPB];
+    q.tm = w[6 * TPB]; q.a = w[7 * TPB]; q.inv_a = w[8 * TPB];
+  }
+  ColumnHit best{__int_as_float(0x7f800000), 0};
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) stage_chunk(C, p, k + 1);  // every thread is done with chunk k - 1
+    if (scans) {
+      const float* S = C.buf + (k & 1) * SCAN_ROWS * CHUNK;
+      const int n = min(CHUNK, p.n_cols - k * CHUNK);  // the last chunk is partial
+#pragma unroll 4
+      for (int s = g; s < n; s += G) sphere_test<false>(S, CHUNK, s, q, p.t_min, best, k * CHUNK);
+    }
+    if (k + 1 < n_chunks) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk k + 1 has landed, chunk k is scanned
+    }
+  }
+
+  // Each group of G lanes to its least (t, column): within a warp by
+  // shuffles, one entry per 32-lane part; the ray's thread reads its parts.
+  const int W = min(G, 32);
+  for (int off = W >> 1; off > 0; off >>= 1)
+    take_less(best, __shfl_xor_sync(FULL, best.bt, off), __shfl_xor_sync(FULL, best.col, off));
+  if ((tid & (W - 1)) == 0) {
+    C.win_t[tid / W] = best.bt;
+    C.win_c[tid / W] = best.col;
+  }
+  __syncthreads();
+  if (alive) {
+    const int parts = G / W;
+    ColumnHit win{C.win_t[live.slot * parts], C.win_c[live.slot * parts]};
+    for (int u = 1; u < parts; ++u)
+      take_less(win, C.win_t[live.slot * parts + u], C.win_c[live.slot * parts + u]);
+    if (win.bt < __int_as_float(0x7f800000)) {  // sphere_test's winner fields
+      const float* S = p.sph;
+      const int n = p.n_cols, s = win.col;
+      h.bt = win.bt;
+      h.hx = __ldg(S + ROW_CX * n + s) + r.tm * __ldg(S + ROW_MX * n + s);
+      h.hy = __ldg(S + ROW_CY * n + s) + r.tm * __ldg(S + ROW_MY * n + s);
+      h.hz = __ldg(S + ROW_CZ * n + s) + r.tm * __ldg(S + ROW_MZ * n + s);
+      h.hrad = __ldg(S + ROW_RAD * n + s);
+      h.hmat = (int)__ldg(S + ROW_MAT * n + s);
+      if constexpr (RECORD) h.hidx = s;
+      h.har = __ldg(S + ROW_AR * n + s);
+      h.hag = __ldg(S + ROW_AG * n + s);
+      h.hab = __ldg(S + ROW_AB * n + s);
+      h.hfz = __ldg(S + ROW_FUZZ * n + s);
+      h.hio = __ldg(S + ROW_IOR * n + s);
+    }
   }
 }
 
@@ -531,12 +694,23 @@ __device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const LargeP
   front_live_words(T, p, r, inv, [&](int w) { hbm_word(T, p, w, r, inv, h); });
 }
 
-// Does any ray of this thread's warp (CHUNKED: of its block, which stages
-// its table together) still bounce?
+// Does any ray of this thread's warp still bounce? CHUNKED: of its block,
+// which stages its table together; it also lists the block's live rays
+// (`live`: this ray's place, in warp order, and the count).
 template <int MODE>
-__device__ __forceinline__ bool any_alive(bool alive) {
-  if constexpr (MODE == CHUNKED) return __syncthreads_or(alive) != 0;
-  else return __any_sync(FULL, alive);
+__device__ __forceinline__ bool any_alive(bool alive, [[maybe_unused]] LiveList& live,
+                                          [[maybe_unused]] int* warp_live) {
+  if constexpr (MODE == CHUNKED) {
+    const unsigned b = __ballot_sync(FULL, alive);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) warp_live[warp] = __popc(b);
+    live.n = __syncthreads_count(alive);
+    live.slot = __popc(b & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) live.slot += warp_live[w];
+    return live.n > 0;
+  } else {
+    return __any_sync(FULL, alive);
+  }
 }
 
 // ---- the bounce loop (K1; K5 with RECORD) ----
@@ -546,6 +720,9 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
   extern __shared__ float smem[];
   FrontSmem T;
   [[maybe_unused]] float* s_bf = nullptr;  // FRONT_OPTS: the sub-block boxes
+  [[maybe_unused]] ChunkSmem C{};          // CHUNKED: its buffers and live list
+  [[maybe_unused]] LiveList live{0, 0};
+  if constexpr (MODE == CHUNKED) C = chunk_smem(smem);
   if constexpr (MODE == BRUTE || MODE == FRONT) {
     float* s_sph = smem;
     float* s_ff = s_sph + N_ROWS * p.n_cols;
@@ -581,7 +758,10 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
   }
   __syncthreads();
 
-  const int ray = blockIdx.x * TPB + threadIdx.x;  // the wrapper pads R to TPB
+  // The wrapper pads R to TPB. CHUNKED: thread t of block b traces ray
+  // t * gridDim.x + b, so each block holds a sample of the whole launch.
+  const int ray = MODE == CHUNKED ? (int)(threadIdx.x * gridDim.x + blockIdx.x)
+                                  : blockIdx.x * TPB + threadIdx.x;
   Ray r;
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
@@ -618,8 +798,8 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
   }
   const float inf = __int_as_float(0x7f800000);
 
-  int dep_end = 0;  // K5: bounces this warp ran; the DEAD fill starts here
-  for (int dep = 0; dep < p.max_depth && any_alive<MODE>(alive); ++dep) {
+  int dep_end = 0;  // K5: bounces this warp (CHUNKED: block) ran; the DEAD fill starts here
+  for (int dep = 0; dep < p.max_depth && any_alive<MODE>(alive, live, C.warp_live); ++dep) {
     if constexpr (RECORD) dep_end = dep + 1;
     r.a = fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f);
     r.inv_a = 1.0f / r.a;
@@ -631,7 +811,7 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
       closest_hit_front<RECORD, true, !RECORD && !SEG>(T, p, r, h, p.opts, s_bf);
     else if constexpr (MODE == FRONT) closest_hit_front<RECORD>(T, p, r, h);
     else if constexpr (MODE == BRUTE) closest_hit_brute<RECORD>(T.sph, p.n_cols, r, p.t_min, h);
-    else if constexpr (MODE == CHUNKED) closest_hit_chunked<RECORD>(smem, p, r, h);
+    else if constexpr (MODE == CHUNKED) closest_hit_chunked<RECORD>(C, p, r, alive, live, h);
     else if constexpr (MODE == BVH) closest_hit_bvh<RECORD>(p, r, h);
     else closest_hit_hbm(T, p, r, h);
 
@@ -800,7 +980,7 @@ size_t smem_bytes(const Params& p, int boxes_in_smem) {
   if (MODE == BRUTE) return sizeof(float) * (size_t)N_ROWS * p.n_cols;
   if (MODE == FRONT)
     return sizeof(float) * ((size_t)N_ROWS * p.n_cols + 2 * (size_t)p.n_front) + boxes;
-  if (MODE == CHUNKED) return sizeof(float) * (size_t)N_ROWS * CHUNK;
+  if (MODE == CHUNKED) return CHUNK_SMEM_BYTES;
   if (MODE == HBM && boxes_in_smem) return boxes + sizeof(int) * (size_t)p.n_front;
   return 0;
 }
@@ -950,6 +1130,17 @@ int launch_segment(const Params& p, int n_rays, cudaStream_t stream, const float
   if (record_miss)
     return launch<MODE, false, true, true, OPT>(opt(with_tail(p, t)), n_rays, stream);
   return launch<MODE, false, false, true, OPT>(opt(with_tail(p, t)), n_rays, stream);
+}
+
+// Blocks of TPB threads one SM holds of CHUNKED's instantiation (RECORD,
+// MISSREC, SEG), with its dynamic shared memory.
+template <bool RECORD, bool MISSREC, bool SEG>
+int chunked_occupancy(int* blocks) {
+  const void* fn = (const void*)trace_kernel<CHUNKED, RECORD, MISSREC, SEG>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)CHUNK_SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, CHUNK_SMEM_BYTES);
 }
 
 }  // namespace
@@ -1169,6 +1360,21 @@ int rtp_segment_front(const float* state_in, float* state_out, const int* slot, 
   return launch_segment<FRONT>(p, n_rays, (cudaStream_t)stream, state_in, state_out, slot,
                                bounce0, record_miss, res_idx, res_ndx, res_ndy, res_ndz,
                                res_refl);
+}
+
+// The occupancy of the chunked brute scan's six instantiations: blocks per
+// SM of the forward (record 0, record_miss 0, segment 0), recording,
+// record_miss and K6 kinds (segment 1 with record or record_miss).
+int rtp_chunked_blocks_per_sm(int record, int record_miss, int segment, int* blocks) {
+  if (record && record_miss) return (int)cudaErrorInvalidValue;
+  if (segment) {
+    if (record) return chunked_occupancy<true, false, true>(blocks);
+    if (record_miss) return chunked_occupancy<false, true, true>(blocks);
+    return chunked_occupancy<false, false, true>(blocks);
+  }
+  if (record) return chunked_occupancy<true, false, false>(blocks);
+  if (record_miss) return chunked_occupancy<false, true, false>(blocks);
+  return chunked_occupancy<false, false, false>(blocks);
 }
 
 // The generator alone: the four words of `bounce` for ray slots [0, n),

@@ -27,7 +27,8 @@
 // - probe_hit_kernel: the brute closest hit of the megakernels, on the
 //   same sphere_test (common.cuh), with the table staged once a block in
 //   shared memory and read as broadcasts (the TPU kernels read it from
-//   SMEM). VARIANT SLIM carries best t and winner alone (kexp's "slim").
+//   SMEM). VARIANT SLIM carries best t and winner alone (kexp's "slim"; the
+//   chunked brute scan's ColumnHit).
 //   OUT picks what is written: best t (OUT_T), best t plus a carry times
 //   1e-7 (OUT_KEXP: the winner's centre x for FULL, its index for SLIM), or
 //   the sum of every carry (OUT_SUM, the mixed peak): a carry left unread
@@ -105,30 +106,6 @@ __device__ __forceinline__ Ray probe_ray(const ProbeRays& R, int i) {
   return r;
 }
 
-// _slim_test (tools/kexp.py:40): sphere_test's quadratic, carrying the best
-// t and the winner's column alone.
-__device__ __forceinline__ void slim_test(const float* __restrict__ S, int n, int s,
-                                          const Ray& r, float& bt, int& bs) {
-  const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
-  const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
-  const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
-  const float rad = S[ROW_RAD * n + s];
-  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
-  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  const float disc = half_b * half_b - r.a * cq;
-  const bool dpos = disc > 0.0f;
-  const float sq = sqrtf(dpos ? disc : 1.0f);
-  const float r0 = (-half_b - sq) * r.inv_a;
-  const float r1 = (-half_b + sq) * r.inv_a;
-  const bool in0 = (r0 > T_MIN) && (r0 < bt);
-  const bool in1 = (r1 > T_MIN) && (r1 < bt);
-  if (dpos && (in0 || in1)) {
-    bt = in0 ? r0 : r1;
-    bs = s;
-  }
-}
-
 template <int VARIANT, int UNROLL, int OUT>
 __global__ void __launch_bounds__(PTPB)
 probe_hit_kernel(const float* __restrict__ sph, int n, ProbeRays R, float* __restrict__ out) {
@@ -139,16 +116,15 @@ probe_hit_kernel(const float* __restrict__ sph, int n, ProbeRays R, float* __res
   const Ray r = probe_ray<OUT>(R, i);
   const float inf = __int_as_float(0x7f800000);
   const int n_main = n / UNROLL * UNROLL;
-  if constexpr (VARIANT == SLIM) {
-    float bt = inf;
-    int bs = 0;
+  if constexpr (VARIANT == SLIM) {  // _slim_test (tools/kexp.py:40): the chunked scan's carry
+    ColumnHit c{inf, 0};
 #pragma unroll 1
     for (int q = 0; q < n_main; q += UNROLL) {
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) slim_test(S, n, q + u, r, bt, bs);
+      for (int u = 0; u < UNROLL; ++u) sphere_test<false>(S, n, q + u, r, T_MIN, c);
     }
-    for (int s = n_main; s < n; ++s) slim_test(S, n, s, r, bt, bs);
-    out[i] = (bt < inf ? bt : 0.0f) + (float)bs * 1e-7f;
+    for (int s = n_main; s < n; ++s) sphere_test<false>(S, n, s, r, T_MIN, c);
+    out[i] = (c.bt < inf ? c.bt : 0.0f) + (float)c.col * 1e-7f;
   } else {
     Hit h;
     hit_init(h);

@@ -73,6 +73,8 @@ LIBRARIES = {
         "rtp_segment_brute_chunked": ([_P, _P, _P, _I, _P, _I, *_SEG], _I),
         "rtp_segment_front": ([_P, _P, _P, _I, *_FRONT, *_SEG], _I),
         "rtp_philox": ([_P, _I, _U, _I, _P], _I),
+        # record, record_miss, segment -> blocks per SM (int out)
+        "rtp_chunked_blocks_per_sm": ([_I, _I, _I, _P], _I),
     },
     "closest_hit": {
         "rtp_error_string": _ERROR_STRING,

@@ -287,6 +287,110 @@ def test_chunked_brute_kernel_equals_whole_table_kernel(cuda_device, monkeypatch
     assert _rays_differ(chunked, mk.trace_paths_twin(o, d, t, scene, 5, 8)) <= 1e-3
 
 
+LIVE_PER_BLOCK = (1, 33, 129, 256)  # G = 256, 4, 1, 1 lanes a live ray
+
+
+def _few_live_rays(rays):
+    """One 256-ray block of the chunked kernel per entry of LIVE_PER_BLOCK
+    (block b traces rays b, b + 4, ...), with that many of the camera rays
+    `rays` (taken over the whole image) live at random places in the block
+    and the rest parked where every sphere test misses (o = 1e18,
+    d = (1, 1, 1)). Returns (o, d, t, live mask)."""
+    import numpy as np
+
+    n = mk.TILE * len(LIVE_PER_BLOCK)
+    o, d, t = (x[::x.shape[0] // n][:n].clone() for x in rays)  # over the whole image
+    rng = np.random.default_rng(7)
+    live = np.zeros(n, bool)
+    blocks = len(LIVE_PER_BLOCK)
+    for b, k in enumerate(LIVE_PER_BLOCK):  # thread t of block b traces ray t * blocks + b
+        live[rng.choice(mk.TILE, k, replace=False) * blocks + b] = True
+    live = torch.from_numpy(live).to(o.device)
+    o[~live], d[~live] = 1e18, 1.0
+    return o, d, t, live
+
+
+def _chunked_and_whole(monkeypatch, fn):
+    """fn() on the chunked route (the budget set low), then on the
+    whole-table route."""
+    with monkeypatch.context() as m:
+        m.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
+        chunked = fn()
+    return chunked, fn()
+
+
+def _tensors(x):
+    return [y for v in x for y in _tensors(v)] if isinstance(x, (tuple, list)) else [x]
+
+
+def _all_equal(a, b):
+    """Every tensor of a (nested tuples) equal to b's, bit for bit."""
+    a, b = _tensors(a), _tensors(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kind", ["forward", "record", "record_miss", "segment",
+                                  "segment_miss", "segment_record"])
+def test_chunked_kernel_with_few_live_rays(cuda_device, kind, monkeypatch):
+    """Blocks with 1, 33, 129 and 256 live rays, the rest parked from the
+    start (K6: dead in the carried state; the monolithic kernels: a miss at
+    the first bounce): each of the chunked scan's six instantiations
+    bit-equal to its plain version and to the whole-table kernel (2,000
+    spheres, two chunks)."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    scene, _, rays = _large_scene(cuda_device)
+    o, d, t, live = _few_live_rays(rays)
+    if kind.startswith("segment"):
+        miss, record = kind == "segment_miss", kind == "segment_record"
+        state, slot = dt.initial_state(o, d, t, miss)
+        state[mk.ST_ALIVE] = live.float()
+        kw = dict(record_miss=miss, record=record)
+        key = f"segment_{'record_' if record else 'miss_' if miss else ''}brute_chunked"
+        before = mk.LAUNCHES[key]
+        got, whole = _chunked_and_whole(
+            monkeypatch, lambda: mk.segment_call(state, slot, scene, 77, 3, 8, **kw))
+        want = mk.segment_twin(state, slot, scene, 77, 3, 8, **kw)
+        if record:
+            (got, planes), (whole, wplanes), (want, pplanes) = got, whole, want
+            assert _all_equal(planes, pplanes) and _all_equal(planes, wplanes)
+    else:
+        fn = mk.trace_record if kind == "record" else mk.trace_paths
+        kw = {"record_miss": True} if kind == "record_miss" else {}
+        twin = mk.trace_record_twin if kind == "record" else mk.trace_paths_twin
+        key = {"forward": "brute_chunked", "record": "record_brute_chunked",
+               "record_miss": "brute_chunked_miss"}[kind]
+        before = mk.LAUNCHES[key]
+        got, whole = _chunked_and_whole(monkeypatch, lambda: fn(o, d, t, scene, 5, 8, **kw))
+        want = twin(o, d, t, scene, 5, 8, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    assert _all_equal(got, want) and _all_equal(got, whole)
+
+
+def test_chunked_kernel_keeps_the_first_of_exact_ties(cuda_device, monkeypatch):
+    """Every sphere twice, at columns i and 1999 - i (other lanes, other
+    chunks): every hit is an exact tie, and the chunked kernel, forward and
+    recording, keeps the first column as the whole-table kernel and the
+    plain version do."""
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    half = make_random_scene(1000, seed=3)
+    scene = half.take(torch.cat([torch.arange(1000), torch.arange(999, -1, -1)])).to(cuda_device)
+    _, _, rays = _large_scene(cuda_device)
+    o, d, t = (x[::4][:2048].contiguous() for x in rays)  # over the whole image
+    got, whole = _chunked_and_whole(monkeypatch, lambda: mk.trace_paths(o, d, t, scene, 9, 8))
+    (rad, res), (rad_w, res_w) = _chunked_and_whole(
+        monkeypatch, lambda: mk.trace_record(o, d, t, scene, 9, 8))
+    assert torch.equal(got, whole) and torch.equal(got, mk.trace_paths_twin(o, d, t, scene, 9, 8))
+    prad, pres = mk.trace_record_twin(o, d, t, scene, 9, 8)
+    for a, b in ((rad, rad_w), (rad, prad), (res.idx, res_w.idx), (res.idx, pres.idx),
+                 (res.ndir, pres.ndir), (res.refl, pres.refl)):
+        assert torch.equal(a, b)
+    hits = res.idx >= 0
+    assert bool(hits.any()) and bool((res.idx[hits] < 1000).all())
+
+
 @pytest.mark.parametrize("zero_draws", [True, False])
 def test_bvh_kernel_matches_twin(cuda_device, zero_draws):
     """K8 and K5's bvh core against their plain versions (a per-ray walk in
