@@ -21,9 +21,9 @@ through its kernels:
 - the oracle: `render_image` and `render` with
   `RenderSettings(use_megakernel=False, use_pallas=True)` at the same
   reference configuration, the bounce loop in PyTorch with the fused
-  closest hit (K4) once a bounce; K4 against its plain version and
-  against `ops.intersect.closest_hit`, `use_pallas` on against off, the
-  BVH walk against the brute scan; and `grad.make_train_step` (autograd
+  closest hit (K4) once a bounce; K4 against its plain version (bit for
+  bit) and against `ops.intersect.closest_hit`, `use_pallas` on against
+  off, the BVH walk against the brute scan; and `grad.make_train_step` (autograd
   through the oracle) at 200 px wide, depth 8, on the cover and the
   three-sphere scene (a CPU scene and no device given: the step runs on
   the card), its geometry gradient against central differences of the
@@ -59,10 +59,10 @@ through its kernels:
   (a pass's 90,112 rays cut at 4 then 12 more bounces; the recording
   segments also on a train step's 180,000 rays at depth 50) and on its
   path's scene (the chunked scan on 5,000 spheres, five staged chunks;
-  K7 with record_miss on 50,000, past 576 subtrees), the pipelines
-  against the monolithic kernels (Philox draws: bit-equal on the brute
-  scans, and so are the brute frames), the two-phase gradients against
-  the monolithic ones.
+  K7 with record_miss on 50,000, past 576 subtrees; the chunked and front
+  segments bit-equal), the pipelines against the monolithic kernels
+  (Philox draws: bit-equal, and so are the brute frames), the two-phase
+  gradients against the monolithic ones.
 
 - the probes, right after the build: each probe kernel of csrc/probes.cu
   (tools/'s FMA peak, mixed closest-hit peak, kfront and kexp) bit-equal
@@ -152,22 +152,29 @@ PROBE_REPLACES = {"fma": "tools/roofline.py:92", "mixed": "tools/roofline.py:160
                      ("full", "full_u4", "full_u8", "slim", "slim_u4", "slim_u8")}}
 MODES = {0: "BRUTE", 1: "FRONT", 2: "CHUNKED", 3: "BVH", 4: "HBM"}
 OPTS = {0: "", 1: ", SCHLICK3", 2: ", FRONT_OPTS"}
-# Registers of the 17 trace_kernel instantiations that came before the
-# OPT template argument (K3's options, SCHLICK3) and are not the chunked
-# brute scan, as -Xptxas -v reported them for the source without it:
-# (mode, record, record_miss, segment, opt) -> registers. The seven that
-# came before K6 and record_miss had the same counts before those were
-# added (the record front's 80 with a 60 B spill). The six chunked
-# instantiations (mode 2) have a closest hit of their own since its
+# Registers of the 14 trace_kernel instantiations that came before the
+# OPT template argument (K3's options, SCHLICK3), are not the chunked brute
+# scan and are not K6's front segment, as -Xptxas -v reported them for the
+# source without it: (mode, record, record_miss, segment, opt) ->
+# registers. The seven that came before K6 and record_miss had the same
+# counts before those were added (the record front's 80 with a 60 B spill).
+# The six chunked instantiations (mode 2) and the three front segments
+# (FRONT_SEGMENT_KINDS) have a closest hit of their own since their
 # redesign; their registers and blocks per SM are printed, not held.
 OLD_REGISTERS = {(0, 0, 0, 0, 0): 64, (1, 0, 0, 0, 0): 64, (0, 1, 0, 0, 0): 64,
                  (1, 1, 0, 0, 0): 80, (3, 0, 0, 0, 0): 57, (3, 1, 0, 0, 0): 59,
                  (4, 0, 0, 0, 0): 98, (0, 0, 0, 1, 0): 64, (0, 0, 1, 0, 0): 64,
-                 (0, 0, 1, 1, 0): 75, (0, 1, 0, 1, 0): 64, (1, 0, 0, 1, 0): 60,
-                 (1, 0, 1, 0, 0): 64, (1, 0, 1, 1, 0): 64, (1, 1, 0, 1, 0): 80,
+                 (0, 0, 1, 1, 0): 75, (0, 1, 0, 1, 0): 64, (1, 0, 1, 0, 0): 64,
                  (3, 0, 1, 0, 0): 61, (4, 0, 1, 0, 0): 80}
 # The chunked brute scan's six instantiations: (record, record_miss, segment)
 CHUNKED_KINDS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1), (1, 0, 1))
+# K6's three front segments: (record, record_miss), and their kernels' names
+FRONT_SEGMENT_KINDS = ((0, 0), (0, 1), (1, 0))
+# The kernels whose closest hit computes roots only where a discriminant is
+# positive: the mixed peak measures full tests, not the same work, so they
+# get no mixed share.
+ROOTS_ONLY = ("closest_hit", "megakernel_segment_front", "megakernel_segment_miss_front",
+              "megakernel_segment_record_front")
 COVER_CAMERA = dict(aspect_ratio=16.0 / 9.0, image_width=400, vfov=20.0,
                     lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                     defocus_angle=0.6, focus_dist=10.0)
@@ -202,11 +209,6 @@ PEAK_BYTES = 3.35e12  # bytes per second
 # This run's measured peaks: "ops", FFMA instructions a second; "pairs",
 # sphere tests a second of the brute closest hit (the mixed peak).
 RATE = {"ops": None, "pairs": None}
-# Floating-point operations a ray-sphere pair and a ray-box test are
-# charged: probes/roofline.py counts them in the plain versions, and main
-# sets these from it (one count for the script and the probes).
-OPS_PER_PAIR = None
-OPS_PER_BOX = None
 
 
 def check(cond: bool, what: str) -> None:
@@ -362,13 +364,24 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def test_ops(counts: dict) -> float:
+    """Operations a bound charges for the tests in `counts`: every ray-sphere
+    pair ("pairs") to the sign of its discriminant, the roots of those
+    whose discriminant is positive ("roots"), and the box tests ("boxes"),
+    at probes/roofline.py's counts (one count for the script and the
+    probes)."""
+    from raytracingproject_tpu_torch.probes import roofline
+
+    return roofline.test_ops(counts["pairs"], counts["roots"], counts.get("boxes", 0))
+
+
 def megakernel_bound(counts: dict, n_rays: int, depth: int, tab_bytes: int,
                      record: bool) -> tuple[float, str]:
     """Bound of one megakernel call: the counted tests at their
-    operations each, against the rays read (28 B), the table, the
-    radiance written (12 B) and, recording, the residual planes
+    operations each (`test_ops`), against the rays read (28 B), the table,
+    the radiance written (12 B) and, recording, the residual planes
     (17 B a ray and bounce)."""
-    ops = counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX
+    ops = test_ops(counts)
     nbytes = n_rays * 40 + tab_bytes + (n_rays * depth * 17 if record else 0)
     return bound(ops, nbytes)
 
@@ -401,8 +414,8 @@ def sass_instructions_per_pair(library: Path) -> float | None:
 
 def hold_closest_hit(trace, what: str, o, d, t, scene) -> float:
     """K4 against its plain version, and against ops.intersect.closest_hit,
-    on one set of rays. Against the plain version: hit mask equal, idx
-    equal on >= 99.9% of hits, t within 1e-6 relative. Against
+    on one set of rays. Against the plain version: t and idx bit-equal
+    (and so hit mask equal, idx equal, t within 1e-6 relative). Against
     closest_hit (ties aside): hit masks differ on <= 0.01% of rays, idx
     equal on >= 99.9% of common hits, t within 1e-5 relative where idx is.
     Returns max |t diff| against the plain version over the hits."""
@@ -435,6 +448,7 @@ def hold_closest_hit(trace, what: str, o, d, t, scene) -> float:
           f"relative t diff {ref_rel:.3e}, max |normal diff| {n_diff:.3e}, bit-equal t "
           f"{torch.equal(rec.t, ref.t)}")
     check(bool(hit.any()) and not bool(hit.all()), f"closest_hit ({what}): hits and misses")
+    check(bit_equal, f"closest_hit ({what}): t and idx bit-equal to the twin's")
     check(mask_eq, f"closest_hit ({what}): hit mask equal to the twin's")
     check(idx_frac >= 0.999, f"closest_hit ({what}): idx equal on >= 99.9% of hits")
     check(t_ok, f"closest_hit ({what}): t within 1e-6 relative of the twin's")
@@ -498,23 +512,30 @@ def closest_hit_against_twin(trace, card: str) -> tuple[float, float, float, tup
     ms = cuda_ms(kern, 50)
     plain_ms = cuda_ms(twin, 5)
     ms2 = cuda_ms(lambda: trace.closest_hit_fused(o2, d2, t, tab), 50)
-    pairs = n * tab.shape[1]
-    b_ms, b_by = bound(pairs * OPS_PER_PAIR, n * 36 + tab.numel() * 4)
+    counts = trace.disc_counts(o, d, t, tab)
+    counts2 = trace.disc_counts(o2, d2, t, tab)
+    pairs = counts["pairs"]
+    b_ms, b_by = bound(test_ops(counts), n * 36 + tab.numel() * 4)
+    b2_ms, _ = bound(test_ops(counts2), n * 36 + tab.numel() * 4)
+    occ = trace.closest_hit_occupancy()
     print(f"closest_hit: kernel {ms:.4f} ms (primary rays; {ms2:.4f} ms after one scatter) = "
           f"{pairs / ms / 1e6:.1f} G pair tests/s; twin {plain_ms:.3f} ms; bound {b_ms:.4f} ms "
-          f"by {b_by}, the kernel reaches {b_ms / ms:.3f} of it ({n} rays x {tab.shape[1]} "
-          f"spheres) on {card}")
+          f"by {b_by}, the kernel reaches {b_ms / ms:.3f} of it (after one scatter {b2_ms:.4f} "
+          f"ms, {b2_ms / ms2:.3f}) ({n} rays x {tab.shape[1]} spheres; blocks of "
+          f"{occ['threads']} threads, {occ['blocks_per_sm']} a SM) on {card}")
+    for what, c in (("primary rays", counts), ("after one scatter", counts2)):
+        print(f"closest_hit pairs ({what}): {c['roots']} of {c['pairs']} pairs have a positive "
+              f"discriminant ({c['roots'] / c['pairs']:.5f}); {c['warp_roots']} of {c['warps']} "
+              f"(warp of 32 rays, sphere) pairs take roots in some lane "
+              f"({c['warp_roots'] / c['warps']:.5f})")
     from raytracingproject_tpu_torch.ops.cuda import build
 
     per_pair = sass_instructions_per_pair(build.library("closest_hit"))
     if per_pair is None:
         print("closest_hit SASS: instructions per pair not measured")
     else:
-        issue_ms = 1e3 * pairs * per_pair / ops_rate()
-        print(f"closest_hit SASS: {per_pair:.1f} instructions per pair in the sphere loop; at "
-              f"{ops_rate():.4g} instructions/s (measured FFMA {RATE['ops']:.4g}, data sheet "
-              f"{PEAK_FP32 / 2:.3g}) they alone take {issue_ms:.4f} ms, {issue_ms / ms:.3f} of "
-              "the kernel's time")
+        print(f"closest_hit SASS: {per_pair:.1f} static instructions per pair in the sphere loop "
+              "(the roots' branch included, which most warps skip)")
     return err, ms, plain_ms, (b_ms, b_by), pairs
 
 
@@ -567,7 +588,8 @@ def oracle_frame(trace, card: str, megakernel_mean: float) -> int:
     print(f"oracle main path: render_image + render (use_megakernel=False, use_pallas=True) at "
           f"400x225, 30 spp, depth 50: closest_hit launches {launches}, bounces run "
           f"{bounces[0]}")
-    check(launches > 0 and launches == bounces[0], "K4 ran once for every bounce of the oracle")
+    check(launches == bounces[0] == 2 * 30 * 50,
+          "K4 ran once for every bounce of the oracle: 2 frames x 30 spp x 50 bounces")
     check(tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
           "oracle image finite, 225x400x3")
     check(torch.equal(img_u8, to_u8(img)), "oracle render_image == to_u8(render) (same seed)")
@@ -587,7 +609,7 @@ def oracle_frame(trace, card: str, megakernel_mean: float) -> int:
     print(f"oracle, use_pallas on vs off (2 spp, depth 50, equal seeds): {frac:.6f} of pixels "
           f"within 1e-4, bit-equal {torch.equal(a, b)}; the plain-selection render took "
           f"{plain_s:.4f} s")
-    check(frac >= 0.999, "use_pallas on and off agree on >= 99.9% of pixels")
+    check(torch.equal(a, b), "use_pallas on and off give the same image, bit for bit")
 
     # the BVH walk against the brute scan, one bounce of cover rays
     o, d, t = (x[:N_CMP] for x in pass_rays(ref_cam, torch.Generator(device=dev).manual_seed(8)))
@@ -1154,6 +1176,7 @@ def counting_hit(mk, scene, front, bvh, device, counts: dict):
     subtrees' 8-column groups; the columns of the subtrees (and groups)
     whose box the ray enters, padding columns included. BVH walk (K8): the
     nodes the ray's walk visits and the spheres of the leaves it enters.
+    "roots": the pair tests among those whose discriminant is positive.
     Dead rays are parked where every test misses and count nothing."""
     import torch
 
@@ -1204,6 +1227,8 @@ def counting_hit(mk, scene, front, bvh, device, counts: dict):
                                                          t_min)[:, grp]
             counts["bounces"] += n_live
             counts["pairs"] += int(entered.sum())
+            disc = mk._sphere_disc(tab, ox, oy, oz, dx, dy, dz, tm, a)[1]
+            counts["roots"] += int((entered & (disc > 0.0)).sum())
             return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
     elif bvh is not None:
         flat = mk.bvh_tables(bvh, device).flat
@@ -1214,9 +1239,11 @@ def counting_hit(mk, scene, front, bvh, device, counts: dict):
                                            t_min, counts=counts)
     else:
         def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
-            n_live = int((ox < 1e17).sum())
-            counts["bounces"] += n_live
-            counts["pairs"] += n_live * tab.shape[1]
+            live = ox < 1e17
+            counts["bounces"] += int(live.sum())
+            counts["pairs"] += int(live.sum()) * tab.shape[1]
+            disc = mk._sphere_disc(tab, ox, oy, oz, dx, dy, dz, tm, a)[1]
+            counts["roots"] += int(((disc > 0.0) & live[:, None]).sum())
             return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
     return tab, hit, chunk
 
@@ -1226,7 +1253,7 @@ def count_tests(mk, o, d, t, scene, front, seed: int, depth: int, bvh=None) -> d
     version of the bounce loop (see `counting_hit`)."""
     import torch
 
-    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
+    counts = {"bounces": 0, "pairs": 0, "roots": 0, "boxes": 0}
     tab, hit, chunk = counting_hit(mk, scene, front, bvh, o.device, counts)
     for r0 in range(0, o.shape[0], chunk):
         sl = slice(r0, r0 + chunk)
@@ -1734,23 +1761,6 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     return entries
 
 
-def ptxas_registers(log: str) -> dict:
-    """(mode, record, record_miss, segment, opt) -> (registers, spill store
-    bytes) of every `trace_kernel` instantiation in nvcc's -Xptxas -v
-    output."""
-    out, cur, spill = {}, None, 0
-    for line in log.splitlines():
-        if "Compiling entry" in line:
-            m = re.search(r"trace_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELi(\d)E", line)
-            cur = tuple(int(x) for x in m.groups()) if m else None
-        elif cur is not None and "spill stores" in line:
-            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-        elif cur is not None and re.search(r"Used \d+ registers", line):
-            out[cur] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
-            cur = None
-    return out
-
-
 def instantiation(key) -> str:
     mode, record, miss, seg, opt = key
     return (f"trace_kernel<{MODES[mode]}{', record' if record else ''}"
@@ -1820,7 +1830,7 @@ def hold_segments(mk, dt, what: str, rays, scene, front, seed: int, cut: int, de
 def segment_counts(mk, dt, rays, scene, front, seed: int, cut: int, depth: int) -> dict:
     """The tests a two-phase trace of `rays` needs, counted in K6's plain
     version (`counting_hit`), over both segments."""
-    counts = {"bounces": 0, "pairs": 0, "boxes": 0}
+    counts = {"bounces": 0, "pairs": 0, "roots": 0, "boxes": 0}
     state, slot = dt.initial_state(*rays)
     tables = counting_hit(mk, scene, front, None, state.device, counts)
     original = mk.twin_closest_hit
@@ -2036,7 +2046,7 @@ def depth_tail(mk, card: str) -> list[dict]:
             key = f"segment_{kind}{scan}"
             miss, record = kind == "miss_", kind == "record_"
             before = mk.LAUNCHES[key]
-            exact = scan == "brute_chunked"
+            exact = scan in ("brute_chunked", "front")  # the redesigned closest hits
             err, k_ms, p_ms = hold_segments(mk, dt, key, rays1, sc, f, 41, cut, depth, miss,
                                             record, timed=True, exact=exact)
             check(mk.LAUNCHES[key] > before, f"{key}: the segments launched {key}")
@@ -2050,7 +2060,7 @@ def depth_tail(mk, card: str) -> list[dict]:
             tab_bytes = 4 * (sc.num_spheres * mk.N_ROWS if f is None
                              else f.sph.numel() + f.ff.numel())
             nbytes = 2 * (n1 * (8 * rows + 4) + tab_bytes) + (n1 * depth * 17 if record else 0)
-            bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
+            bounds[key] = bound(test_ops(counts),
                                 nbytes)
             pairs_of[key] = counts["pairs"]
             print(f"{key}: kernel {k_ms[0]:.3f} + {k_ms[1]:.3f} ms (bounces [0, {cut}) of {n1} "
@@ -2063,7 +2073,6 @@ def depth_tail(mk, card: str) -> list[dict]:
     # ---- D2. two-phase and segmented against monolithic on the card, Philox draws ----
     for path, sc in scenes.items():
         f = front if path == "front" else None
-        exact = f is None  # the brute scans: bit-equal; the front: its culling is per warp
         mono = mk.trace_paths(*rays1, sc, 43, 50, front=f)
         runs = {"two-phase cut 4": dict(cuts=(4,)), "two-phase cuts 2 and 6": dict(cuts=(2, 6))}
         outs = {k: dt.trace_paths_twophase(*rays1, sc, 43, 50, front=f, **kw)
@@ -2087,11 +2096,11 @@ def depth_tail(mk, card: str) -> list[dict]:
               f"of rays differing from the monolithic kernel by > 1e-3: {line}; two-phase "
               f"residuals, unpermuted, equal the monolithic record's on {frac:.6f} of rays; "
               f"{int(n_alive)} rows of {dt.ROW_WIDTH} alive after the cut")
+        # bit-equal on every scan: the front segment computes its plain version's closest
+        # hit, which monolithic K3 equals but for last-ulp ties at a culled box's edge
         for k, v in outs.items():
-            check(torch.equal(v, mono) if exact else rays_differ(v, mono) <= 1e-3,
-                  f"{path} {k} equals the monolithic kernel")
-        check(frac == 1.0 if exact else frac >= 0.999,
-              f"{path}: two-phase residuals equal the monolithic record's")
+            check(torch.equal(v, mono), f"{path} {k} bit-equal to the monolithic kernel")
+        check(frac == 1.0, f"{path}: two-phase residuals equal the monolithic record's")
         check(bool((res2.idx[:, int(n_alive) * dt.ROW_WIDTH:] == mk.DEAD).all()),
               f"{path}: packed rows past n_alive all DEAD")
     del outs, res_m, res1, res2, back, idx, nd, refl
@@ -2142,7 +2151,7 @@ def depth_tail(mk, card: str) -> list[dict]:
         if name == "bvh":
             tab_bytes += 4 * mk.bvh_tables(tree, dev).nodes.numel()
         # the rays read and the radiance written (40 B), the miss planes written (24 B)
-        b_ms, b_by = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
+        b_ms, b_by = bound(test_ops(counts),
                            n1 * 64 + tab_bytes)
         bounds[key] = (b_ms, b_by)
         pairs_of[key] = counts["pairs"]
@@ -2524,7 +2533,8 @@ def probe_kernels(card: str) -> list[dict]:
     print(f"measured peaks on {card}: {peaks['ffma_per_s']:.5g} FFMA instructions/s "
           f"= {peaks['fp32_flops_per_s'] / 1e12:.4g} TFLOP/s float32 (data sheet "
           f"{PEAK_FP32 / 1e12:.4g} TFLOP/s); mixed {peaks['mixed_pairs_per_s']:.5g} sphere tests/s"
-          f" ({peaks['mixed_ops_over_ffma']:.3f} of the FFMA rate at {OPS_PER_PAIR} operations a "
+          f" ({peaks['mixed_ops_over_ffma']:.3f} of the FFMA rate at {roofline.OPS_PER_PAIR} "
+          "operations a full "
           "test); bounds below use the larger of the measured FFMA rate and the data sheet's "
           f"{PEAK_FP32 / 2:.4g}")
     for name, r in kf.items():
@@ -2555,21 +2565,24 @@ def probe_kernels(card: str) -> list[dict]:
     entry("fma", peaks["fma_ms"], None,
           bound(n * roofline.FMAS_PER_ELEMENT, 8 * n))
     n_pad = peaks["mixed_spheres"]
+    mixed_roots = roofline.positive_discriminants(tab, roofline.mixed_rays(ox)[:7])
     entry("mixed", peaks["mixed_ms"], n * n_pad,
-          bound(n * n_pad * OPS_PER_PAIR, 8 * n + 4 * tab.numel()))
+          bound(roofline.test_ops(n * n_pad, mixed_roots), 8 * n + 4 * tab.numel()))
     # kfront and kexp from the 2,000-sphere scene: tens of waves of work,
     # where the cover scene's 0.1-0.2 ms passes vary by half between calls
     big = kf["2000"]
     r, n_sph = big["rays"], scenes["2000"].num_spheres
-    entry("kfront_brute", big["brute_ms"], r * n_sph,
-          bound(r * n_sph * OPS_PER_PAIR, 32 * r + 64 * n_sph))
+    brute_ops = roofline.test_ops(r * n_sph, big["brute_roots"])
+    entry("kfront_brute", big["brute_ms"], r * n_sph, bound(brute_ops, 32 * r + 64 * n_sph))
     f24 = big["front"][kfront.FRONTS[0]]
     entry("kfront_front", f24["ms"], f24["pairs"],
-          bound(f24["pairs"] * OPS_PER_PAIR + f24["boxes"] * OPS_PER_BOX,
+          bound(roofline.test_ops(f24["pairs"], f24["roots"], f24["boxes"]),
                 32 * r + 64 * f24["columns"]))
     for v in kexp.VARIANTS:
-        entry(f"kexp_{v}", kx["2000"][v]["ms"], r * n_sph,
-              bound(r * n_sph * OPS_PER_PAIR, 32 * r + 64 * n_sph))
+        entry(f"kexp_{v}", kx["2000"][v]["ms"], r * n_sph, bound(brute_ops, 32 * r + 64 * n_sph))
+    print(f"pairs with a positive discriminant: mixed probe {mixed_roots} of {n * n_pad}; "
+          f"primary rays on 2,000 spheres {big['brute_roots']} of {r * n_sph}, of the F=24 "
+          f"front's live columns {f24['roots']} of {f24['pairs']}")
     return entries
 
 
@@ -2684,8 +2697,7 @@ def front_options(mk, card: str) -> list[dict]:
                 rows = mk.STATE_ROWS + (mk.MISS_ROWS if miss else 0)
                 tab_bytes = 4 * (we.sph.numel() + we.ff.numel())
                 nbytes = 2 * (n1 * (8 * rows + 4) + tab_bytes) + (n1 * 16 * 17 if rec else 0)
-                bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR
-                                    + counts["boxes"] * OPS_PER_BOX, nbytes)
+                bounds[key] = bound(test_ops(counts), nbytes)
 
     # ---- the options' main path: render_pass and make_fast_train_step with the options ----
     sc, fr = fronts_of["cover"]
@@ -2741,7 +2753,7 @@ def front_options(mk, card: str) -> list[dict]:
         n = rays[0].shape[0]
         tab_bytes = 4 * (f.sph.numel() + f.ff.numel() + (0 if f.bf is None else f.bf.numel()))
         if kw:
-            bounds[key] = bound(counts["pairs"] * OPS_PER_PAIR + counts["boxes"] * OPS_PER_BOX,
+            bounds[key] = bound(test_ops(counts),
                                 n * 64 + tab_bytes)
         else:
             bounds[key] = megakernel_bound(counts, n, 16, tab_bytes, rec)
@@ -2888,7 +2900,8 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "Compiling entry" in line
                 or line.startswith("==")):
             print(f"  ptxas: {line.strip()}")
-    regs = ptxas_registers(str(build.BUILD_INFO["log"]))
+    all_regs = build.kernel_registers(str(build.BUILD_INFO["log"]))
+    regs = {k: v for k, v in all_regs.items() if isinstance(k, tuple)}  # trace_kernel's
     for key in sorted(regs):
         print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill stores"
               + (f" (before the options: {OLD_REGISTERS[key]})" if key in OLD_REGISTERS else ""))
@@ -2902,11 +2915,12 @@ def main() -> int:
         print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill "
               f"stores, {blocks.value} blocks of {mk.TILE} threads per SM")
 
-    # ---- 1b. the probes: the card's measured peaks, which every bound below reads ----
-    global OPS_PER_PAIR, OPS_PER_BOX
-    from raytracingproject_tpu_torch.probes import roofline
+    k4_regs = build.named(all_regs, "closest_hit_kernel")
+    occ = trace.closest_hit_occupancy()
+    print(f"  closest_hit_kernel: {k4_regs[0]} registers, {k4_regs[1]} B spill stores, "
+          f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads (one ray each) per SM")
 
-    OPS_PER_PAIR, OPS_PER_BOX = roofline.OPS_PER_PAIR, roofline.OPS_PER_BOX
+    # ---- 1b. the probes: the card's measured peaks, which every bound below reads ----
     probe_entries = probe_kernels(card)
 
     # ---- 2. the generator: kernel against ops/rng.py, bit for bit ----
@@ -2923,6 +2937,13 @@ def main() -> int:
     scene, front = prepare_scene(make_cover_scene(0), bench_cam, settings)
     print(f"scene: {scene.num_spheres} spheres; front {front.ff.shape[1]} subtrees over "
           f"{front.sph.shape[1]} columns, repack {front.repack}")
+    for kind in FRONT_SEGMENT_KINDS:  # K6's front segments' occupancy on this front
+        key, blocks = (1, kind[0], kind[1], 1, 0), ctypes.c_int()
+        build.check(lib.rtp_front_segment_blocks_per_sm(
+            front.sph.shape[1], front.ff.shape[1], front.wf.shape[1], front.sf.shape[1], *kind,
+            ctypes.byref(blocks)), "occupancy")
+        print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill "
+              f"stores, {blocks.value} blocks of {mk.TILE} threads per SM (the cover front)")
     gen = torch.Generator(device=dev).manual_seed(1)
     w, h = bench_cam.image_size()
     o, d, t = _slot_rays(bench_cam.derive(torch.float32, dev), w, h, 4, gen, None)
@@ -3104,11 +3125,14 @@ def main() -> int:
           f"{RATE['ops']:.5g} FFMA instructions/s and the data sheet's {PEAK_FP32 / 2:.4g} (its "
           f"{PEAK_FP32:.3g} operations/s count an FMA as two); mixed share: the closest hit's "
           f"sphere tests a second over the measured mixed peak, {RATE['pairs']:.5g}/s (the "
-          f"mixed probe defines it, so it has none); on {card}")
+          f"mixed probe defines it, so it has none; it measures full tests, so the kernels that "
+          f"take roots only where a discriminant is positive have none either: "
+          f"{', '.join(ROOTS_ONLY)}); on {card}")
     for k in kernels:
         pairs = k.pop("pairs", None)
         mixed = (f", mixed share {pairs / k['ms'] * 1e3 / RATE['pairs']:.4f}"
-                 if pairs and k["name"] != "probe_mixed" else "")
+                 if pairs and k["name"] != "probe_mixed" and k["name"] not in ROOTS_ONLY
+                 else ", mixed share —" if k["name"] in ROOTS_ONLY else "")
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']}, share {k['bound_ms'] / k['ms']:.4f}{mixed}; launches "
               f"{k['launches']}")

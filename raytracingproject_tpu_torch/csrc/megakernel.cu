@@ -155,6 +155,41 @@
 // - MISSREC and SEG are template arguments, and their pointers live in a
 //   type of their own (TailParams, added by WithTail): the instantiations
 //   without them keep their parameter block and code.
+// - The front segment (FRONT with SEG, without K3's options: plain, miss
+//   planes, recording) has a closest hit of its own, closest_hit_front_seg.
+//   What held K3's bounce loop back there: the pipelines pack the live rays
+//   first, so after a cut the survivors (a tenth of a pass) filled the first
+//   tenth of the blocks, one ray a thread, on about a quarter of the SMs; the 32
+//   rays of a packed warp point every way, and K3's warp-wide culling
+//   scanned the union of their subtrees; and every sphere test paid the
+//   square root and both roots. What this design does, each bounce:
+//   * warp w of block b traces the 32 rays of warp w * gridDim.x + b, so
+//     the packed survivors' warps spread over every block and SM (the
+//     launch keeps its size; there is no host read of the live count)
+//     while a warp's rays stay neighbours: coherent at the first bounces,
+//     and its state, residual and miss-plane loads and stores coalesced.
+//     Measured on an H100 against rays in neighbouring blocks and against
+//     CHUNKED's thread-by-thread interleave (PERF.md), it was the
+//     fastest on both segments of a two-phase pass;
+//   * the block's live rays enter a list in shared memory (as CHUNKED), and
+//     the loop runs while it is not empty;
+//   * each of the L live rays gets a group of G lanes, the largest power of
+//     two <= 256 / L and at most 32 (a group is part of one warp; a front
+//     bounce needs ~24 box tests and ~50 sphere tests); one lane a ray, at
+//     every L, was slower on both segments;
+//   * the group deals the ray's stage-1 (word, super-word) and subtree box
+//     tests over its lanes and ORs the bits with shuffles: the ray's own
+//     masks, not the warp's union; between a word's `repack` chunks the
+//     group's best t re-slabs the next chunk's boxes, as front_word does;
+//   * the group scans the live subtrees' columns of each chunk in ascending
+//     order, dealt over its lanes, with sphere_test's arithmetic but the
+//     roots only where the discriminant is positive, carrying (t, column),
+//     and reduces (t, column) lexicographically with shuffles: per-ray
+//     culling with that reduction is exactly the plain version's function
+//     (each ray's columns masked by its own slab tests, the first minimum
+//     in column order), ties included;
+//   * the ray's own thread reads its winner's row from the staged table and
+//     shades, records, writes the miss planes and the carried state.
 //
 // The OPT template argument carries what no product instantiation takes,
 // again in types of its own, so the instantiations without it keep their
@@ -694,13 +729,200 @@ __device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const LargeP
   front_live_words(T, p, r, inv, [&](int w) { hbm_word(T, p, w, r, inv, h); });
 }
 
-// Does any ray of this thread's warp still bounce? CHUNKED: of its block,
-// which stages its table together; it also lists the block's live rays
-// (`live`: this ray's place, in warp order, and the count).
-template <int MODE>
+// ---- K6's front segment: per-ray culling, each live ray over a group of lanes ----
+constexpr int LG_MAX = 5;  // a live ray gets at most 2^5 = 32 lanes: a group is part of one warp
+
+// The front segment's shared memory after the front tables: the block's
+// live rays ([RAY_WORDS][TPB]), each live ray's winner t and column, and
+// each warp's live count (ChunkSmem's fields without the chunk buffers).
+constexpr size_t LIST_SMEM_BYTES = sizeof(float) * (RAY_WORDS * TPB + 2 * TPB + TPB / 32);
+
+__device__ __forceinline__ ChunkSmem list_smem(float* base) {
+  ChunkSmem c;
+  c.buf = nullptr;
+  c.ray = base;
+  c.win_t = c.ray + RAY_WORDS * TPB;
+  c.win_c = reinterpret_cast<int*>(c.win_t + TPB);
+  c.warp_live = c.win_c + TPB;
+  return c;
+}
+
+// A live ray's lanes: G of them, this lane g-th, `mask` the group's lanes
+// of the warp (groups are aligned, so lane ^ off stays in the group for
+// off < G).
+struct Group {
+  int g, G;
+  unsigned mask;
+};
+
+__device__ __forceinline__ unsigned group_or(unsigned m, const Group& q) {
+  for (int off = 1; off < q.G; off <<= 1) m |= __shfl_xor_sync(q.mask, m, off);
+  return m;
+}
+
+__device__ __forceinline__ float group_min(float t, const Group& q) {
+  for (int off = 1; off < q.G; off <<= 1) t = fminf(t, __shfl_xor_sync(q.mask, t, off));
+  return t;
+}
+
+// "The group's ray enters box base + k" bits for k < cnt (cnt <= 24), the
+// boxes dealt over the lanes (lane g tests k = g, g + G, ...): the ray's own
+// mask, where live_bits gives the warp's union.
+__device__ __forceinline__ unsigned group_bits(const float* B, int n, int base, int cnt,
+                                               const Ray& r, const InvDir& inv, float t_min,
+                                               float far, const Group& q) {
+  unsigned m = 0u;
+  for (int k = q.g; k < cnt; k += q.G)
+    if (slab(B, n, base + k, r, inv, t_min, far)) m |= 1u << k;
+  return group_or(m, q);
+}
+
+// sphere_test's arithmetic with a ColumnHit carry, the square root, roots,
+// interval tests and update only where the discriminant is positive: a
+// pair with disc <= 0 never updates, so the result is sphere_test's.
+__device__ __forceinline__ void sphere_test_roots(const float* __restrict__ S, int n, int s,
+                                                  const Ray& r, float t_min, ColumnHit& h) {
+  const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
+  const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
+  const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
+  const float rad = S[ROW_RAD * n + s];
+  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = half_b * half_b - r.a * cq;
+  if (disc > 0.0f) {
+    const float sq = sqrtf(disc);
+    const float r0 = (-half_b - sq) * r.inv_a;
+    const float r1 = (-half_b + sq) * r.inv_a;
+    const bool in0 = (r0 > t_min) && (r0 < h.bt);
+    const bool in1 = (r1 > t_min) && (r1 < h.bt);
+    if (in0 || in1) {
+      h.bt = in0 ? r0 : r1;
+      h.col = s;
+    }
+  }
+}
+
+// Stage 2 for one live word of the group's ray: each of the `repack`
+// chunks' subtree boxes against the group's best t so far (which only
+// culls: a later chunk's columns lose ties to the best one's), then the
+// columns of the chunk's live subtrees, in ascending order, dealt over the
+// lanes: lane g tests the g-th, (g + G)-th, ... of them with a strict `<`.
+__device__ __forceinline__ void front_seg_word(const FrontSmem& T, const Params& p, int w,
+                                               const Ray& r, const InvDir& inv, ColumnHit& best,
+                                               const Group& q) {
+  const int per = WORD / p.repack;
+  for (int c = 0; c < p.repack; ++c) {
+    const int base = w * WORD + c * per;
+    unsigned m = group_bits(T.ff, p.n_front, base, per, r, inv, p.t_min,
+                            group_min(best.bt, q), q);
+    int pos = q.g;  // this lane's next place in the chunk's live columns
+    while (m) {
+      const int k = __ffs(m) - 1;
+      m &= m - 1u;
+      const int start = T.fi[base + k];
+      const int cnt = T.fi[p.n_front + base + k];
+      for (; pos < cnt; pos += q.G) sphere_test_roots(T.sph, p.n_cols, start + pos, r, p.t_min,
+                                                      best);
+      pos -= cnt;
+    }
+  }
+}
+
+// The closest hit of every live ray of the block over the front (see K6
+// above). Every thread of the block calls it; `h` is filled for a live ray.
+template <bool RECORD>
+__device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const ChunkSmem& L,
+                                                      const Params& p, const Ray& r, bool alive,
+                                                      const LiveList& live,
+                                                      typename HitOf<RECORD>::type& h) {
+  const int tid = threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  if (alive) {
+    float* w = L.ray + live.slot;
+    w[0 * TPB] = r.ox; w[1 * TPB] = r.oy; w[2 * TPB] = r.oz;
+    w[3 * TPB] = r.dx; w[4 * TPB] = r.dy; w[5 * TPB] = r.dz;
+    w[6 * TPB] = r.tm; w[7 * TPB] = r.a; w[8 * TPB] = r.inv_a;
+  }
+  __syncthreads();  // the live list
+
+  const int lg = min(31 - __clz(TPB / live.n), LG_MAX);  // G = 2^lg lanes a live ray
+  Group q;
+  q.G = 1 << lg;
+  q.g = tid & (q.G - 1);
+  const int lane = tid & 31;
+  q.mask = q.G == 32 ? FULL : ((1u << q.G) - 1u) << (lane & ~(q.G - 1));
+  const int j = tid >> lg;
+  if (j < live.n) {
+    Ray y;
+    const float* w = L.ray + j;
+    y.ox = w[0 * TPB]; y.oy = w[1 * TPB]; y.oz = w[2 * TPB];
+    y.dx = w[3 * TPB]; y.dy = w[4 * TPB]; y.dz = w[5 * TPB];
+    y.tm = w[6 * TPB]; y.a = w[7 * TPB]; y.inv_a = w[8 * TPB];
+    const InvDir inv = inv_dir(y);
+    ColumnHit best{inf, 0};
+    // stage 1, as front_live_words descends, on the ray's own masks
+    const int n_words = p.n_front / WORD;
+    const int n_super = (n_words + WORD - 1) / WORD;
+    if (n_words == 1) {
+      front_seg_word(T, p, 0, y, inv, best, q);
+    } else if (n_super == 1) {
+      unsigned wm = group_bits(T.wf, p.n_words_pad, 0, n_words, y, inv, p.t_min, inf, q);
+      while (wm) {
+        const int wd = __ffs(wm) - 1;
+        wm &= wm - 1u;
+        front_seg_word(T, p, wd, y, inv, best, q);
+      }
+    } else {
+      unsigned sm = group_bits(T.sf, p.n_super, 0, n_super, y, inv, p.t_min, inf, q);
+      while (sm) {
+        const int sw = __ffs(sm) - 1;
+        sm &= sm - 1u;
+        unsigned wm = group_bits(T.wf, p.n_words_pad, sw * WORD, WORD, y, inv, p.t_min, inf, q);
+        while (wm) {
+          const int k = __ffs(wm) - 1;
+          wm &= wm - 1u;
+          front_seg_word(T, p, sw * WORD + k, y, inv, best, q);
+        }
+      }
+    }
+    // the group to its least (t, column): a strict-`<` scan's first minimum
+    for (int off = q.G >> 1; off > 0; off >>= 1)
+      take_less(best, __shfl_xor_sync(q.mask, best.bt, off),
+                __shfl_xor_sync(q.mask, best.col, off));
+    if (q.g == 0) {
+      L.win_t[j] = best.bt;
+      L.win_c[j] = best.col;
+    }
+  }
+  __syncthreads();  // the winners; the list is read no more this bounce
+  if (alive) {
+    const float bt = L.win_t[live.slot];
+    if (bt < inf) {  // sphere_test's winner fields, from the staged table
+      const float* S = T.sph;
+      const int n = p.n_cols, s = L.win_c[live.slot];
+      h.bt = bt;
+      h.hx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
+      h.hy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
+      h.hz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
+      h.hrad = S[ROW_RAD * n + s];
+      h.hmat = (int)S[ROW_MAT * n + s];
+      if constexpr (RECORD) h.hidx = s;
+      h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
+      h.hfz = S[ROW_FUZZ * n + s];
+      h.hio = S[ROW_IOR * n + s];
+    }
+  }
+}
+
+// Does any ray of this thread's warp still bounce? LISTED (CHUNKED and K6's
+// front segment): of its block, whose threads share the scan; it also lists
+// the block's live rays (`live`: this ray's place, in warp order, and the
+// count).
+template <bool LISTED>
 __device__ __forceinline__ bool any_alive(bool alive, [[maybe_unused]] LiveList& live,
                                           [[maybe_unused]] int* warp_live) {
-  if constexpr (MODE == CHUNKED) {
+  if constexpr (LISTED) {
     const unsigned b = __ballot_sync(FULL, alive);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (lane == 0) warp_live[warp] = __popc(b);
@@ -717,10 +939,13 @@ __device__ __forceinline__ bool any_alive(bool alive, [[maybe_unused]] LiveList&
 template <int MODE, bool RECORD, bool MISSREC = false, bool SEG = false, int OPT = NO_OPT>
 __global__ void __launch_bounds__(TPB)
 trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
+  // K6's front segment without K3's options has a closest hit of its own
+  constexpr bool FRONT_SEG = MODE == FRONT && SEG && OPT == NO_OPT;
+  constexpr bool LISTED = MODE == CHUNKED || FRONT_SEG;  // a block-level live list
   extern __shared__ float smem[];
   FrontSmem T;
   [[maybe_unused]] float* s_bf = nullptr;  // FRONT_OPTS: the sub-block boxes
-  [[maybe_unused]] ChunkSmem C{};          // CHUNKED: its buffers and live list
+  [[maybe_unused]] ChunkSmem C{};          // CHUNKED: its buffers; LISTED: the live list
   [[maybe_unused]] LiveList live{0, 0};
   if constexpr (MODE == CHUNKED) C = chunk_smem(smem);
   if constexpr (MODE == BRUTE || MODE == FRONT) {
@@ -740,6 +965,7 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
         if (p.opts.ksub)
           for (int q = threadIdx.x; q < 8 * p.opts.n_bf; q += TPB) s_bf[q] = p.opts.bf[q];
       }
+      if constexpr (FRONT_SEG) C = list_smem(reinterpret_cast<float*>(s_fi + 2 * p.n_front));
     }
     T.sph = s_sph; T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
   } else if constexpr (MODE == HBM) {  // box tables staged when they fit; fi is [1, n_front]
@@ -760,8 +986,13 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
 
   // The wrapper pads R to TPB. CHUNKED: thread t of block b traces ray
   // t * gridDim.x + b, so each block holds a sample of the whole launch.
+  // FRONT_SEG: warp w of block b traces the 32 rays of warp w * gridDim.x
+  // + b, so a packed launch's live warps spread over the blocks while a
+  // warp's rays stay neighbours (its loads and stores coalesce).
   const int ray = MODE == CHUNKED ? (int)(threadIdx.x * gridDim.x + blockIdx.x)
-                                  : blockIdx.x * TPB + threadIdx.x;
+                  : FRONT_SEG ? (int)((((threadIdx.x >> 5) * gridDim.x + blockIdx.x) << 5)
+                                      + (threadIdx.x & 31))
+                              : blockIdx.x * TPB + threadIdx.x;
   Ray r;
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
@@ -798,8 +1029,8 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
   }
   const float inf = __int_as_float(0x7f800000);
 
-  int dep_end = 0;  // K5: bounces this warp (CHUNKED: block) ran; the DEAD fill starts here
-  for (int dep = 0; dep < p.max_depth && any_alive<MODE>(alive, live, C.warp_live); ++dep) {
+  int dep_end = 0;  // K5: bounces this warp (LISTED: block) ran; the DEAD fill starts here
+  for (int dep = 0; dep < p.max_depth && any_alive<LISTED>(alive, live, C.warp_live); ++dep) {
     if constexpr (RECORD) dep_end = dep + 1;
     r.a = fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f);
     r.inv_a = 1.0f / r.a;
@@ -807,7 +1038,8 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
     typename HitOf<RECORD>::type h;
     hit_init(h);
     if constexpr (RECORD) h.hidx = 0;
-    if constexpr (MODE == FRONT && OPT == FRONT_OPTS)
+    if constexpr (FRONT_SEG) closest_hit_front_seg<RECORD>(T, C, p, r, alive, live, h);
+    else if constexpr (MODE == FRONT && OPT == FRONT_OPTS)
       closest_hit_front<RECORD, true, !RECORD && !SEG>(T, p, r, h, p.opts, s_bf);
     else if constexpr (MODE == FRONT) closest_hit_front<RECORD>(T, p, r, h);
     else if constexpr (MODE == BRUTE) closest_hit_brute<RECORD>(T.sph, p.n_cols, r, p.t_min, h);
@@ -990,6 +1222,7 @@ int launch(const typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type& p
            cudaStream_t stream, int boxes_in_smem = 0) {
   if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
   size_t smem = smem_bytes<MODE>(p, boxes_in_smem);
+  if constexpr (MODE == FRONT && SEG && OPT == NO_OPT) smem += LIST_SMEM_BYTES;  // the live list
   if constexpr (OPT == FRONT_OPTS) {
     static_assert(MODE == FRONT, "K3's options are options of the front");
     if (p.opts.ksub) {
@@ -1141,6 +1374,18 @@ int chunked_occupancy(int* blocks) {
                                        (int)CHUNK_SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, CHUNK_SMEM_BYTES);
+}
+
+// Blocks of TPB threads one SM holds of the front segment's instantiation
+// (RECORD, MISSREC), with the dynamic shared memory of a front of these
+// table sizes and the live list.
+template <bool RECORD, bool MISSREC>
+int front_segment_occupancy(const Params& p, int* blocks) {
+  const void* fn = (const void*)trace_kernel<FRONT, RECORD, MISSREC, true>;
+  const size_t smem = smem_bytes<FRONT>(p, 0) + LIST_SMEM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, smem);
 }
 
 }  // namespace
@@ -1375,6 +1620,18 @@ int rtp_chunked_blocks_per_sm(int record, int record_miss, int segment, int* blo
   if (record) return chunked_occupancy<true, false, false>(blocks);
   if (record_miss) return chunked_occupancy<false, true, false>(blocks);
   return chunked_occupancy<false, false, false>(blocks);
+}
+
+// The occupancy of K6's three front segments: blocks per SM of the plain,
+// record_miss and recording kinds over a front of these table sizes.
+int rtp_front_segment_blocks_per_sm(int n_cols, int n_front, int n_words_pad, int n_super,
+                                    int record, int record_miss, int* blocks) {
+  if (record && record_miss) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.n_cols = n_cols; p.n_front = n_front; p.n_words_pad = n_words_pad; p.n_super = n_super;
+  if (record) return front_segment_occupancy<true, false>(p, blocks);
+  if (record_miss) return front_segment_occupancy<false, true>(p, blocks);
+  return front_segment_occupancy<false, false>(p, blocks);
 }
 
 // The generator alone: the four words of `bounce` for ray slots [0, n),

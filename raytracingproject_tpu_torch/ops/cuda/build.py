@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -75,10 +76,13 @@ LIBRARIES = {
         "rtp_philox": ([_P, _I, _U, _I, _P], _I),
         # record, record_miss, segment -> blocks per SM (int out)
         "rtp_chunked_blocks_per_sm": ([_I, _I, _I, _P], _I),
+        # n_cols, n_front, n_words_pad, n_super, record, record_miss -> blocks per SM
+        "rtp_front_segment_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, _P], _I),
     },
     "closest_hit": {
         "rtp_error_string": _ERROR_STRING,
         "rtp_closest_hit": ([_P, _P, _P, _P, _I, _I, _F, _P, _P, _P], _I),
+        "rtp_closest_hit_occupancy": ([_P, _P], _I),  # blocks per SM, threads (rays) a block
     },
     "probes": {
         "rtp_error_string": _ERROR_STRING,
@@ -142,6 +146,30 @@ def build(names=None) -> None:
     BUILD_INFO["log"] = "\n".join(logs)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def kernel_registers(log: str) -> dict:
+    """(registers, spill store bytes) of each kernel in nvcc's -Xptxas -v
+    output `log`: an instantiation of trace_kernel keyed (mode, record,
+    record_miss, segment, opt), any other kernel by its mangled name."""
+    out, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            cur = re.search(r"function '(\w+)'", line).group(1)
+            m = re.search(r"trace_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELi(\d)E", cur)
+            cur = tuple(int(x) for x in m.groups()) if m else cur
+            spill = 0
+        elif cur is not None and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            out[cur] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
+            cur = None
+    return out
+
+
+def named(regs: dict, name: str) -> tuple[int, int]:
+    """The entry of `kernel_registers` whose mangled name holds `name`."""
+    return next(v for k, v in regs.items() if isinstance(k, str) and name in k)
 
 
 def load_library(name: str = "megakernel") -> ctypes.CDLL:

@@ -52,6 +52,11 @@ BLOCK = 128  # columns per subtree of the global-memory front (K7)
 # and front kernels stage their whole tables there; past it the brute scan
 # stages chunks and the front keeps its spheres in global memory (K7).
 SMEM_BUDGET_BYTES = 232448
+# Shared memory K6's front segment keeps beside the front tables: the
+# block's live rays (9 words each), their winners (t, column) and each
+# warp's live count (csrc/megakernel.cu LIST_SMEM_BYTES). A front the depth
+# tail runs on must leave this much of the budget.
+SEGMENT_LIST_BYTES = 4 * (9 * TILE + 2 * TILE + TILE // 32)
 
 # Intra-word re-pack count of the JAX package's front tables.
 DEFAULT_REPACK = 2
@@ -431,13 +436,11 @@ def bvh_tables(bvh, device) -> BVHTables:
 # The plain PyTorch versions ("twin") of K2, K3, K7, K8 and K1
 # ---------------------------------------------------------------------------
 
-def _sphere_t(tab: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
-              t_min: float, cols: torch.Tensor | None = None) -> torch.Tensor:
-    """[R, C] hit distance of every ray against every column of `tab`
-    (16, C), or with `cols` ([R, L] int64) against its own L columns, +inf
-    where the ray misses or hits outside (t_min, inf). The root choice is
-    the strict sequential scan's: the near root when it is past t_min, else
-    the far one."""
+def _sphere_disc(tab: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, a,
+                 cols: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(half_b, disc), [R, C] each, of the quadratic `_sphere_t` solves:
+    every ray against every column of `tab` (16, C), or with `cols` ([R, L]
+    int64) against its own L columns. The roots exist where disc > 0."""
     if cols is None:
         c = lambda row: tab[row][None, :]  # noqa: E731
     else:
@@ -450,7 +453,18 @@ def _sphere_t(tab: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
     ocx, ocy, ocz = col(ox) - ccx, col(oy) - ccy, col(oz) - ccz
     half_b = ocx * col(dx) + ocy * col(dy) + ocz * col(dz)
     cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-    disc = half_b * half_b - col(a) * cq
+    return half_b, half_b * half_b - col(a) * cq
+
+
+def _sphere_t(tab: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
+              t_min: float, cols: torch.Tensor | None = None) -> torch.Tensor:
+    """[R, C] hit distance of every ray against every column of `tab`
+    (16, C), or with `cols` ([R, L] int64) against its own L columns, +inf
+    where the ray misses or hits outside (t_min, inf). The root choice is
+    the strict sequential scan's: the near root when it is past t_min, else
+    the far one."""
+    half_b, disc = _sphere_disc(tab, ox, oy, oz, dx, dy, dz, tm, a, cols)
+    col = lambda x: x[:, None]  # noqa: E731
     dpos = disc > 0.0
     sq = torch.sqrt(torch.where(dpos, disc, 1.0))
     r0 = (-half_b - sq) * col(inv_a)
@@ -542,7 +556,8 @@ def closest_hit_bvh_twin(tab: torch.Tensor, bvh, ox, oy, oz, dx, dy, dz, tm, a, 
     spheres in order under the strict `<`; an inner node that passes goes
     to its first child, anything else follows the miss link. Returns (best
     t, winner column or -1). With `counts`, adds the box tests ("boxes")
-    and sphere tests ("pairs") of rays that are not parked."""
+    and sphere tests ("pairs") of rays that are not parked, and the sphere
+    tests among them whose discriminant is positive ("roots")."""
     dev, n = ox.device, ox.shape[0]
 
     def inv(d):
@@ -579,6 +594,11 @@ def closest_hit_bvh_twin(tab: torch.Tensor, bvh, ox, oy, oz, dx, dy, dz, tm, a, 
         if rows.numel():
             cols = torch.clamp_max(leaf_start[node[rows]][:, None] + offsets[None, :],
                                    tab.shape[1] - 1)
+            if counts is not None:
+                _, disc = _sphere_disc(tab, *(x[rows] for x in (ox, oy, oz, dx, dy, dz, tm, a)),
+                                       cols=cols)
+                valid = offsets[None, :] < count[rows][:, None]
+                counts["roots"] = counts.get("roots", 0) + int(((disc > 0.0) & valid).sum())
             t = _sphere_t(tab, *(x[rows] for x in (ox, oy, oz, dx, dy, dz, tm, a, inv_a)),
                           t_min, cols=cols)
             t = torch.where(offsets[None, :] < count[rows][:, None], t, math.inf)
@@ -1019,7 +1039,9 @@ def _res_planes(depth: int, n: int, dev):
             torch.empty((depth, n), dtype=torch.uint8, device=dev))
 
 
-def _require_front(front: FrontTables, dev, sub_block: bool) -> None:
+def _require_front(front: FrontTables, dev, sub_block: bool, extra: int = 0) -> None:
+    """The front's tables on `dev`, of the kernels' types and shapes, and
+    within the shared-memory budget with `extra` bytes beside them."""
     n_cols = front.sph.shape[1]
     n_front = front.ff.shape[1]
     _require(front.sph, "front.sph", (N_ROWS, n_cols), torch.float32, dev)
@@ -1031,10 +1053,12 @@ def _require_front(front: FrontTables, dev, sub_block: bool) -> None:
     if sub_block and front.ksub:
         _require(front.bf, "front.bf", (8, n_cols // UNROLL + front.ksub), torch.float32, dev)
         tables.append(front.bf)
-    smem = 4 * sum(x.numel() for x in tables)
+    smem = 4 * sum(x.numel() for x in tables) + extra
     if smem > SMEM_BUDGET_BYTES:
         raise ValueError(f"front tables need {smem} B of shared memory "
-                         f"(> {SMEM_BUDGET_BYTES}); build them with front_tables_hbm")
+                         f"(> {SMEM_BUDGET_BYTES}) with {extra} B beside them; build them with "
+                         f"front_tables_hbm, or for the depth tail with smem_budget="
+                         f"SMEM_BUDGET_BYTES - SEGMENT_LIST_BYTES")
 
 
 def _front_args(front: FrontTables, sub_block: bool) -> tuple:
@@ -1203,8 +1227,9 @@ def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, s
     head = (state.data_ptr(), out.data_ptr(), slot.data_ptr(), n)
     tail = (int(seed), bounce0, depth, t_min, int(zero_draws), int(record_miss), *res, stream)
     if front is not None:
-        _require_front(front, dev, sub_block=False)
         scan = "front_opts" if _front_opts(front, False) else "front"
+        _require_front(front, dev, sub_block=False,
+                       extra=SEGMENT_LIST_BYTES if scan == "front" else 0)
         err = lib.rtp_segment_front(*head, *_front_args(front, False), *tail)
     else:
         tab, scan = _brute_scan(scene, dev)

@@ -12,13 +12,14 @@ against the kernel on the card.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from raytracingproject_tpu_torch.config import T_MIN
 from raytracingproject_tpu_torch.ops.cuda.megakernel import (
-    TILE, _first_min, _require, _sphere_t,
+    TILE, _first_min, _require, _sphere_disc, _sphere_t,
 )
 from raytracingproject_tpu_torch.ops.intersect import HitRecord, hit_geometry
 from raytracingproject_tpu_torch.scene import Scene
@@ -76,6 +77,44 @@ def closest_hit_fused_twin(origin, direction, time, tab, t_min: float = T_MIN,
         t_parts.append(best_t)
         idx_parts.append(best_idx.to(torch.int32))
     return torch.cat(t_parts), torch.cat(idx_parts)
+
+
+def disc_counts(origin, direction, time, tab, warp: int = 32) -> dict:
+    """What K4's scan of these rays over the (8, N) table `tab` needs,
+    counted with the plain version's operations (`_sphere_disc`): "pairs"
+    (rays x spheres), "roots" (the pairs whose discriminant is positive,
+    the only ones that take a square root and roots), "warps" ((warp of
+    `warp` consecutive rays, sphere) pairs) and "warp_roots" (those in which
+    some ray's discriminant is positive: the warp cannot skip the roots).
+    A last, partial warp counts as a warp (its missing lanes would copy its
+    last ray)."""
+    n, n_sph = origin.shape[0], tab.shape[1]
+    block = max(warp, ((1 << 22) // max(n_sph, 1)) // warp * warp)
+    roots = warp_roots = 0
+    for r0 in range(0, n, block):
+        sl = slice(r0, r0 + block)
+        ox, oy, oz = origin[sl].unbind(1)
+        dx, dy, dz = direction[sl].unbind(1)
+        a = torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-20)
+        pos = _sphere_disc(tab, ox, oy, oz, dx, dy, dz, time[sl], a)[1] > 0.0
+        roots += int(pos.sum())
+        pad = -pos.shape[0] % warp
+        if pad:
+            pos = torch.cat([pos, pos.new_zeros((pad, n_sph))])
+        warp_roots += int(pos.view(-1, warp, n_sph).any(dim=1).sum())
+    return {"pairs": n * n_sph, "roots": roots, "warps": -(-n // warp) * n_sph,
+            "warp_roots": warp_roots}
+
+
+def closest_hit_occupancy() -> dict:
+    """K4's launch on the card: {"blocks_per_sm", "threads"}, the blocks
+    one SM holds and the threads (one ray each) of a block."""
+    from raytracingproject_tpu_torch.ops.cuda import build
+
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    build.check(build.load_library("closest_hit").rtp_closest_hit_occupancy(
+        ctypes.byref(blocks), ctypes.byref(threads)), "closest-hit occupancy", "closest_hit")
+    return {"blocks_per_sm": blocks.value, "threads": threads.value}
 
 
 def closest_hit_fused(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tensor,

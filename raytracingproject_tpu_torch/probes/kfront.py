@@ -32,6 +32,7 @@ from raytracingproject_tpu_torch.ops.cuda.megakernel import (
     subtree_slab_mask,
 )
 from raytracingproject_tpu_torch.probes.measure import marginal_ms
+from raytracingproject_tpu_torch.probes.roofline import positive_discriminants
 from raytracingproject_tpu_torch.scene import Scene, make_cover_scene, make_random_scene
 
 T_MIN = 1e-3
@@ -185,15 +186,18 @@ def probe_scene(n_spheres: int | None) -> Scene:
 def measure(scene: Scene, device="cuda") -> dict:
     """Parity of the front against the brute probe and both probes' times
     on `scene` at the 400x225 primary rays: {"rays", "spheres",
-    "brute_ms", "front": {F: {"ms", "parity", "max_abs", "pairs",
-    "boxes"}}}; pairs and boxes are the tests these rays need (the live
-    columns of each ray, and F boxes a ray)."""
+    "brute_ms", "brute_roots", "front": {F: {"ms", "parity", "max_abs",
+    "pairs", "roots", "boxes"}}}; pairs and boxes are the tests these rays
+    need (the live columns of each ray, and F boxes a ray), roots (and
+    brute_roots, over every column) those pairs whose discriminant is
+    positive."""
     dev = probes.require_card(device)
     rays = primary_rays(dev)
     n_rays = rays[0].shape[0]
     sph_brute = scene_table(reorder_scene(scene, build_bvh(scene, leaf_size=8))).to(dev)
     ref = run_brute(rays, sph_brute)
-    out = {"rays": n_rays, "spheres": scene.num_spheres, "front": {}}
+    out = {"rays": n_rays, "spheres": scene.num_spheres, "front": {},
+           "brute_roots": positive_discriminants(sph_brute, rays)}
     tables = {}
     for f in FRONTS:
         sph, ff, fi = (x.to(dev) for x in pack_front_tables(scene, max_nodes=f))
@@ -202,9 +206,11 @@ def measure(scene: Scene, device="cuda") -> dict:
         close = torch.isclose(got, ref, rtol=1e-6, atol=1e-6)
         pairs = sum(int(live_columns([x[r0:r0 + 8192] for x in rays], sph, ff, fi).sum())
                     for r0 in range(0, n_rays, 8192))
+        roots = positive_discriminants(sph, rays,
+                                       lambda r: live_columns(r, sph, ff, fi))  # noqa: B023
         out["front"][f] = {"parity": close.double().mean().item(),
                            "max_abs": (got - ref).abs().max().item(),
-                           "pairs": pairs, "boxes": n_rays * ff.shape[1],
+                           "pairs": pairs, "roots": roots, "boxes": n_rays * ff.shape[1],
                            "columns": sph.shape[1]}
 
     def fresh(s):  # the pass's rays: a fresh draw of the camera's jitter and lens

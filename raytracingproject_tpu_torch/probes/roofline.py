@@ -30,7 +30,7 @@ import torch
 
 from raytracingproject_tpu_torch import probes
 from raytracingproject_tpu_torch.ops.cuda.megakernel import (
-    N_ROWS, UNROLL, _pad_rays, _require, _sphere_t, _twin_chunk,
+    N_ROWS, UNROLL, _pad_rays, _require, _sphere_disc, _sphere_t, _twin_chunk,
 )
 from raytracingproject_tpu_torch.probes.measure import marginal_ms
 
@@ -38,17 +38,47 @@ from raytracingproject_tpu_torch.probes.measure import marginal_ms
 # plain versions (one per multiply, add, subtract, negate, compare, select,
 # sqrt). A ray against a sphere, `_sphere_t` and `_first_min`: the moving
 # centre 6 (3 mul, 3 add), o - c 3, half_b 5 (3 mul, 2 add), c 7 (4 mul,
-# 2 add, 1 sub), disc 3, its test, guard and sqrt 3, the two roots 5 (1 neg,
-# 2 add, 2 mul), the interval tests and selects 5, the strict-< best 3
-# (compare, select t, select idx): 40. A ray against a box,
+# 2 add, 1 sub), disc 3 (2 mul, 1 sub), its test 1: 25 for every pair
+# (OPS_PAIR_DISC); then, only where disc > 0, the guard and sqrt 2, the
+# two roots 5 (1 neg, 2 add, 2 mul), the interval tests and
+# selects 5, the strict-< best 3 (compare, select t, select idx): 15 more
+# (OPS_PAIR_ROOTS). A pair whose discriminant is not positive never uses
+# its roots, so a bound charges 25 for it and 40 for the others
+# (`test_ops`). A full test, as the mixed peak runs it, is 40
+# (OPS_PER_PAIR). A ray against a box,
 # `subtree_slab_mask`: 6 an axis (2 sub, 2 mul, min, max) = 18, the y axis
 # folded in 2, the z axis with its t_min clamp 3, the final compare 1: 24
 # (the reciprocals of the direction are per ray, not per box). The rest of
 # a bounce (hit geometry, sky, the Philox draws' integer work, the scatter
 # rules) is left out: a bound from these counts is lower than the work, so
 # a kernel's share of it is if anything understated.
-OPS_PER_PAIR = 40
+OPS_PAIR_DISC = 25
+OPS_PAIR_ROOTS = 15
+OPS_PER_PAIR = OPS_PAIR_DISC + OPS_PAIR_ROOTS
 OPS_PER_BOX = 24
+
+
+def test_ops(pairs: float, roots: float, boxes: float = 0.0) -> float:
+    """Operations a bound charges for `pairs` ray-sphere pairs, `roots` of
+    them with a positive discriminant, and `boxes` ray-box tests."""
+    return pairs * OPS_PAIR_DISC + roots * OPS_PAIR_ROOTS + boxes * OPS_PER_BOX
+
+
+def positive_discriminants(sph: torch.Tensor, rays, mask=None, chunk: int = 8192) -> int:
+    """Ray-sphere pairs of `rays` (the seven planes o xyz, d xyz, time)
+    against the columns of `sph` (16 or 8, C) whose discriminant is
+    positive (`_sphere_disc`), counted in chunks of rays; with `mask`, a
+    function of a chunk's rays giving [r, C] bool, only the pairs it keeps."""
+    ox, oy, oz, dx, dy, dz, tm = rays
+    n = 0
+    for r0 in range(0, ox.shape[0], chunk):
+        r = [x[r0:r0 + chunk] for x in rays]
+        a = torch.clamp_min(r[3] * r[3] + r[4] * r[4] + r[5] * r[5], 1e-20)
+        pos = _sphere_disc(sph, *r, a)[1] > 0.0
+        if mask is not None:
+            pos &= mask(r)
+        n += int(pos.sum())
+    return n
 
 # The FMA probe (tools/roofline.py CHAINS, INNER, ITERS): per element,
 # CHAINS chains of INNER * ITERS steps c <- fma(c, FMA_A, FMA_B).

@@ -326,9 +326,10 @@ def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
     """(scene, front) for the megakernel path: the scene on the render
     device, in BVH leaf order with its front tables when `use_bvh` is on;
     else as given, front None. The front is a FrontTables (K3) while its
-    tables fit the card's shared memory, ordered near-to-far from the
-    camera; past that a FrontTablesHBM (K7), in leaf order as the JAX
-    package builds it."""
+    tables fit the card's shared memory (with `two_phase` or
+    `depth_segment`, beside the front segment's live list), ordered
+    near-to-far from the camera; past that a FrontTablesHBM (K7), in leaf
+    order as the JAX package builds it."""
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
     from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
 
@@ -341,9 +342,11 @@ def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
     scene = reorder_scene(scene, bvh)
     op = tuple(float(x) for x in camera.lookfrom)
     rp = 2 if camera.max_depth <= 24 else 1
+    # the depth tail's front segment keeps its live list beside the tables
+    tail = settings.two_phase or settings.depth_segment
+    budget = mk.SMEM_BUDGET_BYTES - (mk.SEGMENT_LIST_BYTES if tail else 0)
     try:
-        front = mk.front_tables(scene, bvh, order_point=op, repack=rp,
-                                smem_budget=mk.SMEM_BUDGET_BYTES)
+        front = mk.front_tables(scene, bvh, order_point=op, repack=rp, smem_budget=budget)
     except mk.FrontOverBudget:
         front = mk.front_tables_hbm(scene, bvh)
     return scene, front

@@ -183,6 +183,38 @@ def test_closest_hit_kernel_matches_twin(cuda_device, n_rays, n_spheres):
     assert ki.dtype == torch.int32 and bool((ki[~hit] == 0).all())
 
 
+@pytest.mark.parametrize("n_rays", [77, 4099])
+@pytest.mark.parametrize("n_spheres", [1023, 1024, 1025, 3000])
+def test_closest_hit_kernel_is_bit_equal_at_chunk_edges(cuda_device, n_rays, n_spheres):
+    """K4 bit-equal to its plain version (t and idx, `torch.equal`) at ray
+    counts that fill no block and at sphere counts around the
+    shared-memory chunks' edges (256 spheres a chunk), with rays from
+    inside the scene, half aimed at a sphere so that every warp takes
+    roots somewhere; a sphere copied to the table's end ties its first."""
+    from raytracingproject_tpu_torch.ops.cuda import trace
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    scene = make_random_scene(n_spheres - 1, seed=n_spheres, device=cuda_device)
+    tab = trace.sphere_table(scene)
+    tab = torch.cat([tab, tab[:, :1]], dim=1).contiguous()  # an exact tie across chunks
+    gen = torch.Generator(device=cuda_device).manual_seed(n_rays)
+    o = torch.rand((n_rays, 3), generator=gen, device=cuda_device) * 16.0 - 8.0
+    o[:, 1] = o[:, 1].abs() * 0.25 + 0.5
+    t = torch.rand((n_rays,), generator=gen, device=cuda_device)
+    d = torch.randn((n_rays, 3), generator=gen, device=cuda_device)
+    aim = torch.randint(0, n_spheres, (n_rays // 2,), generator=gen, device=cuda_device)
+    aim[0] = 0
+    d[:n_rays // 2] = (tab[0:3, aim] + t[:n_rays // 2] * tab[3:6, aim]).t() - o[:n_rays // 2]
+    before = trace.LAUNCHES["closest_hit"]
+    kt, ki = trace.closest_hit_fused(o, d, t, tab)
+    torch.cuda.synchronize()
+    assert trace.LAUNCHES["closest_hit"] == before + 1
+    pt, pi = trace.closest_hit_fused_twin(o, d, t, tab)
+    assert torch.equal(kt, pt) and torch.equal(ki, pi)
+    hit = torch.isfinite(pt)
+    assert hit.any() and not hit.all() and bool((pi < n_spheres - 1).all())
+
+
 def test_closest_hit_wrapper_rejects_and_records(cuda_device):
     """The wrapper raises on what the kernel does not take, and
     pallas_closest_hit rebuilds the record of ops.intersect.closest_hit
@@ -550,6 +582,40 @@ def test_segment_kernel_matches_twin(cuda_device, scan, kind):
             assert torch.equal(a[eq], b[eq])
     assert torch.isfinite(got).all()
     assert ((torch.abs(got - want) <= 1e-3).all(dim=0)).double().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("kind", ["plain", "miss", "record"])
+@pytest.mark.parametrize("live", [0, 1, 5, 9, 17, 33, 65, 129, 256])
+def test_front_segment_kernel_at_each_group_size(cuda_device, kind, live):
+    """K6's front segment (plain, miss planes, recording) with `live` live
+    rays in every block (warp w of block b traces the 32 rays of warp
+    w x blocks + b, so the rays of its threads w x 32 + lane < live), the
+    rest dead and parked in the carried state, as the pipelines leave
+    them: each group size G = min(32, 256 / L rounded down to a power of
+    two), all dead (L = 0) and a single live ray a block; bit-equal to the
+    plain version."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    scene, front, (o, d, t) = _cover_rays(cuda_device)
+    miss, record = kind == "miss", kind == "record"
+    state, slot = dt.initial_state(o, d, t, miss)
+    n_blocks = state.shape[1] // mk.TILE
+    ray = torch.arange(state.shape[1], device=cuda_device)
+    thread = (ray // 32) // n_blocks * 32 + ray % 32  # the ray's thread in its block
+    dead = thread >= live
+    state[mk.ST_ALIVE, dead] = 0.0
+    state[0:3, dead], state[3:6, dead] = 1e18, 1.0  # parked
+    key = f"segment_{'record_' if record else 'miss_' if miss else ''}front"
+    kw = dict(front=front, record_miss=miss, record=record)
+    before = mk.LAUNCHES[key]
+    got = mk.segment_call(state, slot, scene, 77, 3, 13, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    want = mk.segment_twin(state, slot, scene, 77, 3, 13, **kw)
+    assert _all_equal(got, want)
+    out = got[0] if record else got
+    assert int((state[mk.ST_ALIVE] > 0).sum()) == min(live * n_blocks, o.shape[0])
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("path", ["brute", "front"])

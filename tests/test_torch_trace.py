@@ -108,3 +108,38 @@ def test_wrapper_takes_cpu_and_refuses_other_devices():
     ptrace.LAUNCHES["closest_hit"] = 5
     ptrace.reset_launches()
     assert ptrace.LAUNCHES == {"closest_hit": 0}
+
+
+@pytest.mark.parametrize("warp", [32, 8])
+def test_disc_counts_equal_a_pair_by_pair_count(warp):
+    """`trace.disc_counts`, the count behind K4's sizing (pairs whose
+    discriminant is positive, and (warp, sphere) pairs in which some ray's
+    is), against a count pair by pair in float32 numpy with the plain
+    version's operations, on 70 rays (a ragged last warp) over the cover
+    scene's first 40 spheres, half the rays aimed at a sphere."""
+    ps = _port_scene(jscene.make_cover_scene(0))
+    tab = ptrace.sphere_table(ps)[:, :40].contiguous()
+    rng = np.random.default_rng(9)
+    o = rng.uniform(-8, 8, (70, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.5, 3.0, 70)
+    t = rng.random(70).astype(np.float32)
+    d = rng.normal(size=(70, 3)).astype(np.float32)
+    tn = tab.numpy()
+    aim = rng.integers(0, 40, 35)
+    d[:35] = (tn[0:3, aim] + t[:35] * tn[3:6, aim]).T - o[:35]
+    f = np.float32
+    pos = np.zeros((70, 40), bool)
+    for i in range(70):
+        a = max(d[i, 0] * d[i, 0] + d[i, 1] * d[i, 1] + d[i, 2] * d[i, 2], f(1e-20))
+        for s in range(40):
+            oc = [o[i, k] - (tn[k, s] + t[i] * tn[3 + k, s]) for k in range(3)]
+            half_b = oc[0] * d[i, 0] + oc[1] * d[i, 1] + oc[2] * d[i, 2]
+            cq = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - tn[6, s] * tn[6, s]
+            pos[i, s] = half_b * half_b - a * cq > f(0.0)
+    warps = -(-70 // warp)
+    padded = np.concatenate([pos, np.zeros((warps * warp - 70, 40), bool)])
+    want = {"pairs": 70 * 40, "roots": int(pos.sum()), "warps": warps * 40,
+            "warp_roots": int(padded.reshape(warps, warp, 40).any(axis=1).sum())}
+    got = ptrace.disc_counts(*(torch.from_numpy(x) for x in (o, d, t)), tab, warp=warp)
+    assert got == want
+    assert 0 < want["warp_roots"] < want["warps"] and want["roots"] >= 35
