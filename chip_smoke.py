@@ -35,19 +35,21 @@ through its kernels:
   tables pass the shared-memory budget, on the global-memory front (K7);
   `make_fast_train_step(bvh=...)` on the same scene at 2 spp, depth 50, on
   the BVH-walking recording kernel (K5 bvh); the BVH walk (K8) through
-  `render_pass(bvh=)`; and the brute scan staged in chunks (`use_bvh=False`
-  on 5,000 spheres). Each is held against its plain version on 50,000
-  spheres, on 8,192 rays and then at the shapes the paths give it (the
-  90,000 rays of one pass at depth 16; K5 bvh also on one train step's
-  180,000 rays at depth 50); K7, K8 and the chunked brute scan against
-  each other, and their first hits against K4 on the 90,000 primary rays
-  of a pass. The chunked scan's six instantiations are held bit-equal to
-  their plain versions (`torch.equal`) at their paths' shapes and on its
-  edge cases: blocks with 1, 33, 129 and 256 live rays, and a scene where
-  every hit is an exact tie; its registers and blocks per SM are printed,
-  with the live rays a block-bounce and the SM load behind its time; the
-  5,000-sphere geometry train step (the chunked recording kernel) is
-  timed.
+  `render_pass(bvh=)`; and the brute scan (`use_bvh=False` on 5,000
+  spheres; the chunked kernel runs every brute scan, the cover scene's
+  too). Each is held against its plain version on 50,000 spheres, on
+  8,192 rays and then at the shapes the paths give it (the 90,000 rays of
+  one pass at depth 16; K5 bvh also on one train step's 180,000 rays at
+  depth 50); K7, K8 and the chunked brute scan against each other, and
+  their first hits against K4 on the 90,000 primary rays of a pass. K7
+  (each of its three fronts) and the chunked scan's seven instantiations
+  are held bit-equal to their plain versions (`torch.equal`) at their
+  paths' shapes, the chunked scan also on 2,000 and 3,000 spheres and on
+  its edge cases: blocks with 1, 33, 129 and 256 live rays, and a scene
+  where every hit is an exact tie; their registers and blocks per SM are
+  printed, with the chunked scan's live rays a block-bounce and the SM
+  load behind its time; the 5,000-sphere geometry train step (the chunked
+  recording kernel) is timed.
 
 - the depth tail: `render` with `RenderSettings(two_phase=4)` and
   `depth_segment=8` and with a sky texture (K1's record_miss; on the
@@ -76,7 +78,7 @@ through its kernels:
   word_earlyout=)` on the cover and 2,000-sphere fronts, each option
   instantiation (forward, record_miss, K5, K6's three tails) bit-equal
   to plain K3's and held against its plain version, driven through
-  `render_pass` and `make_fast_train_step`; `<BRUTE, SCHLICK3>` against
+  `render_pass` and `make_fast_train_step`; `<CHUNKED, SCHLICK3>` against
   its plain version and the per-material-region statistic on the card
   (clean under z = 5, the planted fault past it).
 
@@ -112,9 +114,7 @@ SOURCE = "raytracingproject_tpu_torch/csrc/megakernel.cu"
 K4_SOURCE = "raytracingproject_tpu_torch/csrc/closest_hit.cu"
 REPLACES = {
     "closest_hit": "raytracingproject_tpu/ops/pallas/trace.py:136",
-    "brute": "raytracingproject_tpu/ops/pallas/megakernel.py:832",
     "front": "raytracingproject_tpu/ops/pallas/megakernel.py:869",
-    "record_brute": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
     "record_front": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
     "brute_chunked": "raytracingproject_tpu/ops/pallas/megakernel.py:832",
     "record_brute_chunked": "raytracingproject_tpu/ops/pallas/megakernel.py:1637",
@@ -124,10 +124,9 @@ REPLACES = {
 }
 # record_miss: the same bodies with their miss planes (the pallas_call at :1488)
 REPLACES.update({f"{k}_miss": REPLACES[k]
-                 for k in ("brute", "front", "brute_chunked", "bvh", "front_hbm")})
+                 for k in ("front", "brute_chunked", "bvh", "front_hbm")})
 # K6 (plain, with the miss planes, recording) over each scan
-SEGMENT_KEYS = ("segment_brute", "segment_miss_brute", "segment_record_brute",
-                "segment_brute_chunked", "segment_miss_brute_chunked",
+SEGMENT_KEYS = ("segment_brute_chunked", "segment_miss_brute_chunked",
                 "segment_record_brute_chunked", "segment_front", "segment_miss_front",
                 "segment_record_front")
 # K6: _segment_call's pallas_call, over the brute or the front body
@@ -143,38 +142,60 @@ REPLACES.update({"front_opts": REPLACES["front"], "front_opts_miss": REPLACES["f
                  "segment_front_opts": REPLACES["segment_front"],
                  "segment_miss_front_opts": REPLACES["segment_front"],
                  "segment_record_front_opts": REPLACES["segment_front"],
-                 "brute_schlick3": REPLACES["brute"]})
+                 "brute_chunked_schlick3": REPLACES["brute_chunked"]})
 # The probe kernels (csrc/probes.cu) and the pallas_call each replaces
 PROBE_SOURCE = "raytracingproject_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {"fma": "tools/roofline.py:92", "mixed": "tools/roofline.py:160",
                   "kfront_front": "tools/kfront.py:191", "kfront_brute": "tools/kfront.py:210",
                   **{f"kexp_{v}": "tools/kexp.py:106" for v in
                      ("full", "full_u4", "full_u8", "slim", "slim_u4", "slim_u8")}}
-MODES = {0: "BRUTE", 1: "FRONT", 2: "CHUNKED", 3: "BVH", 4: "HBM"}
+MODES = {1: "FRONT", 2: "CHUNKED", 3: "BVH", 4: "HBM"}
 OPTS = {0: "", 1: ", SCHLICK3", 2: ", FRONT_OPTS"}
-# Registers of the 14 trace_kernel instantiations that came before the
-# OPT template argument (K3's options, SCHLICK3), are not the chunked brute
-# scan and are not K6's front segment, as -Xptxas -v reported them for the
-# source without it: (mode, record, record_miss, segment, opt) ->
-# registers. The seven that came before K6 and record_miss had the same
-# counts before those were added (the record front's 80 with a 60 B spill).
-# The six chunked instantiations (mode 2) and the three front segments
-# (FRONT_SEGMENT_KINDS) have a closest hit of their own since their
-# redesign; their registers and blocks per SM are printed, not held.
-OLD_REGISTERS = {(0, 0, 0, 0, 0): 64, (1, 0, 0, 0, 0): 64, (0, 1, 0, 0, 0): 64,
-                 (1, 1, 0, 0, 0): 80, (3, 0, 0, 0, 0): 57, (3, 1, 0, 0, 0): 59,
-                 (4, 0, 0, 0, 0): 98, (0, 0, 0, 1, 0): 64, (0, 0, 1, 0, 0): 64,
-                 (0, 0, 1, 1, 0): 75, (0, 1, 0, 1, 0): 64, (1, 0, 1, 0, 0): 64,
-                 (3, 0, 1, 0, 0): 61, (4, 0, 1, 0, 0): 80}
+# The 24 trace_kernel instantiations: 12 front (K3, K5, record_miss, K6's
+# three segments, each with and without K3's options), 7 chunked brute
+# scans (every brute scan, SCHLICK3 included), 3 BVH walks, 2 K7.
+N_INSTANTIATIONS = 24
+# Registers of the six trace_kernel instantiations that came before the
+# OPT template argument (K3's options, SCHLICK3) and have kept their
+# closest hit since, as -Xptxas -v reported them for the source without
+# it: (mode, record, record_miss, segment, opt) -> registers (the record
+# front's 80 with a 60 B spill). The chunked scans (mode 2), K7 (mode 4)
+# and the three front segments (FRONT_SEGMENT_KINDS) have a closest hit of
+# their own since their redesign; their registers and blocks per SM are
+# printed, not held.
+OLD_REGISTERS = {(1, 0, 0, 0, 0): 64, (1, 1, 0, 0, 0): 80, (3, 0, 0, 0, 0): 57,
+                 (3, 1, 0, 0, 0): 59, (1, 0, 1, 0, 0): 64, (3, 0, 1, 0, 0): 61}
 # The chunked brute scan's six instantiations: (record, record_miss, segment)
 CHUNKED_KINDS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1), (1, 0, 1))
 # K6's three front segments: (record, record_miss), and their kernels' names
 FRONT_SEGMENT_KINDS = ((0, 0), (0, 1), (1, 0))
 # The kernels whose closest hit computes roots only where a discriminant is
 # positive: the mixed peak measures full tests, not the same work, so they
-# get no mixed share.
+# get no mixed share. K4, K6's three front segments, every brute scan (the
+# chunked kernel) and K7.
 ROOTS_ONLY = ("closest_hit", "megakernel_segment_front", "megakernel_segment_miss_front",
-              "megakernel_segment_record_front")
+              "megakernel_segment_record_front", "brute_chunked", "front_hbm")
+
+
+def roots_only(name: str) -> bool:
+    return name in ROOTS_ONLY[:4] or any(k in name for k in ROOTS_ONLY[4:])
+
+
+def launch_key(label: str) -> str:
+    """The launch counter of a path's label: the brute scan's labels of the
+    cover scene ("brute", "record_brute", "brute_miss", "segment_brute",
+    ...) count the chunked kernel, which runs every brute scan."""
+    if "brute" in label and "brute_chunked" not in label:
+        return label.replace("brute", "brute_chunked")
+    return label
+
+
+def entry_name(label: str) -> str:
+    """The `kernels` entry of a path's label: the kernel that runs it, with
+    "_cover" where the chunked kernel ran the cover scene (its other
+    entries are timed on 5,000 or 50,000 spheres)."""
+    key = launch_key(label)
+    return f"megakernel_{key}" + ("_cover" if key != label else "")
 COVER_CAMERA = dict(aspect_ratio=16.0 / 9.0, image_width=400, vfov=20.0,
                     lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                     defocus_angle=0.6, focus_dist=10.0)
@@ -253,8 +274,8 @@ def hold_record(mk, what: str, o, d, t, scene, front, seed: int, depth: int,
     """K5 (front with `front`, else bvh with `bvh`, else brute) against its
     plain version on one set of rays: radiance bit-equal to the forward kernel's and
     within 1e-3 of the twin's on >= 99.9% of rays; idx equal on >= 99.9% of
-    entries; ndir and refl equal wherever idx is; with `exact` (the
-    chunked scan) all of it bit-equal. `twin` is the plain version's
+    entries; ndir and refl equal wherever idx is; with `exact` (the brute
+    scan, on the chunked kernel) all of it bit-equal. `twin` is the plain version's
     result on these arguments where the caller has it already. Returns the
     max |diff| (radiance against the twin, and ndir where idx is equal)."""
     import torch
@@ -291,12 +312,14 @@ def hold_record(mk, what: str, o, d, t, scene, front, seed: int, depth: int,
 
 def record_against_twin(mk, scene, front, o, d, t) -> dict:
     """Phase 8: K5 (brute and front) against its plain version at the
-    bench shape's front (repack 2), depth 16, zero and Philox draws.
-    Returns the max |diff| per path."""
+    bench shape's front (repack 2), depth 16, zero and Philox draws; the
+    brute scan (the chunked kernel) bit-equal. Returns the max |diff| per
+    path."""
     max_err = {}
     for path in ("brute", "front"):
         f = front if path == "front" else None
-        max_err[path] = max(hold_record(mk, "bench shape", o, d, t, scene, f, 2024, 16, zero)
+        max_err[path] = max(hold_record(mk, "bench shape", o, d, t, scene, f, 2024, 16, zero,
+                                        exact=path == "brute")
                             for zero in (True, False))
     return max_err
 
@@ -999,7 +1022,8 @@ def train_full_width(mk, card: str) -> tuple[dict, dict, dict]:
         o, d, t, seed = step_rays(cam, torch.Generator(device=dev).manual_seed(4))
         fr = None if front is None else mk.front_with_params(front, start)
         rec_err["front" if use_front else "brute"] = hold_record(
-            mk, "train step", o, d, t, start, fr, seed, cam.max_depth, False)
+            mk, "train step", o, d, t, start, fr, seed, cam.max_depth, False,
+            exact=not use_front)
         del o, d, t, fr
         gen = torch.Generator(device=dev).manual_seed(3)
         params, opt, step = make_fast_train_step(start, cam, spp=2, learning_rate=lr,
@@ -1027,7 +1051,7 @@ def train_full_width(mk, card: str) -> tuple[dict, dict, dict]:
               + f"; seconds per step (median of {len(times) - 2} warm) {step_s[name]:.4f} s "
               f"on {card}")
     print(f"training path: kernel launches {launches}")
-    check(launches["record_brute"] > 0 and launches["record_front"] > 0,
+    check(launches[launch_key("record_brute")] > 0 and launches["record_front"] > 0,
           "both recording kernels ran on the training path")
     return launches, step_s, rec_err
 
@@ -1291,12 +1315,11 @@ def chunked_edge_cases(mk, rays) -> dict:
     """The chunked scan's six instantiations on four blocks with 1, 33, 129
     and 256 live rays of `rays` (block b traces rays b, b + 4, ...; the
     rest parked from the start: dead in K6's carried state, a miss at the
-    first bounce in the monolithic kernels), on 2,000 spheres (two chunks;
-    the table fits, so the whole-table kernel is held too), 5,000 (five
-    chunks) and a scene of every sphere twice, at columns i and 1999 - i,
-    where every hit is an exact tie: each bit-equal to its plain version
-    and, where the table fits, to the whole-table kernel. Returns each
-    launch key's max |diff| against the plain version (0 when bit-equal)."""
+    first bounce in the monolithic kernels), on 2,000 spheres (two chunks),
+    5,000 (five chunks) and a scene of every sphere twice, at columns i and
+    1999 - i, where every hit is an exact tie: each bit-equal to its plain
+    version. Returns each launch key's max |diff| against the plain version
+    (0 when bit-equal)."""
     import numpy as np
     import torch
 
@@ -1319,9 +1342,9 @@ def chunked_edge_cases(mk, rays) -> dict:
         states[miss][mk.ST_ALIVE] = live.float()
     half = make_random_scene(1000, seed=3)
     twice = torch.cat([torch.arange(1000), torch.arange(999, -1, -1)])
-    scenes = {"2,000 spheres": (make_random_scene(2000, seed=3, device=dev), True),
-              "5,000 spheres": (make_random_scene(5000, seed=3, device=dev), False),
-              "every hit a tie": (half.take(twice).to(dev), True)}
+    scenes = {"2,000 spheres": make_random_scene(2000, seed=3, device=dev),
+              "5,000 spheres": make_random_scene(5000, seed=3, device=dev),
+              "every hit a tie": half.take(twice).to(dev)}
     # launch key -> (kernel call, plain version) over a scene
     seg = dict(zip(("segment_brute_chunked", "segment_miss_brute_chunked",
                     "segment_record_brute_chunked"),
@@ -1342,27 +1365,19 @@ def chunked_edge_cases(mk, rays) -> dict:
         return [y for v in x for y in tensors(v)] if isinstance(x, (tuple, list)) else [x]
 
     err = {}
-    budget = mk.SMEM_BUDGET_BYTES
-    for what, (sc, fits) in scenes.items():
+    for what, sc in scenes.items():
         for key, run in runs.items():
             before = mk.LAUNCHES[key]
-            mk.SMEM_BUDGET_BYTES = 0  # the chunked route, whatever the table's size
-            try:
-                got, plain = run(sc)
-            finally:
-                mk.SMEM_BUDGET_BYTES = budget
+            got, plain = run(sc)
             torch.cuda.synchronize()
             check(mk.LAUNCHES[key] == before + 1, f"{key} ({what}): one launch")
             got, plain = tensors(got), tensors(plain)
             same = all(torch.equal(a, b) for a, b in zip(got, plain))
-            whole = fits and all(torch.equal(a, b) for a, b in zip(got, tensors(run(sc)[0])))
             err[key] = max([err.get(key, 0.0)] + [torch.abs(a.double() - b.double()).max().item()
                                                   for a, b in zip(got, plain)])
             print(f"{key}, blocks with {LIVE_PER_BLOCK} live rays, {what}: bit-equal to the "
-                  f"plain version {same}" + (f", to the whole-table kernel {whole}" if fits else ""))
-            check(same and (whole or not fits),
-                  f"{key} ({what}): bit-equal to the plain version"
-                  + (" and the whole-table kernel" if fits else ""))
+                  f"plain version {same}")
+            check(same, f"{key} ({what}): bit-equal to the plain version")
             if what == "every hit a tie" and key == "record_brute_chunked":
                 idx = got[1]
                 check(bool((idx >= 0).any()) and bool((idx[idx >= 0] < 1000).all()),
@@ -1408,6 +1423,22 @@ def chunked_blocks(mk, idx, n_cols: int, kernel_ms: float, card: str) -> None:
           f"{skew:.3f}x the mean); the kernel {kernel_ms:.3f} ms; on {card}")
 
 
+def hbm_occupancy(card: str) -> None:
+    """K7's two instantiations (forward, record_miss): registers and spill
+    stores as -Xptxas -v reported them, and blocks per SM with their shared
+    memory (the live list; every table stays in global memory), as the
+    launch gets them."""
+    from raytracingproject_tpu_torch.ops.cuda import build
+
+    regs = build.kernel_registers(str(build.BUILD_INFO["log"]))
+    lib = build.load_library()
+    for miss in (0, 1):
+        key, blocks = (4, 0, miss, 0, 0), ctypes.c_int()
+        build.check(lib.rtp_hbm_blocks_per_sm(miss, ctypes.byref(blocks)), "occupancy")
+        print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill "
+              f"stores, {blocks.value} blocks of 256 threads per SM; on {card}")
+
+
 def large_scenes(mk, trace, card: str) -> list[dict]:
     """The large-scene path (see the module docstring): comparisons, the
     main path at full width with its launch counts, times and bounds.
@@ -1426,7 +1457,7 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     from raytracingproject_tpu_torch.render import (
         _slot_rays, blocks_to_image, prepare_scene, render, render_pass,
     )
-    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+    from raytracingproject_tpu_torch.scene import make_random_scene
 
     dev = torch.device("cuda")
     settings = RenderSettings(device="cuda")
@@ -1443,40 +1474,11 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     def worst(key, err):
         max_err[key] = max(max_err.get(key, 0.0), err)
 
-    # ---- L1. the brute scan past the budget, and bit-equal below it ----
-    cover = make_cover_scene(0, device=dev)
-    whole = mk.trace_paths(oc, dc, tc, cover, 2024, 16)
-    whole_rec = mk.trace_record(oc, dc, tc, cover, 2024, 16)
-    budget = mk.SMEM_BUDGET_BYTES
-    mk.SMEM_BUDGET_BYTES = 0  # every table is "past the budget": the chunked route
-    try:
-        chunked = mk.trace_paths(oc, dc, tc, cover, 2024, 16)
-        chunked_rec = mk.trace_record(oc, dc, tc, cover, 2024, 16)
-    finally:
-        mk.SMEM_BUDGET_BYTES = budget
-    same = (torch.equal(chunked, whole) and torch.equal(chunked_rec[0], whole)
-            and all(torch.equal(a, b) for a, b in zip(chunked_rec[1], whole_rec[1])))
-    print(f"chunked brute vs whole-table brute (cover, {N_LARGE_CMP} rays, depth 16, forward and "
-          f"recording): bit-equal {same}")
-    check(same, "the chunked brute scan is bit-equal to the whole-table kernel")
-
-    def cover_ms(budget_bytes: int) -> tuple[float, float]:
-        """(forward, recording) milliseconds of the brute scan on the cover scene at the
-        bench shape, with the shared-memory budget that picks the kernel."""
-        mk.SMEM_BUDGET_BYTES = budget_bytes
-        try:
-            out = []
-            for fn in (mk.trace_paths, mk.trace_record):
-                fn(o, d, t, cover, 99, 16)
-                out.append(cuda_ms(lambda: fn(o, d, t, cover, 99, 16), 5))  # noqa: B023
-            return out[0], out[1]
-        finally:
-            mk.SMEM_BUDGET_BYTES = budget
-    runs = [cover_ms(b) for b in (budget, 0, 0, budget)]  # whole, chunked, chunked, whole
-    print(f"brute scan where the table fits (cover, {n_rays} camera rays, depth 16), forward / "
-          f"recording ms: whole-table {runs[0][0]:.3f} / {runs[0][1]:.3f} and {runs[3][0]:.3f} / "
-          f"{runs[3][1]:.3f}, chunked {runs[1][0]:.3f} / {runs[1][1]:.3f} and {runs[2][0]:.3f} / "
-          f"{runs[2][1]:.3f}; on {card}")
+    # ---- L1. the brute scan (the chunked kernel, every table size) ----
+    for n in (2000, 3000):  # tables that fit shared memory whole, near its size
+        sc = make_random_scene(n, seed=3, device=dev)
+        worst("brute_chunked", hold_large(mk, f"brute scan ({n} spheres)", "brute_chunked",
+                                          oc[:4096], dc[:4096], tc[:4096], sc, 7, 8, exact=True))
     five = make_random_scene(5000, seed=3, device=dev)
     worst("brute_chunked", hold_large(mk, "brute past the budget (5,000 spheres)",
                                       "brute_chunked", oc[:4096], dc[:4096], tc[:4096], five, 7, 4,
@@ -1503,9 +1505,10 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
         print(f"K7 front ({name}): {f.ff.shape[1]} subtrees (super-words {f.sf.shape[1]}), "
               f"{int(f.fi.sum())} scanned columns of {f.sph.shape[0]}, ksub {f.ksub}")
     check(fronts["plain"].ff.shape[1] > 576, "the 50,000-sphere front has super-words")
+    hbm_occupancy(card)
     for name, f in fronts.items():
         worst("front_hbm", hold_large(mk, f"K7 ({name}, {N_LARGE} spheres)", "front_hbm",
-                                      oc, dc, tc, None, 2024, 4, front=f))
+                                      oc, dc, tc, None, 2024, 4, exact=True, front=f))
     worst("bvh", hold_large(mk, f"K8 ({N_LARGE} spheres)", "bvh", oc, dc, tc, big, 2024, 4,
                             bvh=tree))
     tables = mk.bvh_tables(tree, dev)
@@ -1725,15 +1728,20 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
         plain_ms = cuda_ms(
             lambda: kept.append(twin(*rays1, big, 99, 16, front=front, bvh=tree_k)),  # noqa: B023
             1)
+        exact = "bvh" not in key  # the redesigned closest hits: the chunked scan, K7
         if key.startswith("record"):
             worst(key, hold_record(mk, f"one pass's rays, {N_LARGE} spheres", *rays1, big, None,
-                                   99, 16, False, bvh=tree_k, twin=kept[0],
-                                   exact="chunked" in key))
+                                   99, 16, False, bvh=tree_k, twin=kept[0], exact=exact))
         else:
             worst(key, hold_large(mk, f"{key} (one pass's rays, {N_LARGE} spheres)", key, *rays1,
-                                  big, 99, 16, twin=kept[0], exact="chunked" in key,
-                                  front=front, bvh=tree_k))
+                                  big, 99, 16, twin=kept[0], exact=exact, front=front,
+                                  bvh=tree_k))
         del kept
+        if key == "front_hbm":  # K7's options on the same rays, bit-equal too
+            for opt in ("word_earlyout", "sub_block"):
+                worst(key, hold_large(mk, f"front_hbm {opt} (one pass's rays, {N_LARGE} "
+                                      "spheres)", key, *rays1, None, 99, 16, exact=True,
+                                      front=fronts[opt]))
         counts = count_tests(mk, *sub1, big, front, 99, 16, bvh=tree_k)
         counts = {k: v * scale for k, v in counts.items()}
         tab_bytes = 64 * big.num_spheres
@@ -2045,11 +2053,12 @@ def depth_tail(mk, card: str) -> list[dict]:
         for kind in ("", "miss_", "record_"):
             key = f"segment_{kind}{scan}"
             miss, record = kind == "miss_", kind == "record_"
-            before = mk.LAUNCHES[key]
-            exact = scan in ("brute_chunked", "front")  # the redesigned closest hits
+            before = mk.LAUNCHES[launch_key(key)]
+            exact = True  # the redesigned closest hits: the chunked scan, the front segment
             err, k_ms, p_ms = hold_segments(mk, dt, key, rays1, sc, f, 41, cut, depth, miss,
                                             record, timed=True, exact=exact)
-            check(mk.LAUNCHES[key] > before, f"{key}: the segments launched {key}")
+            check(mk.LAUNCHES[launch_key(key)] > before,
+                  f"{key}: the segments launched {launch_key(key)}")
             worst(key, err)
             if record:
                 worst(key, hold_segments(mk, dt, f"{key} (a train step's rays)", (so, sd, st),
@@ -2117,10 +2126,10 @@ def depth_tail(mk, card: str) -> list[dict]:
     for name, (sc, kw) in routes.items():
         key = f"{name}_miss"
         plain = mk.trace_paths(*rays1, sc, 45, 16, **kw)
-        before = mk.LAUNCHES[key]
+        before = mk.LAUNCHES[launch_key(key)]
         rad, mdir, mthr = mk.trace_paths(*rays1, sc, 45, 16, record_miss=True, **kw)
         torch.cuda.synchronize()
-        check(mk.LAUNCHES[key] == before + 1, f"{key}: one launch")
+        check(mk.LAUNCHES[launch_key(key)] == before + 1, f"{key}: one launch")
         ident = torch.abs(rad + mthr * sky_color(mdir) - plain).max().item()
         kept = []
         p_ms = cuda_ms(lambda: kept.append(mk.trace_paths_twin(  # noqa: B023
@@ -2134,7 +2143,7 @@ def depth_tail(mk, card: str) -> list[dict]:
               f"{frac:.6f} of rays within 1e-3 (bit-equal {bit}); "
               f"{never.double().mean().item():.4f} of rays never missed")
         check(ident <= 2e-6, f"{key}: the miss planes rebuild the kernel's sky within 2e-6")
-        check(bit or name != "brute_chunked", f"{key}: bit-equal to the plain version")
+        check(bit or name in ("front", "bvh"), f"{key}: bit-equal to the plain version")
         check(frac >= 0.999, f"{key}: >= 99.9% of rays within 1e-3 of the plain version")
         check(bool((mthr[never] == 0).all()), f"{key}: never-missed planes are 0")
         worst(key, max(d.max().item() for d in diffs))
@@ -2169,13 +2178,15 @@ def depth_tail(mk, card: str) -> list[dict]:
 
     def run(name, fn, want: dict):
         """fn() with the launch counts it adds: exactly `want` of each named
-        key, none of any other K6 or record_miss kernel."""
+        label's kernel (`launch_key`), none of any other K6 or record_miss
+        kernel."""
         before = dict(mk.LAUNCHES)
         img, sec = synced_s(fn)
         got = {k: v - before[k] for k, v in mk.LAUNCHES.items() if v != before[k]}
         print(f"{name}: launches {got}, mean {img.mean().item():.5f}, {sec:.4f} s on {card}")
         watched = {k for k in mk.LAUNCHES if k.startswith("segment_") or k.endswith("_miss")}
-        check({k: v for k, v in got.items() if k in watched} == want,
+        check({k: v for k, v in got.items() if k in watched}
+              == {launch_key(k): v for k, v in want.items()},
               f"{name}: launches {want} of the depth-tail kernels")
         check(torch.isfinite(img).all().item() and tuple(img.shape) == (h, w, 3),
               f"{name}: image finite, {h}x{w}x3")
@@ -2293,7 +2304,7 @@ def depth_tail(mk, card: str) -> list[dict]:
         check(params.albedo.is_cuda, f"two-phase step {name}: parameters on the card by default")
         p0 = SceneParams(*(x.detach().clone() for x in params))
         key = f"segment_record_{scan}"
-        before = mk.LAUNCHES[key]
+        before = mk.LAUNCHES[launch_key(key)]
         losses, times = [], []
         for _ in range(TRAIN_STEPS):
             (params, opt, loss, grads), sec = synced_s(
@@ -2303,8 +2314,8 @@ def depth_tail(mk, card: str) -> list[dict]:
             check(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item()
                                                       for g in grads),
                   f"two-phase step {name}: finite loss and gradients")
-        check(mk.LAUNCHES[key] - before == 2 * TRAIN_STEPS,
-              f"two-phase step {name}: {key} ran twice a step")
+        check(mk.LAUNCHES[launch_key(key)] - before == 2 * TRAIN_STEPS,
+              f"two-phase step {name}: {launch_key(key)} ran twice a step")
         launches[key] = launches.get(key, 0) + 2 * TRAIN_STEPS
         for fld in SceneParams._fields:
             moved = not torch.equal(getattr(params, fld).detach(), getattr(p0, fld))
@@ -2368,7 +2379,7 @@ def depth_tail(mk, card: str) -> list[dict]:
     launches["segment_record_brute_chunked"] = 6
     del params, opt, step, grads, target
     print(f"depth-tail main paths: launches of the new kernels {launches}")
-    for key in (*SEGMENT_KEYS, *(f"{r}_miss" for r in routes)):
+    for key in ms:
         check(launches.get(key, 0) > 0, f"{key} ran on its main path")
 
     # ---- D6. times ----
@@ -2425,8 +2436,9 @@ def depth_tail(mk, card: str) -> list[dict]:
     entries = []
     for key in sorted(ms):
         entries.append({
-            "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[key], "launches": launches[key], "max_abs_err": max_err[key],
+            "name": entry_name(key), "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[launch_key(key)], "launches": launches[key],
+            "max_abs_err": max_err[key],
             "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
             "bound_by": bounds[key][1], "library_ms": None, "pairs": pairs_of[key],
         })
@@ -2791,11 +2803,11 @@ def region_stats(scene, rays, radiance) -> dict:
 
 
 def region_statistic(mk, card: str) -> dict:
-    """Phase 12h, K1's planted fault on `<BRUTE, SCHLICK3>`: the kernel
+    """Phase 12h, K1's planted fault on `<CHUNKED, SCHLICK3>`: the kernel
     against its plain version, then the per-material-region statistic of
     tests/test_tpu_lane.py:180-254 on the card (the three-sphere scene,
     160x90, depth 16, at 256 spp: tests/test_torch_region.py's SPP_CARD;
-    the brute kernel against the oracle `ray_color`): clean, every region
+    the brute scan (the chunked kernel) against the oracle `ray_color`): clean, every region
     of > 1,000 samples under z = 5; with inject_bug="schlick3", the
     dielectric (region 2) past z = 5. The statistic's run is this kernel's
     main path. Returns its `kernels` entry."""
@@ -2819,9 +2831,9 @@ def region_statistic(mk, card: str) -> dict:
     p = mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3")
     torch.cuda.synchronize()
     err = (k - p).abs().max().item()
-    print(f"brute_schlick3 vs its plain version ({pix.shape[0]} rays, depth 16, philox): "
-          f"bit-equal {torch.equal(k, p)}, max |diff| {err:.3e}")
-    check(torch.equal(k, p), "brute_schlick3: bit-equal to its plain version")
+    print(f"brute_chunked_schlick3 vs its plain version ({pix.shape[0]} rays, depth 16, "
+          f"philox): bit-equal {torch.equal(k, p)}, max |diff| {err:.3e}")
+    check(torch.equal(k, p), "brute_chunked_schlick3: bit-equal to its plain version")
     plain_ms = cuda_ms(lambda: mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3"),
                        1)
     oracle = ray_color(scene, *rays, torch.Generator(device=dev).manual_seed(9), 16,
@@ -2837,8 +2849,8 @@ def region_statistic(mk, card: str) -> dict:
         print(f"region statistic ({'inject_bug=' + bug if bug else 'clean'}, {pix.shape[0]} "
               f"samples): " + ", ".join(f"region {r} ({sk[r][0]} samples) z max "
                                         f"{z[bug][r].max():.2f}" for r in sorted(sk)))
-    launches = mk.LAUNCHES["brute_schlick3"]
-    check(launches > 0, "the region statistic ran brute_schlick3")
+    launches = mk.LAUNCHES["brute_chunked_schlick3"]
+    check(launches > 0, "the region statistic ran brute_chunked_schlick3")
     for r, zr in z[None].items():
         if so[r][0] > 1000:
             check(zr.max() < 5.0, f"clean region {r}: z {zr.max():.2f} < 5")
@@ -2847,11 +2859,12 @@ def region_statistic(mk, card: str) -> dict:
     ms = cuda_ms(lambda: mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3"), 5)
     counts = count_tests(mk, *rays, scene, None, 21, 16)
     b = megakernel_bound(counts, pix.shape[0], 16, 4 * mk.N_ROWS * scene.num_spheres, False)
-    print(f"brute_schlick3: kernel {ms:.4f} ms ({pix.shape[0]} rays, depth 16, 4 spheres), plain "
-          f"version {plain_ms:.1f} ms; bound {b[0]:.4f} ms by {b[1]}, reaches {b[0] / ms:.3f} of "
-          f"it; on {card}")
-    return {"name": "megakernel_brute_schlick3", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES["brute_schlick3"], "launches": launches, "max_abs_err": err,
+    print(f"brute_chunked_schlick3: kernel {ms:.4f} ms ({pix.shape[0]} rays, depth 16, 4 "
+          f"spheres), plain version {plain_ms:.1f} ms; bound {b[0]:.4f} ms by {b[1]}, "
+          f"reaches {b[0] / ms:.3f} of it; on {card}")
+    return {"name": "megakernel_brute_chunked_schlick3", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES["brute_chunked_schlick3"], "launches": launches,
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "pairs": counts["pairs"]}
 
@@ -2905,7 +2918,8 @@ def main() -> int:
     for key in sorted(regs):
         print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill stores"
               + (f" (before the options: {OLD_REGISTERS[key]})" if key in OLD_REGISTERS else ""))
-    check(len(regs) == 30, f"30 instantiations of trace_kernel (got {len(regs)})")
+    check(len(regs) == N_INSTANTIATIONS,
+          f"{N_INSTANTIATIONS} instantiations of trace_kernel (got {len(regs)})")
     for key, n in OLD_REGISTERS.items():
         check(regs.get(key, (None,))[0] == n, f"{instantiation(key)} keeps its {n} registers")
     lib = build.load_library()
@@ -2914,6 +2928,8 @@ def main() -> int:
         build.check(lib.rtp_chunked_blocks_per_sm(*kind, ctypes.byref(blocks)), "occupancy")
         print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill "
               f"stores, {blocks.value} blocks of {mk.TILE} threads per SM")
+    key = (2, 0, 0, 0, 1)  # the planted fault: the forward chunked scan's shared memory
+    print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill stores")
 
     k4_regs = build.named(all_regs, "closest_hit_kernel")
     occ = trace.closest_hit_occupancy()
@@ -2966,6 +2982,8 @@ def main() -> int:
                   f"depth 16): {frac:.6f} within 1e-3, mean |diff| {mean:.3e}, max {mx:.3e}")
             check(frac >= 0.999, f"{path}: >= 99.9% of rays within 1e-3")
             check(mean < 1e-5, f"{path}: mean |diff| < 1e-5")
+            check(path != "brute" or torch.equal(k, p),
+                  "brute (the chunked kernel): bit-equal to the plain version")
             if not zero:
                 outs[path] = k
     differ = (torch.abs(outs["brute"] - outs["front"]) > 1e-3).any(dim=1).double().mean().item()
@@ -2987,7 +3005,8 @@ def main() -> int:
     launches = dict(mk.LAUNCHES)
     print(f"main path: render_image + render (front), render (brute) at 400x225, 30 spp, "
           f"depth 50: kernel launches {launches}")
-    check(launches["front"] > 0 and launches["brute"] > 0, "both kernels ran on the main path")
+    check(launches["front"] > 0 and launches[launch_key("brute")] > 0,
+          "both kernels ran on the main path")
     check(tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
           "front image finite, 225x400x3")
     check(torch.isfinite(img_brute).all().item(), "brute image finite")
@@ -3043,8 +3062,8 @@ def main() -> int:
         print(f"{path}: these rays need {counts[path]}; bound {b_ms:.4f} ms by {b_by}, the "
               f"kernel reaches {b_ms / ms:.3f} of it")
         kernels.append({
-            "name": f"megakernel_{path}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[path], "launches": launches[path],
+            "name": entry_name(path), "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[launch_key(path)], "launches": launches[launch_key(path)],
             "max_abs_err": max_err[path], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "pairs": counts[path]["pairs"],
@@ -3078,8 +3097,8 @@ def main() -> int:
         print(f"record_{path}: bound {b_ms:.4f} ms by {b_by}, the kernel reaches "
               f"{b_ms / ms:.3f} of it")
         kernels.append({
-            "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[key], "launches": train_launches[key],
+            "name": entry_name(key), "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[launch_key(key)], "launches": train_launches[launch_key(key)],
             "max_abs_err": max(rec_err[path], train_err[path]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "pairs": counts[path]["pairs"],
@@ -3127,12 +3146,12 @@ def main() -> int:
           f"sphere tests a second over the measured mixed peak, {RATE['pairs']:.5g}/s (the "
           f"mixed probe defines it, so it has none; it measures full tests, so the kernels that "
           f"take roots only where a discriminant is positive have none either: "
-          f"{', '.join(ROOTS_ONLY)}); on {card}")
+          f"{', '.join(k['name'] for k in kernels if roots_only(k['name']))}); on {card}")
     for k in kernels:
         pairs = k.pop("pairs", None)
         mixed = (f", mixed share {pairs / k['ms'] * 1e3 / RATE['pairs']:.4f}"
-                 if pairs and k["name"] != "probe_mixed" and k["name"] not in ROOTS_ONLY
-                 else ", mixed share —" if k["name"] in ROOTS_ONLY else "")
+                 if pairs and k["name"] != "probe_mixed" and not roots_only(k["name"])
+                 else ", mixed share —" if roots_only(k["name"]) else "")
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']}, share {k['bound_ms'] / k['ms']:.4f}{mixed}; launches "
               f"{k['launches']}")

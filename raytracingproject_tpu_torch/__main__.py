@@ -48,7 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--wavefront", action="store_true",
                     help="stream-compaction renderer (not ported yet, ROADMAP P8: wavefront.py)")
     ap.add_argument("--device", default=None,
-                    help="cuda or cpu (default: cuda when a card is present)")
+                    help="cuda or cpu (default: cuda; without a card it raises, so ask for cpu)")
     ap.add_argument("--output", "-o", default="-", help="output path ('-' = stdout)")
     args = ap.parse_args(argv)
     if args.wavefront:
@@ -81,7 +81,7 @@ def main(argv=None) -> int:
     rays = camera.image_width * camera.image_height * args.spp
     print("Done.", file=sys.stderr)
     print(f"{rays} rays in {elapsed:.2f}s = {rays / elapsed / 1e6:.2f} Mrays/s "
-          f"(kernel launches: brute={LAUNCHES['brute']} front={LAUNCHES['front']})",
+          f"(kernel launches: brute={LAUNCHES['brute_chunked']} front={LAUNCHES['front']})",
           file=sys.stderr)
     if args.output == "-":
         sys.stdout.write(data)

@@ -33,14 +33,17 @@ T_MAX = math.inf
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The device an entry point runs on: the one asked for, else the card
-    when there is one, else the CPU. Asking for "cuda" without a card
-    raises."""
+    """The device an entry point runs on: the one asked for, else the card.
+    The port's entry points run on the card unless the caller asks for the
+    CPU (the kernels' plain PyTorch versions): without a card, None and
+    "cuda" raise, and the error names device="cpu"."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+        raise RuntimeError("no CUDA device is available, and the port runs on the card unless "
+                           'asked otherwise: pass device="cpu" (the CLI: --device cpu) for '
+                           "the kernels' plain PyTorch versions on the CPU")
     return device
 
 
@@ -59,7 +62,7 @@ class RenderSettings:
     dtype: torch.dtype = torch.float32
     # Device of the render: "cuda" runs the hand-written kernels and raises
     # when there is no card; "cpu" runs their plain PyTorch versions. None
-    # picks "cuda" when torch.cuda.is_available(), else "cpu".
+    # is "cuda" (`resolve_device`): the CPU only when asked for.
     device: str | torch.device | None = None
     # Rays per sample chunk; pixels*spp are chunked to this size.
     rays_per_batch: int = 1 << 17

@@ -17,7 +17,7 @@
 // that idle because one lane of the warp is still bouncing, and (c) the
 // IEEE sqrt/div/transcendentals this build keeps for exact parity.
 //
-// What the design does about it:
+// What the design does about it (K3; the brute scan and K7 below):
 // - Tables live in dynamic shared memory, staged once per block; every
 //   sphere or box read is a broadcast. Past 48 KB the entry point raises the
 //   kernel's dynamic shared-memory limit (up to the card's 227 KB).
@@ -63,26 +63,32 @@
 //   growing Params or Hit alone changed the forward kernels' register
 //   allocation.
 //
-// Large scenes (tables past the card's shared memory), three more closest
-// hits under the same bounce loop, selected by the MODE template argument:
+// The brute scan and large scenes (tables past the card's shared memory),
+// three more closest hits under the same bounce loop, selected by the MODE
+// template argument:
 // - CHUNKED, the brute scan (K2; _closest_hit_brute :159 in _megakernel
-//   :832 and K5's brute core :1599) for a table that does not fit whole in
-//   shared memory. What bounds it on an H100: sphere tests, ~60 instruction slots
+//   :832 and K5's brute core :1599), for a table of any size: it is every
+//   brute scan (forward, K5, record_miss, SCHLICK3, K6's three segments).
+//   What bounds it on an H100: sphere tests, ~60 instruction slots
 //   each, and the block: staging needs every thread of it, so a bounce
 //   runs while any of its 256 rays lives. A one-ray-a-thread scan there
 //   made parked rays test every sphere beside the live ones and left a lone
 //   ray's 50,000 tests in one thread (186.9 ms a pass of 90,112 rays at
 //   depth 16 on 50,000 spheres, 0.059 of its bound, on an NVIDIA H100 80GB
-//   HBM3 at 700 W; PERF.md). What the design does, each bounce:
+//   HBM3 at 700 W; PERF.md). Where the table fits whole, a whole-table
+//   kernel with one ray a thread (K2's first port) ran the cover scene's
+//   bench shape in 3.99 ms against this design's 1.08 (same card, PERF.md),
+//   and went. What the design does, each bounce:
 //   * the block's live rays enter a list in shared memory (a warp ballot,
 //     then the 8 warp counts), and the loop runs while the list is not
 //     empty (`__syncthreads_count`);
 //   * each live ray gets G = the largest power of two <= 256 / L of the
 //     block's threads (L live rays): lane g of its group tests columns
 //     g, g + G, ... of every chunk in ascending order with sphere_test's
-//     arithmetic and strict `<`, carrying (t, column) alone; neighbouring
-//     lanes read neighbouring columns (no bank conflicts), and a ray's
-//     tests are spread over G threads, not 1;
+//     arithmetic and strict `<`, the square root and roots only where the
+//     discriminant is positive (0.3% of pairs), carrying (t, column)
+//     alone; neighbouring lanes read neighbouring columns (no bank
+//     conflicts), and a ray's tests are spread over G threads, not 1;
 //   * the groups reduce (t, column) lexicographically, least t and on
 //     equal t least column (shuffles within a warp, shared memory across
 //     warps): what a strict-`<` scan in column order keeps, since a
@@ -122,13 +128,29 @@
 //   128-column block per subtree (the layout of front_tables_hbm), no
 //   repack, optional 8-sphere sub-block boxes (`bf`, read from global
 //   memory) and per-word early-out. The TPU copies each live subtree's
-//   block into a double buffer by DMA; this version reads the spheres
-//   straight from global memory: every lane of a warp reads the same 64 B
-//   sphere (one broadcast transaction, served by L1/L2). A staged version
-//   would need a double buffer per warp (8 KB a block of columns, 128 KB
-//   for eight warps) filled by cp.async, since warps cull on their own.
-//   Box tables (ff, fi, wf, sf) are staged in shared memory when they fit.
-//   A front of more than 576 subtrees takes the three-level path here.
+//   block into a double buffer by DMA; here the spheres are read straight
+//   from global memory (50,000 spheres are 3.2 MB against 50 MB of L2),
+//   sphere-major, the 32-byte test half of a sphere's 64-byte record.
+//   What bounds it on an H100: sphere tests. Its first port culled by warp
+//   vote, so every lane tested every column of every subtree any lane of
+//   its warp entered (3.3x K8's pairs, PERF.md), one thread traced one
+//   ray, a warp ran while any lane lived, and every pair paid the roots.
+//   What the design does: K6's front segment's partition (below) over the
+//   global-memory tables: a block-level live list, each live ray over a
+//   group of G = min(32, 256 / L) lanes that deals its own stage-1 masks,
+//   its own subtree masks clamped by the group's best t and (with
+//   `word_earlyout`) its word box, its live subtrees' columns and (with
+//   sub-block boxes) its own 8-column groups over its lanes, the roots
+//   only where a discriminant is positive, (t, column) reduced
+//   lexicographically, and the winner's record read once by the ray's
+//   thread; warps interleaved over the blocks. The box tables (ff, fi, wf,
+//   sf) stay in global memory, read through L1 by a group's lanes, 32
+//   neighbouring boxes at a time: shared memory holds the live list alone,
+//   so registers (64) set the blocks an SM (4). Staged beside the list,
+//   the 50,000-sphere front's 72 KB of boxes left two blocks an SM and
+//   took 3.32 ms a pass against 2.30 ms (same card; PERF.md), and smaller
+//   fronts gained nothing. A front of more than 576 subtrees takes the
+//   three-level path.
 //
 // K1's record_miss (megakernel.py:636-649; MISSREC below), on all five
 // closest hits: instead of adding the built-in sky at a ray's miss, the
@@ -139,7 +161,7 @@
 // K6, the resumable depth segment (SEG below; replaces _segment_call,
 // megakernel.py:1759, pallas_call at :1818, bodies _megakernel_seg_brute
 // :1714 and _megakernel_seg_front :1734): the same bounce loop over the
-// brute, chunked or front closest hit, started from carried state and
+// brute (chunked) or front closest hit, started from carried state and
 // writing it back, for the two-phase and segmented pipelines
 // (ops/cuda/depth_tail.py), which pack the live rays between segments.
 // - What bounds it on an H100: as K1, plus the carried state: 14 float
@@ -156,7 +178,8 @@
 //   type of their own (TailParams, added by WithTail): the instantiations
 //   without them keep their parameter block and code.
 // - The front segment (FRONT with SEG, without K3's options: plain, miss
-//   planes, recording) has a closest hit of its own, closest_hit_front_seg.
+//   planes, recording) has a closest hit of its own, closest_hit_front_seg
+//   (grouped_closest_hit, which K7 shares).
 //   What held K3's bounce loop back there: the pipelines pack the live rays
 //   first, so after a cut the survivors (a tenth of a pass) filled the first
 //   tenth of the blocks, one ray a thread, on about a quarter of the SMs; the 32
@@ -207,7 +230,7 @@
 //   subtree ranges of the shared-memory table.
 // - SCHLICK3, K1's planted fault (megakernel.py:683-688): Schlick's
 //   reflectance with the exponent 3 instead of 5, for the
-//   per-material-region test to catch. Brute scan only.
+//   per-material-region test to catch. The brute scan (CHUNKED) only.
 //
 // The closest hit's carry, sphere_test and the slab test with its warp vote
 // live in common.cuh, shared with the probe kernels (probes.cu).
@@ -257,16 +280,18 @@ struct RecordParams : Params {
   uint8_t* res_refl;
 };
 
-// The closest hit a kernel runs. BRUTE and FRONT keep their tables in
-// shared memory; the others serve tables past its size.
-enum Mode { BRUTE = 0, FRONT = 1, CHUNKED = 2, BVH = 3, HBM = 4 };
+// The closest hit a kernel runs. FRONT keeps its tables in shared memory;
+// CHUNKED (the brute scan, any size) stages its table in chunks; BVH and HBM
+// serve tables past the shared memory's size. (Mode 0, the whole-table
+// brute scan, is gone: every brute scan is CHUNKED.)
+enum Mode { FRONT = 1, CHUNKED = 2, BVH = 3, HBM = 4 };
 
 // Parameters of the BVH and HBM kernels; `sph` is then sphere-major,
 // [n_cols, 16]. Again a separate type: Params stays as it is.
 struct LargeParams : Params {
   const float* nodes;  // BVH: [n_nodes, 8] words: min xyz, max xyz, miss link, leaf
   const float* bf;     // HBM: [8, n_bf] sub-block boxes in global memory, or null
-  int n_bf, ksub, word_earlyout, boxes_in_smem;
+  int n_bf, ksub, word_earlyout;
 };
 
 struct LargeRecordParams : LargeParams {
@@ -278,12 +303,10 @@ struct LargeRecordParams : LargeParams {
 };
 
 template <int MODE, bool RECORD> struct BaseParams {
-  using type = typename BaseParams<(MODE >= BVH ? BVH : BRUTE), RECORD>::type;
+  using type = typename std::conditional<
+      MODE >= BVH, typename std::conditional<RECORD, LargeRecordParams, LargeParams>::type,
+      typename std::conditional<RECORD, RecordParams, Params>::type>::type;
 };
-template <> struct BaseParams<BRUTE, false> { using type = Params; };
-template <> struct BaseParams<BRUTE, true> { using type = RecordParams; };
-template <> struct BaseParams<BVH, false> { using type = LargeParams; };
-template <> struct BaseParams<BVH, true> { using type = LargeRecordParams; };
 
 // Rows of K6's carried state, [n_planes, n_rays] float32 planes, ray-minor:
 // 14 planes, 20 with the miss planes (record_miss).
@@ -308,7 +331,7 @@ template <class Base> struct WithTail : Base { TailParams tail; };
 
 // Options of a kernel that no product instantiation takes (the OPT template
 // argument): SCHLICK3, K1's planted fault for the per-material-region test
-// (brute only); FRONT_OPTS, K3's sub-block boxes and word early-out.
+// (the brute scan only); FRONT_OPTS, K3's sub-block boxes and word early-out.
 enum Opt { NO_OPT = 0, SCHLICK3 = 1, FRONT_OPTS = 2 };
 
 // K3's options. A type of their own, added by WithOpts: the front kernels
@@ -351,14 +374,6 @@ __device__ __forceinline__ void bounce_bits(uint32_t seed, uint32_t ray, uint32_
 
 __device__ __forceinline__ float bits_to_uniform(uint32_t b) {
   return (float)(b >> 8) * (1.0f / 16777216.0f);
-}
-
-
-template <bool RECORD>
-__device__ __forceinline__ void closest_hit_brute(const float* S, int n, const Ray& r,
-                                                  float t_min, typename HitOf<RECORD>::type& h) {
-#pragma unroll 8
-  for (int s = 0; s < n; ++s) sphere_test<RECORD>(S, n, s, r, t_min, h);
 }
 
 
@@ -466,7 +481,7 @@ __device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Para
                    [&](int w) { front_word<RECORD, OPTS, SUB>(T, p, w, r, inv, h, o, bf); });
 }
 
-// ---- CHUNKED: the brute scan over a table too large for shared memory ----
+// ---- CHUNKED: the brute scan, its table staged in chunks ----
 constexpr int SCAN_ROWS = ROW_RAD + 1;  // rows sphere_test reads: centre, velocity, radius
 constexpr int RAY_WORDS = 9;            // a live ray in the list: o, d, tm, a, inv_a
 
@@ -539,6 +554,39 @@ __device__ __forceinline__ void take_less(ColumnHit& b, float ot, int oc) {
   }
 }
 
+// The roots of a sphere test whose discriminant is positive, into a
+// ColumnHit carry (column `col`): the square root, both roots, the interval
+// tests and the update, which a pair with disc <= 0 never reaches, so a
+// test that skips them where disc <= 0 keeps sphere_test's result.
+__device__ __forceinline__ void roots_update(float half_b, float disc, const Ray& r, float t_min,
+                                             int col, ColumnHit& h) {
+  const float sq = sqrtf(disc);
+  const float r0 = (-half_b - sq) * r.inv_a;
+  const float r1 = (-half_b + sq) * r.inv_a;
+  const bool in0 = (r0 > t_min) && (r0 < h.bt);
+  const bool in1 = (r1 > t_min) && (r1 < h.bt);
+  if (in0 || in1) {
+    h.bt = in0 ? r0 : r1;
+    h.col = col;
+  }
+}
+
+// sphere_test's arithmetic with a ColumnHit carry (column idx0 + s), the
+// roots only where the discriminant is positive (roots_update).
+__device__ __forceinline__ void sphere_test_roots(const float* __restrict__ S, int n, int s,
+                                                  const Ray& r, float t_min, ColumnHit& h,
+                                                  int idx0 = 0) {
+  const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
+  const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
+  const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
+  const float rad = S[ROW_RAD * n + s];
+  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = half_b * half_b - r.a * cq;
+  if (disc > 0.0f) roots_update(half_b, disc, r, t_min, idx0 + s, h);
+}
+
 // The closest hit of every live ray of the block (see CHUNKED above).
 // Every thread of the block calls it; `h` is filled for a live ray.
 template <bool RECORD>
@@ -576,7 +624,7 @@ __device__ __forceinline__ void closest_hit_chunked(const ChunkSmem& C, const Pa
       const float* S = C.buf + (k & 1) * SCAN_ROWS * CHUNK;
       const int n = min(CHUNK, p.n_cols - k * CHUNK);  // the last chunk is partial
 #pragma unroll 4
-      for (int s = g; s < n; s += G) sphere_test<false>(S, CHUNK, s, q, p.t_min, best, k * CHUNK);
+      for (int s = g; s < n; s += G) sphere_test_roots(S, CHUNK, s, q, p.t_min, best, k * CHUNK);
     }
     if (k + 1 < n_chunks) {
       cp_async_wait_all();
@@ -692,49 +740,13 @@ __device__ __forceinline__ void closest_hit_bvh(const LargeParams& p, const Ray&
   }
 }
 
-// Stage 2 of K7 for one live word: its 24 subtree boxes against the
-// per-lane best t (after, with word_earlyout, the word's own box), then
-// the columns of each live subtree's block, all of them or, with
-// sub-block boxes, the 8-column groups some lane enters.
-__device__ __forceinline__ void hbm_word(const FrontSmem& T, const LargeParams& p, int w,
-                                         const Ray& r, const InvDir& inv, Hit& h) {
-  if (p.word_earlyout &&
-      !__any_sync(FULL, slab(T.wf, p.n_words_pad, w, r, inv, p.t_min, h.bt)))
-    return;
-  const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
-  unsigned m = live_bits(T.ff, p.n_front, w * WORD, WORD, r, inv, p.t_min, h.bt);
-  while (m) {
-    const int sid = w * WORD + __ffs(m) - 1;
-    m &= m - 1u;
-    const int cnt = T.fi[sid];
-    if (p.ksub == 0) {
-#pragma unroll 8
-      for (int s = sid * BLOCK; s < sid * BLOCK + cnt; ++s)
-        sphere_test_g<false>(S, s, r, p.t_min, h);
-    } else {
-      unsigned bm = live_bits(p.bf, p.n_bf, sid * p.ksub, cnt / 8, r, inv, p.t_min, h.bt);
-      while (bm) {
-        const int s0 = sid * BLOCK + 8 * (__ffs(bm) - 1);
-        bm &= bm - 1u;
-#pragma unroll
-        for (int s = s0; s < s0 + 8; ++s) sphere_test_g<false>(S, s, r, p.t_min, h);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const LargeParams& p,
-                                                const Ray& r, Hit& h) {
-  const InvDir inv = inv_dir(r);
-  front_live_words(T, p, r, inv, [&](int w) { hbm_word(T, p, w, r, inv, h); });
-}
-
-// ---- K6's front segment: per-ray culling, each live ray over a group of lanes ----
+// ---- K6's front segment and K7: per-ray culling, each live ray over a group of lanes ----
 constexpr int LG_MAX = 5;  // a live ray gets at most 2^5 = 32 lanes: a group is part of one warp
 
-// The front segment's shared memory after the front tables: the block's
-// live rays ([RAY_WORDS][TPB]), each live ray's winner t and column, and
-// each warp's live count (ChunkSmem's fields without the chunk buffers).
+// The front segment's shared memory after the front tables, and K7's
+// whole: the block's live rays ([RAY_WORDS][TPB]), each live ray's winner
+// t and column, and each warp's live count (ChunkSmem's fields without the
+// chunk buffers).
 constexpr size_t LIST_SMEM_BYTES = sizeof(float) * (RAY_WORDS * TPB + 2 * TPB + TPB / 32);
 
 __device__ __forceinline__ ChunkSmem list_smem(float* base) {
@@ -777,32 +789,6 @@ __device__ __forceinline__ unsigned group_bits(const float* B, int n, int base, 
   return group_or(m, q);
 }
 
-// sphere_test's arithmetic with a ColumnHit carry, the square root, roots,
-// interval tests and update only where the discriminant is positive: a
-// pair with disc <= 0 never updates, so the result is sphere_test's.
-__device__ __forceinline__ void sphere_test_roots(const float* __restrict__ S, int n, int s,
-                                                  const Ray& r, float t_min, ColumnHit& h) {
-  const float ccx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
-  const float ccy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
-  const float ccz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
-  const float rad = S[ROW_RAD * n + s];
-  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
-  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  const float disc = half_b * half_b - r.a * cq;
-  if (disc > 0.0f) {
-    const float sq = sqrtf(disc);
-    const float r0 = (-half_b - sq) * r.inv_a;
-    const float r1 = (-half_b + sq) * r.inv_a;
-    const bool in0 = (r0 > t_min) && (r0 < h.bt);
-    const bool in1 = (r1 > t_min) && (r1 < h.bt);
-    if (in0 || in1) {
-      h.bt = in0 ? r0 : r1;
-      h.col = s;
-    }
-  }
-}
-
 // Stage 2 for one live word of the group's ray: each of the `repack`
 // chunks' subtree boxes against the group's best t so far (which only
 // culls: a later chunk's columns lose ties to the best one's), then the
@@ -829,13 +815,52 @@ __device__ __forceinline__ void front_seg_word(const FrontSmem& T, const Params&
   }
 }
 
-// The closest hit of every live ray of the block over the front (see K6
-// above). Every thread of the block calls it; `h` is filled for a live ray.
-template <bool RECORD>
-__device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const ChunkSmem& L,
-                                                      const Params& p, const Ray& r, bool alive,
-                                                      const LiveList& live,
-                                                      typename HitOf<RECORD>::type& h) {
+// Stage 1 on the group's ray's own masks, as front_live_words descends:
+// calls word(w) for every word the ray enters, in ascending order.
+template <class WordFn>
+__device__ __forceinline__ void group_live_words(const FrontSmem& T, const Params& p,
+                                                 const Ray& r, const InvDir& inv, const Group& q,
+                                                 WordFn&& word) {
+  const float inf = __int_as_float(0x7f800000);
+  const int n_words = p.n_front / WORD;
+  const int n_super = (n_words + WORD - 1) / WORD;
+  if (n_words == 1) {
+    word(0);
+  } else if (n_super == 1) {
+    unsigned wm = group_bits(T.wf, p.n_words_pad, 0, n_words, r, inv, p.t_min, inf, q);
+    while (wm) {
+      const int w = __ffs(wm) - 1;
+      wm &= wm - 1u;
+      word(w);
+    }
+  } else {
+    unsigned sm = group_bits(T.sf, p.n_super, 0, n_super, r, inv, p.t_min, inf, q);
+    while (sm) {
+      const int sw = __ffs(sm) - 1;
+      sm &= sm - 1u;
+      unsigned wm = group_bits(T.wf, p.n_words_pad, sw * WORD, WORD, r, inv, p.t_min, inf, q);
+      while (wm) {
+        const int k = __ffs(wm) - 1;
+        wm &= wm - 1u;
+        word(sw * WORD + k);
+      }
+    }
+  }
+}
+
+// The winner (t, column) of every live ray of the block, each ray over a
+// group of lanes (K6's front segment and K7; see them above): the block's
+// live rays enter the list, each gets G = the largest power of two <= 256
+// / L lanes, at most 32; the group runs stage 1 on its ray's own masks and
+// word(w, ray, inv, best, group) for each live word, each lane carrying
+// (t, column) with a strict `<`; the group reduces (t, column)
+// lexicographically. Every thread of the block calls it; a live ray's
+// thread gets its ray's winner (t = inf: a miss).
+template <class WordFn>
+__device__ __forceinline__ ColumnHit grouped_closest_hit(const FrontSmem& T, const ChunkSmem& L,
+                                                         const Params& p, const Ray& r,
+                                                         bool alive, const LiveList& live,
+                                                         WordFn&& word) {
   const int tid = threadIdx.x;
   const float inf = __int_as_float(0x7f800000);
   if (alive) {
@@ -861,31 +886,7 @@ __device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const 
     y.tm = w[6 * TPB]; y.a = w[7 * TPB]; y.inv_a = w[8 * TPB];
     const InvDir inv = inv_dir(y);
     ColumnHit best{inf, 0};
-    // stage 1, as front_live_words descends, on the ray's own masks
-    const int n_words = p.n_front / WORD;
-    const int n_super = (n_words + WORD - 1) / WORD;
-    if (n_words == 1) {
-      front_seg_word(T, p, 0, y, inv, best, q);
-    } else if (n_super == 1) {
-      unsigned wm = group_bits(T.wf, p.n_words_pad, 0, n_words, y, inv, p.t_min, inf, q);
-      while (wm) {
-        const int wd = __ffs(wm) - 1;
-        wm &= wm - 1u;
-        front_seg_word(T, p, wd, y, inv, best, q);
-      }
-    } else {
-      unsigned sm = group_bits(T.sf, p.n_super, 0, n_super, y, inv, p.t_min, inf, q);
-      while (sm) {
-        const int sw = __ffs(sm) - 1;
-        sm &= sm - 1u;
-        unsigned wm = group_bits(T.wf, p.n_words_pad, sw * WORD, WORD, y, inv, p.t_min, inf, q);
-        while (wm) {
-          const int k = __ffs(wm) - 1;
-          wm &= wm - 1u;
-          front_seg_word(T, p, sw * WORD + k, y, inv, best, q);
-        }
-      }
-    }
+    group_live_words(T, p, y, inv, q, [&](int wd) { word(wd, y, inv, best, q); });
     // the group to its least (t, column): a strict-`<` scan's first minimum
     for (int off = q.G >> 1; off > 0; off >>= 1)
       take_less(best, __shfl_xor_sync(q.mask, best.bt, off),
@@ -896,27 +897,127 @@ __device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const 
     }
   }
   __syncthreads();  // the winners; the list is read no more this bounce
+  ColumnHit win{inf, 0};
   if (alive) {
-    const float bt = L.win_t[live.slot];
-    if (bt < inf) {  // sphere_test's winner fields, from the staged table
-      const float* S = T.sph;
-      const int n = p.n_cols, s = L.win_c[live.slot];
-      h.bt = bt;
-      h.hx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
-      h.hy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
-      h.hz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
-      h.hrad = S[ROW_RAD * n + s];
-      h.hmat = (int)S[ROW_MAT * n + s];
-      if constexpr (RECORD) h.hidx = s;
-      h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
-      h.hfz = S[ROW_FUZZ * n + s];
-      h.hio = S[ROW_IOR * n + s];
+    win.bt = L.win_t[live.slot];
+    win.col = L.win_c[live.slot];
+  }
+  return win;
+}
+
+// The closest hit of every live ray of the block over the front (K6's
+// front segment); `h` is filled for a live ray, from the staged table.
+template <bool RECORD>
+__device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const ChunkSmem& L,
+                                                      const Params& p, const Ray& r, bool alive,
+                                                      const LiveList& live,
+                                                      typename HitOf<RECORD>::type& h) {
+  const ColumnHit win = grouped_closest_hit(
+      T, L, p, r, alive, live,
+      [&](int w, const Ray& y, const InvDir& inv, ColumnHit& best, const Group& q) {
+        front_seg_word(T, p, w, y, inv, best, q);
+      });
+  if (win.bt < __int_as_float(0x7f800000)) {  // sphere_test's winner fields
+    const float* S = T.sph;
+    const int n = p.n_cols, s = win.col;
+    h.bt = win.bt;
+    h.hx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
+    h.hy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
+    h.hz = S[ROW_CZ * n + s] + r.tm * S[ROW_MZ * n + s];
+    h.hrad = S[ROW_RAD * n + s];
+    h.hmat = (int)S[ROW_MAT * n + s];
+    if constexpr (RECORD) h.hidx = s;
+    h.har = S[ROW_AR * n + s]; h.hag = S[ROW_AG * n + s]; h.hab = S[ROW_AB * n + s];
+    h.hfz = S[ROW_FUZZ * n + s];
+    h.hio = S[ROW_IOR * n + s];
+  }
+}
+
+// ---- K7: the same groups over the global-memory front ----
+
+// sphere_test_roots on the sphere-major table in global memory ([n, 16]
+// floats, one 64-byte record a sphere): the same arithmetic on the
+// record's test half (centre, velocity, radius: its first 32 bytes).
+__device__ __forceinline__ void sphere_test_roots_g(const float4* __restrict__ S, int s,
+                                                    const Ray& r, float t_min, ColumnHit& h) {
+  const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
+  const float ccx = g0.x + r.tm * g0.w;
+  const float ccy = g0.y + r.tm * g1.x;
+  const float ccz = g0.z + r.tm * g1.y;
+  const float rad = g1.z;
+  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = half_b * half_b - r.a * cq;
+  if (disc > 0.0f) roots_update(half_b, disc, r, t_min, s, h);
+}
+
+// Stage 2 of K7 for one live word of the group's ray: with word_earlyout
+// the word's own box against the group's best t (the word skipped when the
+// ray enters it only beyond), then its 24 subtree boxes against that best t,
+// dealt over the lanes; then the columns sid * BLOCK .. + cnt of each live
+// subtree in ascending order, dealt over the lanes (lane g tests the g-th,
+// (g + G)-th, ... of them), or with sub-block boxes only the columns of
+// the 8-column groups the ray enters within its best t, the groups' boxes
+// dealt like the subtree boxes. Every clamp only culls: a later box's
+// columns lose ties to the best one's.
+__device__ __forceinline__ void hbm_group_word(const FrontSmem& T, const LargeParams& p, int w,
+                                               const Ray& r, const InvDir& inv, ColumnHit& best,
+                                               const Group& q) {
+  const float far = group_min(best.bt, q);
+  if (p.word_earlyout && !slab(T.wf, p.n_words_pad, w, r, inv, p.t_min, far)) return;
+  const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
+  unsigned m = group_bits(T.ff, p.n_front, w * WORD, WORD, r, inv, p.t_min, far, q);
+  int pos = q.g;  // this lane's next place in the word's live columns
+  while (m) {
+    const int sid = w * WORD + __ffs(m) - 1;
+    m &= m - 1u;
+    const int cnt = T.fi[sid];
+    if (p.ksub == 0) {
+      for (; pos < cnt; pos += q.G) sphere_test_roots_g(S, sid * BLOCK + pos, r, p.t_min, best);
+      pos -= cnt;
+    } else {
+      unsigned bm = group_bits(p.bf, p.n_bf, sid * p.ksub, cnt / UNROLL, r, inv, p.t_min,
+                               group_min(best.bt, q), q);
+      while (bm) {
+        const int s0 = sid * BLOCK + UNROLL * (__ffs(bm) - 1);
+        bm &= bm - 1u;
+        for (; pos < UNROLL; pos += q.G) sphere_test_roots_g(S, s0 + pos, r, p.t_min, best);
+        pos -= UNROLL;
+      }
     }
   }
 }
 
-// Does any ray of this thread's warp still bounce? LISTED (CHUNKED and K6's
-// front segment): of its block, whose threads share the scan; it also lists
+// K7's closest hit of every live ray of the block (see HBM above); `h` is
+// filled for a live ray, the winner's record read once from global memory.
+__device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const ChunkSmem& L,
+                                                const LargeParams& p, const Ray& r, bool alive,
+                                                const LiveList& live, Hit& h) {
+  const ColumnHit win = grouped_closest_hit(
+      T, L, p, r, alive, live,
+      [&](int w, const Ray& y, const InvDir& inv, ColumnHit& best, const Group& q) {
+        hbm_group_word(T, p, w, y, inv, best, q);
+      });
+  if (win.bt < __int_as_float(0x7f800000)) {  // sphere_test_g's winner fields
+    const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
+    const int s = win.col;
+    const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
+    const float4 g2 = __ldg(S + 4 * s + 2), g3 = __ldg(S + 4 * s + 3);
+    h.bt = win.bt;
+    h.hx = g0.x + r.tm * g0.w;
+    h.hy = g0.y + r.tm * g1.x;
+    h.hz = g0.z + r.tm * g1.y;
+    h.hrad = g1.z;
+    h.hmat = (int)g1.w;
+    h.har = g2.x; h.hag = g2.y; h.hab = g2.z;
+    h.hfz = g2.w;
+    h.hio = g3.x;
+  }
+}
+
+// Does any ray of this thread's warp still bounce? LISTED (CHUNKED, K6's
+// front segment and K7): of its block, whose threads share the scan; it also lists
 // the block's live rays (`live`: this ray's place, in warp order, and the
 // count).
 template <bool LISTED>
@@ -941,58 +1042,48 @@ __global__ void __launch_bounds__(TPB)
 trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
   // K6's front segment without K3's options has a closest hit of its own
   constexpr bool FRONT_SEG = MODE == FRONT && SEG && OPT == NO_OPT;
-  constexpr bool LISTED = MODE == CHUNKED || FRONT_SEG;  // a block-level live list
+  constexpr bool GROUPED = FRONT_SEG || MODE == HBM;  // each live ray over a group of lanes
+  constexpr bool LISTED = MODE == CHUNKED || GROUPED;  // a block-level live list
   extern __shared__ float smem[];
   FrontSmem T;
   [[maybe_unused]] float* s_bf = nullptr;  // FRONT_OPTS: the sub-block boxes
   [[maybe_unused]] ChunkSmem C{};          // CHUNKED: its buffers; LISTED: the live list
   [[maybe_unused]] LiveList live{0, 0};
   if constexpr (MODE == CHUNKED) C = chunk_smem(smem);
-  if constexpr (MODE == BRUTE || MODE == FRONT) {
+  if constexpr (MODE == FRONT) {
     float* s_sph = smem;
     float* s_ff = s_sph + N_ROWS * p.n_cols;
     float* s_wf = s_ff + 8 * p.n_front;
     float* s_sf = s_wf + 8 * p.n_words_pad;
     int* s_fi = reinterpret_cast<int*>(s_sf + 8 * p.n_super);
     for (int q = threadIdx.x; q < N_ROWS * p.n_cols; q += TPB) s_sph[q] = p.sph[q];
-    if (MODE == FRONT) {
-      for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
-      for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
-      for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
-      for (int q = threadIdx.x; q < 2 * p.n_front; q += TPB) s_fi[q] = p.fi[q];
-      if constexpr (OPT == FRONT_OPTS) {
-        s_bf = reinterpret_cast<float*>(s_fi + 2 * p.n_front);
-        if (p.opts.ksub)
-          for (int q = threadIdx.x; q < 8 * p.opts.n_bf; q += TPB) s_bf[q] = p.opts.bf[q];
-      }
-      if constexpr (FRONT_SEG) C = list_smem(reinterpret_cast<float*>(s_fi + 2 * p.n_front));
+    for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
+    for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
+    for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
+    for (int q = threadIdx.x; q < 2 * p.n_front; q += TPB) s_fi[q] = p.fi[q];
+    if constexpr (OPT == FRONT_OPTS) {
+      s_bf = reinterpret_cast<float*>(s_fi + 2 * p.n_front);
+      if (p.opts.ksub)
+        for (int q = threadIdx.x; q < 8 * p.opts.n_bf; q += TPB) s_bf[q] = p.opts.bf[q];
     }
+    if constexpr (FRONT_SEG) C = list_smem(reinterpret_cast<float*>(s_fi + 2 * p.n_front));
     T.sph = s_sph; T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
-  } else if constexpr (MODE == HBM) {  // box tables staged when they fit; fi is [1, n_front]
+  } else if constexpr (MODE == HBM) {  // every table in global memory; fi is [1, n_front]
     T.sph = p.sph; T.ff = p.ff; T.fi = p.fi; T.wf = p.wf; T.sf = p.sf;
-    if (p.boxes_in_smem) {
-      float* s_ff = smem;
-      float* s_wf = s_ff + 8 * p.n_front;
-      float* s_sf = s_wf + 8 * p.n_words_pad;
-      int* s_fi = reinterpret_cast<int*>(s_sf + 8 * p.n_super);
-      for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
-      for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
-      for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
-      for (int q = threadIdx.x; q < p.n_front; q += TPB) s_fi[q] = p.fi[q];
-      T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
-    }
+    C = list_smem(smem);  // shared memory holds the live list alone
   }
   __syncthreads();
 
   // The wrapper pads R to TPB. CHUNKED: thread t of block b traces ray
   // t * gridDim.x + b, so each block holds a sample of the whole launch.
-  // FRONT_SEG: warp w of block b traces the 32 rays of warp w * gridDim.x
-  // + b, so a packed launch's live warps spread over the blocks while a
-  // warp's rays stay neighbours (its loads and stores coalesce).
+  // GROUPED (K6's front segment, K7): warp w of block b traces the 32 rays
+  // of warp w * gridDim.x + b, so a launch's live warps spread over the
+  // blocks while a warp's rays stay neighbours (its loads and stores
+  // coalesce).
   const int ray = MODE == CHUNKED ? (int)(threadIdx.x * gridDim.x + blockIdx.x)
-                  : FRONT_SEG ? (int)((((threadIdx.x >> 5) * gridDim.x + blockIdx.x) << 5)
-                                      + (threadIdx.x & 31))
-                              : blockIdx.x * TPB + threadIdx.x;
+                  : GROUPED ? (int)((((threadIdx.x >> 5) * gridDim.x + blockIdx.x) << 5)
+                                    + (threadIdx.x & 31))
+                            : blockIdx.x * TPB + threadIdx.x;
   Ray r;
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
@@ -1042,10 +1133,9 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
     else if constexpr (MODE == FRONT && OPT == FRONT_OPTS)
       closest_hit_front<RECORD, true, !RECORD && !SEG>(T, p, r, h, p.opts, s_bf);
     else if constexpr (MODE == FRONT) closest_hit_front<RECORD>(T, p, r, h);
-    else if constexpr (MODE == BRUTE) closest_hit_brute<RECORD>(T.sph, p.n_cols, r, p.t_min, h);
     else if constexpr (MODE == CHUNKED) closest_hit_chunked<RECORD>(C, p, r, alive, live, h);
     else if constexpr (MODE == BVH) closest_hit_bvh<RECORD>(p, r, h);
-    else closest_hit_hbm(T, p, r, h);
+    else closest_hit_hbm(T, C, p, r, alive, live, h);
 
     const bool hit = h.bt < inf;
     const float t_safe = hit ? h.bt : 1.0f;
@@ -1206,22 +1296,21 @@ __global__ void philox_kernel(uint32_t* out, int n, uint32_t seed, uint32_t boun
 
 // Dynamic shared memory of one block, by what the kernel stages there.
 template <int MODE>
-size_t smem_bytes(const Params& p, int boxes_in_smem) {
+size_t smem_bytes(const Params& p) {
   const size_t boxes = sizeof(float) * (8 * (size_t)p.n_front + 8 * (size_t)p.n_words_pad +
                                         8 * (size_t)p.n_super);
-  if (MODE == BRUTE) return sizeof(float) * (size_t)N_ROWS * p.n_cols;
   if (MODE == FRONT)
     return sizeof(float) * ((size_t)N_ROWS * p.n_cols + 2 * (size_t)p.n_front) + boxes;
   if (MODE == CHUNKED) return CHUNK_SMEM_BYTES;
-  if (MODE == HBM && boxes_in_smem) return boxes + sizeof(int) * (size_t)p.n_front;
+  if (MODE == HBM) return LIST_SMEM_BYTES;
   return 0;
 }
 
 template <int MODE, bool RECORD, bool MISSREC = false, bool SEG = false, int OPT = NO_OPT>
 int launch(const typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type& p, int n_rays,
-           cudaStream_t stream, int boxes_in_smem = 0) {
+           cudaStream_t stream) {
   if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
-  size_t smem = smem_bytes<MODE>(p, boxes_in_smem);
+  size_t smem = smem_bytes<MODE>(p);
   if constexpr (MODE == FRONT && SEG && OPT == NO_OPT) smem += LIST_SMEM_BYTES;  // the live list
   if constexpr (OPT == FRONT_OPTS) {
     static_assert(MODE == FRONT, "K3's options are options of the front");
@@ -1318,12 +1407,11 @@ bool opts_on(const FrontOpts& o) { return o.ksub != 0 || o.word_earlyout != 0; }
 // The forward kernel of MODE over `p` or, given the miss planes, its
 // record_miss version.
 template <int MODE, class P>
-int launch_trace(const P& p, int n_rays, cudaStream_t stream, float* mdir, float* mthr,
-                 int boxes_in_smem = 0) {
-  if (!mdir && !mthr) return launch<MODE, false>(p, n_rays, stream, boxes_in_smem);
+int launch_trace(const P& p, int n_rays, cudaStream_t stream, float* mdir, float* mthr) {
+  if (!mdir && !mthr) return launch<MODE, false>(p, n_rays, stream);
   TailParams t{};
   t.mdir = mdir; t.mthr = mthr;
-  return launch<MODE, false, true>(with_tail(p, t), n_rays, stream, boxes_in_smem);
+  return launch<MODE, false, true>(with_tail(p, t), n_rays, stream);
 }
 
 // The same with K3's options: their own instantiations, plain and record_miss.
@@ -1337,7 +1425,7 @@ int launch_trace_opts(const Params& p, const FrontOpts& o, int n_rays, cudaStrea
                                                        stream);
 }
 
-// K6 over MODE (BRUTE, CHUNKED or FRONT): one depth segment of p.max_depth
+// K6 over MODE (CHUNKED or FRONT): one depth segment of p.max_depth
 // bounces from the carried state, plain, with the miss planes carried
 // (record_miss: 20 state planes) or recording the residual planes (res_idx
 // given). The JAX package's segment call takes one or the other, never both.
@@ -1382,7 +1470,7 @@ int chunked_occupancy(int* blocks) {
 template <bool RECORD, bool MISSREC>
 int front_segment_occupancy(const Params& p, int* blocks) {
   const void* fn = (const void*)trace_kernel<FRONT, RECORD, MISSREC, true>;
-  const size_t smem = smem_bytes<FRONT>(p, 0) + LIST_SMEM_BYTES;
+  const size_t smem = smem_bytes<FRONT>(p) + LIST_SMEM_BYTES;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, smem);
@@ -1396,30 +1484,10 @@ int rtp_rays_per_block() { return TPB; }
 
 const char* rtp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K1 + K2: brute closest hit over a [16, n_spheres] table. The forward
+// K1 + K3: front-culled closest hit over the front tables. The forward
 // entries take the miss planes mdir and mthr ([n_rays, 3] each, or both
 // null): given, the kernel records the direction and throughput at each
-// ray's miss instead of adding the built-in sky (record_miss).
-int rtp_trace_brute(const float* origin, const float* direction, const float* time, float* out,
-                    int n_rays, const float* sph, int n_spheres, unsigned seed, int max_depth,
-                    float t_min, int zero_draws, float* mdir, float* mthr, void* stream) {
-  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
-                         zero_draws);
-  return launch_trace<BRUTE>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
-}
-
-// K1 + K2 with the planted fault SCHLICK3 (Schlick's exponent 3, not 5):
-// the per-material-region test's proof that it catches a physics bug.
-int rtp_trace_brute_schlick3(const float* origin, const float* direction, const float* time,
-                             float* out, int n_rays, const float* sph, int n_spheres,
-                             unsigned seed, int max_depth, float t_min, int zero_draws,
-                             void* stream) {
-  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
-                         zero_draws);
-  return launch<BRUTE, false, false, false, SCHLICK3>(p, n_rays, (cudaStream_t)stream);
-}
-
-// K1 + K3: front-culled closest hit over the front tables. The front
+// ray's miss instead of adding the built-in sky (record_miss). The front
 // entries take K3's options last: the sub-block boxes bf ([8, n_bf], or
 // null with ksub 0) and word_earlyout; with neither they launch the plain
 // front kernels.
@@ -1436,20 +1504,6 @@ int rtp_trace_front(const float* origin, const float* direction, const float* ti
   const FrontOpts o = front_opts(bf, n_bf, ksub, word_earlyout);
   if (opts_on(o)) return launch_trace_opts(p, o, n_rays, (cudaStream_t)stream, mdir, mthr);
   return launch_trace<FRONT>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
-}
-
-// K5 (brute): K1 + K2 recording the residual planes, each [max_depth,
-// n_rays]: idx (winner column / MISS / DEAD), ndx/ndy/ndz (scattered
-// direction of a live hit, else 0), refl (dielectric reflect branch).
-int rtp_record_brute(const float* origin, const float* direction, const float* time,
-                     float* out, int n_rays, const float* sph, int n_spheres, unsigned seed,
-                     int max_depth, float t_min, int zero_draws, int* res_idx, float* res_ndx,
-                     float* res_ndy, float* res_ndz, unsigned char* res_refl, void* stream) {
-  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
-                         zero_draws);
-  return launch<BRUTE, true>(
-      record_params<RecordParams>(p, res_idx, res_ndx, res_ndy, res_ndz, res_refl), n_rays,
-      (cudaStream_t)stream);
 }
 
 // K5 (front): K1 + K3 recording the same planes; idx holds columns of the
@@ -1475,7 +1529,8 @@ int rtp_record_front(const float* origin, const float* direction, const float* t
   return launch<FRONT, true>(rp, n_rays, (cudaStream_t)stream);
 }
 
-// K1 + K2 over a table of any size, staged in chunks (see CHUNKED above).
+// K1 + K2: the brute closest hit over a [16, n_spheres] table of any size,
+// staged in chunks (see CHUNKED above).
 int rtp_trace_brute_chunked(const float* origin, const float* direction, const float* time,
                             float* out, int n_rays, const float* sph, int n_spheres,
                             unsigned seed, int max_depth, float t_min, int zero_draws,
@@ -1485,7 +1540,20 @@ int rtp_trace_brute_chunked(const float* origin, const float* direction, const f
   return launch_trace<CHUNKED>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
 }
 
-// K5 (brute) over a table of any size.
+// K1 + K2 with the planted fault SCHLICK3 (Schlick's exponent 3, not 5):
+// the per-material-region test's proof that it catches a physics bug.
+int rtp_trace_brute_chunked_schlick3(const float* origin, const float* direction,
+                                     const float* time, float* out, int n_rays, const float* sph,
+                                     int n_spheres, unsigned seed, int max_depth, float t_min,
+                                     int zero_draws, void* stream) {
+  Params p = base_params(origin, direction, time, out, sph, n_spheres, seed, max_depth, t_min,
+                         zero_draws);
+  return launch<CHUNKED, false, false, false, SCHLICK3>(p, n_rays, (cudaStream_t)stream);
+}
+
+// K5 (brute): K1 + K2 recording the residual planes, each [max_depth,
+// n_rays]: idx (winner column / MISS / DEAD), ndx/ndy/ndz (scattered
+// direction of a live hit, else 0), refl (dielectric reflect branch).
 int rtp_record_brute_chunked(const float* origin, const float* direction, const float* time,
                              float* out, int n_rays, const float* sph, int n_spheres,
                              unsigned seed, int max_depth, float t_min, int zero_draws,
@@ -1530,12 +1598,13 @@ int rtp_record_bvh(const float* origin, const float* direction, const float* tim
 // K1 + K7: front culling over a sphere-major [n_front * 128, 16] table in
 // global memory, one 128-column block per subtree; fi is [1, n_front]
 // (padded counts); bf ([8, n_bf], with ksub sub-blocks a subtree) may be
-// null. The box tables are staged in shared memory when `boxes_in_smem`.
+// null. Every table stays in global memory (shared memory holds the live
+// list).
 int rtp_trace_front_hbm(const float* origin, const float* direction, const float* time,
                         float* out, int n_rays, const float* sph, const float* ff,
                         const int* fi, int n_front, const float* wf, int n_words_pad,
                         const float* sf, int n_super, const float* bf, int n_bf, int ksub,
-                        int word_earlyout, int boxes_in_smem, unsigned seed, int max_depth,
+                        int word_earlyout, unsigned seed, int max_depth,
                         float t_min, int zero_draws, float* mdir, float* mthr, void* stream) {
   if (!front_ok(n_front, 1) || (ksub != 0 && (ksub != BLOCK / 8 || !bf || n_bf < n_front * ksub)))
     return (int)cudaErrorInvalidValue;
@@ -1544,8 +1613,8 @@ int rtp_trace_front_hbm(const float* origin, const float* direction, const float
   set_front(base, ff, fi, n_front, wf, n_words_pad, sf, n_super, 1);
   LargeParams p = large_params(base);
   p.bf = bf; p.n_bf = n_bf; p.ksub = ksub;
-  p.word_earlyout = word_earlyout; p.boxes_in_smem = boxes_in_smem;
-  return launch_trace<HBM>(p, n_rays, (cudaStream_t)stream, mdir, mthr, boxes_in_smem);
+  p.word_earlyout = word_earlyout;
+  return launch_trace<HBM>(p, n_rays, (cudaStream_t)stream, mdir, mthr);
 }
 
 // K6, the resumable depth segment (replaces _segment_call,
@@ -1557,20 +1626,8 @@ int rtp_trace_front_hbm(const float* origin, const float* direction, const float
 // ray's bounce, so segments compute the monolithic kernel's paths. With
 // res_idx (and the other residual planes, [depth, n_rays] each) the segment
 // records K5's residuals, rows indexed by segment-local bounce; then
-// record_miss must be 0.
-int rtp_segment_brute(const float* state_in, float* state_out, const int* slot, int n_rays,
-                      const float* sph, int n_spheres, unsigned seed, int bounce0, int depth,
-                      float t_min, int zero_draws, int record_miss, int* res_idx,
-                      float* res_ndx, float* res_ndy, float* res_ndz, unsigned char* res_refl,
-                      void* stream) {
-  Params p = base_params(nullptr, nullptr, nullptr, nullptr, sph, n_spheres, seed, depth, t_min,
-                         zero_draws);
-  return launch_segment<BRUTE>(p, n_rays, (cudaStream_t)stream, state_in, state_out, slot,
-                               bounce0, record_miss, res_idx, res_ndx, res_ndy, res_ndz,
-                               res_refl);
-}
-
-// K6 over a sphere table of any size, staged in chunks.
+// record_miss must be 0. This one: the brute scan over a sphere table of
+// any size, staged in chunks.
 int rtp_segment_brute_chunked(const float* state_in, float* state_out, const int* slot,
                               int n_rays, const float* sph, int n_spheres, unsigned seed,
                               int bounce0, int depth, float t_min, int zero_draws,
@@ -1620,6 +1677,14 @@ int rtp_chunked_blocks_per_sm(int record, int record_miss, int segment, int* blo
   if (record) return chunked_occupancy<true, false, false>(blocks);
   if (record_miss) return chunked_occupancy<false, true, false>(blocks);
   return chunked_occupancy<false, false, false>(blocks);
+}
+
+// The occupancy of K7's two instantiations: blocks per SM of the forward
+// and record_miss kinds, with their dynamic shared memory (the live list).
+int rtp_hbm_blocks_per_sm(int record_miss, int* blocks) {
+  const void* fn = record_miss ? (const void*)trace_kernel<HBM, false, true>
+                               : (const void*)trace_kernel<HBM, false>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, LIST_SMEM_BYTES);
 }
 
 // The occupancy of K6's three front segments: blocks per SM of the plain,

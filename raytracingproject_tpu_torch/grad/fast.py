@@ -248,9 +248,9 @@ def make_fast_train_step(
     relative after ten steps). It updates the trainable fields in place;
     frozen fields stay bit-unchanged.
 
-    The step runs on `device`, by default the card when there is one, else
-    the CPU, as `render` does (`config.resolve_device`); the scene, the
-    front and each step's target are moved there.
+    The step runs on `device`, by default the card (without one it raises:
+    ask for device="cpu"), as `render` does (`config.resolve_device`); the
+    scene, the front and each step's target are moved there.
 
     Returns (params0, opt_state0, step) with
     step(params, opt_state, generator, target [H, W, 3]) ->

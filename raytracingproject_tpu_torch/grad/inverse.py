@@ -144,9 +144,9 @@ def make_train_step(
     callable from the list of trainable tensors to a torch.optim.Optimizer
     (default Adam); `trainable` restricts updates to a subset of
     SceneParams fields, the rest stay bit-unchanged; the step runs on
-    `device`, by default the card when there is one, else the CPU, as
-    `render` does (`config.resolve_device`). The scene and each step's
-    target are moved there.
+    `device`, by default the card (without one it raises: ask for
+    device="cpu"), as `render` does (`config.resolve_device`). The scene
+    and each step's target are moved there.
 
     Returns (params0, opt_state0, step) with
     step(params, opt_state, generator, target [H, W, 3]) ->

@@ -51,13 +51,13 @@ LIBRARIES = {
     "megakernel": {
         "rtp_rays_per_block": ([], _I),
         "rtp_error_string": _ERROR_STRING,
-        "rtp_trace_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_MISS, _P], _I),
-        "rtp_trace_brute_schlick3": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I),
         "rtp_trace_front": ([_P, _P, _P, _P, _I, *_FRONT, _U, _I, _F, _I, *_MISS, _P], _I),
-        "rtp_record_brute": ([_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I),
         "rtp_record_front": ([_P, _P, _P, _P, _I, *_FRONT, _U, _I, _F, _I, *_RES, _P], _I),
         "rtp_trace_brute_chunked": (
             [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_MISS, _P], _I,
+        ),
+        "rtp_trace_brute_chunked_schlick3": (
+            [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, _P], _I,
         ),
         "rtp_record_brute_chunked": (
             [_P, _P, _P, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I,
@@ -67,15 +67,16 @@ LIBRARIES = {
             [_P, _P, _P, _P, _I, _P, _I, _P, _I, _U, _I, _F, _I, *_RES, _P], _I,
         ),
         "rtp_trace_front_hbm": (
-            [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
+            [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
              _U, _I, _F, _I, *_MISS, _P], _I,
         ),
-        "rtp_segment_brute": ([_P, _P, _P, _I, _P, _I, *_SEG], _I),
         "rtp_segment_brute_chunked": ([_P, _P, _P, _I, _P, _I, *_SEG], _I),
         "rtp_segment_front": ([_P, _P, _P, _I, *_FRONT, *_SEG], _I),
         "rtp_philox": ([_P, _I, _U, _I, _P], _I),
         # record, record_miss, segment -> blocks per SM (int out)
         "rtp_chunked_blocks_per_sm": ([_I, _I, _I, _P], _I),
+        # record_miss -> blocks per SM
+        "rtp_hbm_blocks_per_sm": ([_I, _P], _I),
         # n_cols, n_front, n_words_pad, n_super, record, record_miss -> blocks per SM
         "rtp_front_segment_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, _P], _I),
     },

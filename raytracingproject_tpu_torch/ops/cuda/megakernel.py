@@ -15,8 +15,8 @@ chip_smoke.py holds against the kernels. ops/cuda/depth_tail.py drives K6
 
 Which closest hit runs: `front` (FrontTables: K3, tables in shared memory;
 FrontTablesHBM: K7, any size) wins over `bvh` (K8, any size), else the
-brute scan over `scene` (K2; past the shared-memory budget the kernel
-stages the table in chunks, with equal results).
+brute scan over `scene` (K2, any size: the kernel stages the table in
+chunks and spreads each block's live rays over its threads).
 """
 
 from __future__ import annotations
@@ -48,14 +48,14 @@ WORD = 24    # front subtrees per culling word
 UNROLL = 8   # subtree sphere ranges are padded to a multiple of this
 BLOCK = 128  # columns per subtree of the global-memory front (K7)
 
-# Dynamic shared memory one block may use on an H100 (227 KB). The brute
-# and front kernels stage their whole tables there; past it the brute scan
-# stages chunks and the front keeps its spheres in global memory (K7).
+# Dynamic shared memory one block may use on an H100 (227 KB). The front
+# kernels stage their whole tables there; past it the front keeps its
+# spheres in global memory (K7).
 SMEM_BUDGET_BYTES = 232448
-# Shared memory K6's front segment keeps beside the front tables: the
-# block's live rays (9 words each), their winners (t, column) and each
-# warp's live count (csrc/megakernel.cu LIST_SMEM_BYTES). A front the depth
-# tail runs on must leave this much of the budget.
+# Shared memory K6's front segment keeps beside the front's tables, and K7
+# alone: the block's live rays (9 words each), their winners (t, column)
+# and each warp's live count (csrc/megakernel.cu LIST_SMEM_BYTES). A front
+# the depth tail runs on must leave this much of the budget.
 SEGMENT_LIST_BYTES = 4 * (9 * TILE + 2 * TILE + TILE // 32)
 
 # Intra-word re-pack count of the JAX package's front tables.
@@ -76,17 +76,16 @@ ST_RAD, ST_ALIVE = slice(10, 13), 13
 ST_MDIR, ST_MTHR = slice(14, 17), slice(17, 20)
 
 # Kernel launches per entry point, counted by the wrapper after each
-# successful launch (and nowhere else). `*_miss` are the record_miss
-# versions; `segment_*` are K6 (plain, record_miss, recording).
-# `*_opts` are K3 with its options (sub_block, word_earlyout);
-# `brute_schlick3` is the brute kernel with the planted Schlick fault.
-LAUNCHES = {"brute": 0, "front": 0, "record_brute": 0, "record_front": 0,
-            "brute_chunked": 0, "record_brute_chunked": 0, "bvh": 0, "record_bvh": 0,
-            "front_hbm": 0, "brute_miss": 0, "front_miss": 0, "brute_chunked_miss": 0,
-            "bvh_miss": 0, "front_hbm_miss": 0, "front_opts": 0, "front_opts_miss": 0,
-            "record_front_opts": 0, "brute_schlick3": 0}
-LAUNCHES.update({f"segment_{kind}{scan}": 0 for scan in ("brute", "brute_chunked", "front",
-                                                          "front_opts")
+# successful launch (and nowhere else). `brute_chunked` is the brute scan
+# (every table size); `*_miss` are the record_miss versions; `segment_*`
+# are K6 (plain, record_miss, recording). `*_opts` are K3 with its options
+# (sub_block, word_earlyout); `brute_chunked_schlick3` is the brute scan
+# with the planted Schlick fault.
+LAUNCHES = {"front": 0, "record_front": 0, "brute_chunked": 0, "record_brute_chunked": 0,
+            "bvh": 0, "record_bvh": 0, "front_hbm": 0, "front_miss": 0,
+            "brute_chunked_miss": 0, "bvh_miss": 0, "front_hbm_miss": 0, "front_opts": 0,
+            "front_opts_miss": 0, "record_front_opts": 0, "brute_chunked_schlick3": 0}
+LAUNCHES.update({f"segment_{kind}{scan}": 0 for scan in ("brute_chunked", "front", "front_opts")
                  for kind in ("", "miss_", "record_")})
 
 # The planted physics faults `trace_paths(inject_bug=)` takes (megakernel.py
@@ -972,8 +971,8 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
     shared memory), K7 for a FrontTablesHBM (spheres in global memory, any
     size). Else with `bvh` (a FlatBVH over `scene`, which must be in leaf
     order, or `bvh_tables` of one) it is the BVH walk (K8, any size). Else
-    it is the brute scan (K2) over `scene`, whole in shared memory or, past
-    its budget, staged in chunks. `seed` keys the Philox stream
+    it is the brute scan (K2) over `scene`, staged in chunks (any size).
+    `seed` keys the Philox stream
     (ops/rng.py); `zero_draws` makes every uniform 0.0 (the TPU
     interpreter's PRNG).
 
@@ -985,8 +984,8 @@ def trace_paths(origin: torch.Tensor, direction: torch.Tensor, time: torch.Tenso
     `inject_bug` ("schlick3", for tests) plants a physics fault: Schlick's
     reflectance with the exponent 3 instead of 5, which the
     per-material-region statistic must catch. The plain version takes it
-    on every closest hit; the card has it for the brute scan whole in
-    shared memory alone (other routes raise ValueError).
+    on every closest hit; the card has it for the forward brute scan alone
+    (other routes raise ValueError).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     PyTorch version."""
@@ -1078,12 +1077,11 @@ def _front_opts(front: FrontTables, sub_block: bool) -> bool:
     return bool(front.word_earlyout or (sub_block and front.ksub))
 
 
-def _brute_scan(scene: Scene, dev) -> tuple[torch.Tensor, str]:
-    """(sphere table, "brute" or "brute_chunked"): the whole-table kernel
-    while the table fits shared memory, else the chunked one."""
+def _brute_scan(scene: Scene, dev) -> torch.Tensor:
+    """The sphere table the brute scan's kernel (chunked, any size) takes."""
     tab = scene_table(scene)
     _require(tab, "sphere table", (N_ROWS, scene.num_spheres), torch.float32, dev)
-    return tab, "brute" if 4 * tab.numel() <= SMEM_BUDGET_BYTES else "brute_chunked"
+    return tab
 
 
 def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_draws, bvh,
@@ -1099,10 +1097,9 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
     from raytracingproject_tpu_torch.ops.cuda import build
 
     if inject_bug is not None and (record or record_miss or front is not None
-                                   or bvh is not None
-                                   or 4 * N_ROWS * scene.num_spheres > SMEM_BUDGET_BYTES):
+                                   or bvh is not None):
         raise ValueError(f"inject_bug={inject_bug!r} runs on the plain version and, on the "
-                         "card, on the forward brute scan whole in shared memory alone")
+                         "card, on the forward brute scan alone")
     n = origin.shape[0]
     _require(origin, "origin", (n, 3), torch.float32, dev)
     _require(direction, "direction", (n, 3), torch.float32, dev)
@@ -1137,13 +1134,12 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
         if front.bf is not None:
             n_bf = front.bf.shape[1]
             _require(front.bf, "front.bf", (8, n_front * front.ksub), torch.float32, dev)
-        boxes = 4 * sum(x.numel() for x in (front.ff, front.fi, front.wf, front.sf))
         key = "front_hbm"
         err = lib.rtp_trace_front_hbm(
             *rays, p(front.sph), p(front.ff), p(front.fi), n_front, p(front.wf),
             front.wf.shape[1], p(front.sf), front.sf.shape[1],
             None if front.bf is None else p(front.bf), n_bf, front.ksub,
-            int(front.word_earlyout), int(boxes <= SMEM_BUDGET_BYTES), *tail)
+            int(front.word_earlyout), *tail)
     elif front is not None:
         sub_block = not record
         _require_front(front, dev, sub_block)
@@ -1159,14 +1155,15 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
         fn, key = (lib.rtp_record_bvh, "record_bvh") if record else (lib.rtp_trace_bvh, "bvh")
         err = fn(*rays, p(tab), tab.shape[0], p(tables.nodes), tables.nodes.shape[0], *tail)
     elif inject_bug is not None:
-        tab, _ = _brute_scan(scene, dev)
-        key = f"brute_{inject_bug}"
-        err = lib.rtp_trace_brute_schlick3(*rays, p(tab), tab.shape[1], *tail[:4], stream)
+        tab = _brute_scan(scene, dev)
+        key = f"brute_chunked_{inject_bug}"
+        err = lib.rtp_trace_brute_chunked_schlick3(*rays, p(tab), tab.shape[1], *tail[:4],
+                                                   stream)
     else:
-        tab, scan = _brute_scan(scene, dev)
-        key = f"record_{scan}" if record else scan
-        fn = getattr(lib, f"rtp_record_{scan}" if record else f"rtp_trace_{scan}")
-        err = fn(*rays, p(tab), tab.shape[1], *tail)
+        tab = _brute_scan(scene, dev)
+        key = "record_brute_chunked" if record else "brute_chunked"
+        err = getattr(lib, f"rtp_{'record' if record else 'trace'}_brute_chunked")(
+            *rays, p(tab), tab.shape[1], *tail)
     if record_miss:
         key = f"{key}_miss"
     build.check(err, f"{key} megakernel launch")
@@ -1187,8 +1184,8 @@ def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, s
     monolithic slots are `slot` ([R] int32), starting at global bounce
     `bounce0`. The closest hit is `front`'s (a FrontTables: K3's culling,
     with its `word_earlyout`; its sub-block boxes are not used, as in the
-    JAX package's segment kernel) or the brute scan over `scene` (whole in shared memory or, past its
-    budget, in chunks). Returns the state after the segment and, with
+    JAX package's segment kernel) or the brute scan over `scene` (staged
+    in chunks, any size). Returns the state after the segment and, with
     `record`, the residual planes (idx, ndx, ndy, ndz, refl) [depth, R].
     R must be a multiple of TILE; padding rays are dead (alive 0).
 
@@ -1232,8 +1229,8 @@ def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, s
                        extra=SEGMENT_LIST_BYTES if scan == "front" else 0)
         err = lib.rtp_segment_front(*head, *_front_args(front, False), *tail)
     else:
-        tab, scan = _brute_scan(scene, dev)
-        err = getattr(lib, f"rtp_segment_{scan}")(*head, tab.data_ptr(), tab.shape[1], *tail)
+        tab, scan = _brute_scan(scene, dev), "brute_chunked"
+        err = lib.rtp_segment_brute_chunked(*head, tab.data_ptr(), tab.shape[1], *tail)
     key = f"segment_{'record_' if record else 'miss_' if record_miss else ''}{scan}"
     build.check(err, f"{key} launch")
     LAUNCHES[key] += 1

@@ -1,6 +1,7 @@
 """The chunked brute scan's partition of the work (csrc/megakernel.cu,
-`closest_hit_chunked`), modelled in plain PyTorch and held bit for bit
-against the brute scan's plain version, `closest_hit_brute_twin`.
+`closest_hit_chunked`, every brute scan of the port), modelled in plain
+PyTorch and held bit for bit against the brute scan's plain version,
+`closest_hit_brute_twin`.
 
 On the card each of a block's L live rays gets G = the largest power of two
 <= 256 / L of the block's threads. Lane g of a ray's group tests the
@@ -10,9 +11,11 @@ lexicographically: an xor butterfly of shuffles over each 32-lane part,
 then the parts in order. The model below does the same on the plain
 version's candidate roots (`_sphere_t`), so the claim that the kernel
 keeps the first minimum in column order, ties included, is checked for
-every G, at chunk edges and on scenes with exact ties. The kernel itself
-is held against the plain version on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+every G, at chunk edges and on scenes with exact ties. A lane takes the
+square root and the roots only where a pair's discriminant is positive;
+`roots_only_t` models that and is held equal to the full test. The kernel
+itself is held against the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import math
@@ -196,3 +199,59 @@ def test_group_size_is_the_largest_power_of_two_that_fits():
     for live in range(1, THREADS + 1):
         g_size = group_size(live)
         assert g_size & (g_size - 1) == 0 and g_size * live <= THREADS < 2 * g_size * live
+
+
+def roots_only_t(tab: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, a, inv_a) -> torch.Tensor:
+    """[R, n] candidate t as the kernel's lanes compute it
+    (`sphere_test_roots`): the discriminant of every pair, then the square
+    root, the roots and the interval test on the pairs whose discriminant
+    is positive alone; +inf elsewhere."""
+    half_b, disc = mk._sphere_disc(tab, ox, oy, oz, dx, dy, dz, tm, a)
+    t = torch.full_like(disc, math.inf)
+    pos = disc > 0.0
+    hb, dp = half_b[pos], disc[pos]
+    ia = inv_a[:, None].expand_as(disc)[pos]
+    sq = torch.sqrt(dp)
+    r0, r1 = (-hb - sq) * ia, (-hb + sq) * ia
+    t[pos] = torch.where(r0 > T_MIN, r0, torch.where(r1 > T_MIN, r1, math.inf))
+    return t
+
+
+@pytest.mark.parametrize("g_size", [1, 8, 256])
+@pytest.mark.parametrize("ties", [False, True])
+def test_roots_only_scan_equals_the_full_scan(g_size, ties):
+    """A pair whose discriminant is not positive never updates the carry,
+    so the scan that takes roots only where it is positive keeps the full
+    test's candidates, bit for bit, and the partitioned scan over them the
+    plain version's (t, column). Positive discriminants are rare, which is
+    what skipping the roots buys."""
+    tab = _tie_table() if ties else _table(5000, seed=21)
+    rays = _rays(tab, 64, seed=g_size, aim=(5, 38, 1029, 600) if ties else ())
+    t_tab = torch.from_numpy(tab)
+    full = mk._sphere_t(t_tab, *rays, T_MIN)
+    lean = roots_only_t(t_tab, *rays)
+    assert torch.equal(lean, full)
+    want_t, want_c = mk.closest_hit_brute_twin(t_tab, *rays, T_MIN)
+    got_t, got_c = partitioned_hit(lean, g_size)
+    assert torch.equal(got_t, want_t) and torch.equal(got_c, want_c)
+    disc = mk._sphere_disc(t_tab, *rays[:8])[1]
+    assert 0.0 < (disc > 0.0).double().mean().item() < 0.05
+
+
+@pytest.mark.parametrize("n_spheres", [1, 487, 1024, 3000, 50000])
+def test_every_brute_scan_takes_the_chunked_kernel(n_spheres):
+    """Every scene size goes to the chunked kernel: the wrapper's brute scan
+    hands the kernel the whole (16, N) table whatever N, the library has no
+    whole-table brute entry point, and the launch counters name only the
+    chunked route."""
+    from raytracingproject_tpu_torch.ops.cuda import build
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    scene = make_random_scene(n_spheres, seed=3)
+    tab = mk._brute_scan(scene, torch.device("cpu"))
+    assert tab.shape == (mk.N_ROWS, n_spheres) and tab.dtype == torch.float32
+    entries = [n for n in build.LIBRARIES["megakernel"] if "brute" in n]
+    assert entries and all("brute_chunked" in n for n in entries)
+    assert all("brute_chunked" in k for k in mk.LAUNCHES if "brute" in k)
+    source = build.source("megakernel").read_text()
+    assert "BRUTE = 0" not in source and "closest_hit_brute(" not in source

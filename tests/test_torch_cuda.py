@@ -18,6 +18,9 @@ from raytracingproject_tpu_torch.scene import make_cover_scene
 
 pytestmark = pytest.mark.cuda
 
+# The launch counter of each path: every brute scan runs the chunked kernel.
+KEY = {"brute": "brute_chunked", "front": "front"}
+
 COVER = dict(aspect_ratio=16.0 / 9.0, image_width=160, samples_per_pixel=1, max_depth=16,
              vfov=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
              defocus_angle=0.6, focus_dist=10.0)
@@ -48,10 +51,10 @@ def test_kernel_matches_twin(cuda_device, path, zero_draws):
     on ties)."""
     scene, front, (o, d, t) = _cover_rays(cuda_device)
     f = front if path == "front" else None
-    before = mk.LAUNCHES[path]
+    before = mk.LAUNCHES[KEY[path]]
     k = mk.trace_paths(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
     torch.cuda.synchronize()
-    assert mk.LAUNCHES[path] == before + 1
+    assert mk.LAUNCHES[KEY[path]] == before + 1
     p = mk.trace_paths_twin(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
     diff = torch.abs(k - p)
     assert torch.isfinite(k).all()
@@ -68,7 +71,7 @@ def test_record_kernel_matches_twin(cuda_device, path, zero_draws):
     refl equal wherever idx is."""
     scene, front, (o, d, t) = _cover_rays(cuda_device)
     f = front if path == "front" else None
-    key = f"record_{path}"
+    key = f"record_{KEY[path]}"
     before = mk.LAUNCHES[key]
     rad, res = mk.trace_record(o, d, t, scene, 4242, 16, front=f, zero_draws=zero_draws)
     torch.cuda.synchronize()
@@ -145,7 +148,7 @@ def test_render_image_goes_through_the_kernels(cuda_device):
     img = render_image(make_cover_scene(0), camera, settings=RenderSettings(device="cuda"))
     img_b = render_image(make_cover_scene(0), camera,
                          settings=RenderSettings(device="cuda", use_bvh=False))
-    assert mk.LAUNCHES["front"] > 0 and mk.LAUNCHES["brute"] > 0
+    assert mk.LAUNCHES["front"] > 0 and mk.LAUNCHES["brute_chunked"] > 0
     assert img.shape == (90, 160, 3) and img.dtype == torch.uint8
     assert abs(img.float().mean().item() - img_b.float().mean().item()) < 1.0
 
@@ -299,24 +302,23 @@ def _rays_differ(a, b, tol=1e-3):
     return (torch.abs(a - b) > tol).any(dim=1).double().mean().item()
 
 
-def test_chunked_brute_kernel_equals_whole_table_kernel(cuda_device, monkeypatch):
-    """The brute scan staged in 1,024-sphere chunks (the route past the
-    shared-memory budget) is bit-equal to the whole-table kernel, forward
-    and recording, and to the plain version within the usual bounds."""
+def test_chunked_brute_kernel_equals_whole_table_kernel(cuda_device):
+    """The brute scan on 2,000 spheres, a table that fits shared memory
+    whole, runs the chunked kernel (the whole-table kernel is gone: every
+    brute scan is chunked), forward and recording, bit-equal to the plain
+    version, which scans the whole table."""
     scene, _, (o, d, t) = _large_scene(cuda_device)
-    whole = mk.trace_paths(o, d, t, scene, 5, 8)
-    rad_w, res_w = mk.trace_record(o, d, t, scene, 5, 8)
-    monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
+    assert 4 * mk.N_ROWS * scene.num_spheres <= mk.SMEM_BUDGET_BYTES
     before = dict(mk.LAUNCHES)
     chunked = mk.trace_paths(o, d, t, scene, 5, 8)
     rad_c, res_c = mk.trace_record(o, d, t, scene, 5, 8)
     torch.cuda.synchronize()
     assert mk.LAUNCHES["brute_chunked"] == before["brute_chunked"] + 1
     assert mk.LAUNCHES["record_brute_chunked"] == before["record_brute_chunked"] + 1
-    assert torch.equal(chunked, whole) and torch.equal(rad_c, whole) and torch.equal(rad_w, whole)
-    assert torch.equal(res_c.idx, res_w.idx) and torch.equal(res_c.ndir, res_w.ndir)
-    assert torch.equal(res_c.refl, res_w.refl)
-    assert _rays_differ(chunked, mk.trace_paths_twin(o, d, t, scene, 5, 8)) <= 1e-3
+    rad_p, res_p = mk.trace_record_twin(o, d, t, scene, 5, 8)
+    assert torch.equal(chunked, rad_p) and torch.equal(rad_c, rad_p)
+    assert torch.equal(res_c.idx, res_p.idx) and torch.equal(res_c.ndir, res_p.ndir)
+    assert torch.equal(res_c.refl, res_p.refl)
 
 
 LIVE_PER_BLOCK = (1, 33, 129, 256)  # G = 256, 4, 1, 1 lanes a live ray
@@ -342,15 +344,6 @@ def _few_live_rays(rays):
     return o, d, t, live
 
 
-def _chunked_and_whole(monkeypatch, fn):
-    """fn() on the chunked route (the budget set low), then on the
-    whole-table route."""
-    with monkeypatch.context() as m:
-        m.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
-        chunked = fn()
-    return chunked, fn()
-
-
 def _tensors(x):
     return [y for v in x for y in _tensors(v)] if isinstance(x, (tuple, list)) else [x]
 
@@ -363,12 +356,11 @@ def _all_equal(a, b):
 
 @pytest.mark.parametrize("kind", ["forward", "record", "record_miss", "segment",
                                   "segment_miss", "segment_record"])
-def test_chunked_kernel_with_few_live_rays(cuda_device, kind, monkeypatch):
+def test_chunked_kernel_with_few_live_rays(cuda_device, kind):
     """Blocks with 1, 33, 129 and 256 live rays, the rest parked from the
     start (K6: dead in the carried state; the monolithic kernels: a miss at
     the first bounce): each of the chunked scan's six instantiations
-    bit-equal to its plain version and to the whole-table kernel (2,000
-    spheres, two chunks)."""
+    bit-equal to its plain version (2,000 spheres, two chunks)."""
     from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
 
     scene, _, rays = _large_scene(cuda_device)
@@ -380,12 +372,11 @@ def test_chunked_kernel_with_few_live_rays(cuda_device, kind, monkeypatch):
         kw = dict(record_miss=miss, record=record)
         key = f"segment_{'record_' if record else 'miss_' if miss else ''}brute_chunked"
         before = mk.LAUNCHES[key]
-        got, whole = _chunked_and_whole(
-            monkeypatch, lambda: mk.segment_call(state, slot, scene, 77, 3, 8, **kw))
+        got = mk.segment_call(state, slot, scene, 77, 3, 8, **kw)
         want = mk.segment_twin(state, slot, scene, 77, 3, 8, **kw)
         if record:
-            (got, planes), (whole, wplanes), (want, pplanes) = got, whole, want
-            assert _all_equal(planes, pplanes) and _all_equal(planes, wplanes)
+            (got, planes), (want, pplanes) = got, want
+            assert _all_equal(planes, pplanes)
     else:
         fn = mk.trace_record if kind == "record" else mk.trace_paths
         kw = {"record_miss": True} if kind == "record_miss" else {}
@@ -393,31 +384,29 @@ def test_chunked_kernel_with_few_live_rays(cuda_device, kind, monkeypatch):
         key = {"forward": "brute_chunked", "record": "record_brute_chunked",
                "record_miss": "brute_chunked_miss"}[kind]
         before = mk.LAUNCHES[key]
-        got, whole = _chunked_and_whole(monkeypatch, lambda: fn(o, d, t, scene, 5, 8, **kw))
+        got = fn(o, d, t, scene, 5, 8, **kw)
         want = twin(o, d, t, scene, 5, 8, **kw)
     torch.cuda.synchronize()
     assert mk.LAUNCHES[key] == before + 1
-    assert _all_equal(got, want) and _all_equal(got, whole)
+    assert _all_equal(got, want)
 
 
-def test_chunked_kernel_keeps_the_first_of_exact_ties(cuda_device, monkeypatch):
+def test_chunked_kernel_keeps_the_first_of_exact_ties(cuda_device):
     """Every sphere twice, at columns i and 1999 - i (other lanes, other
     chunks): every hit is an exact tie, and the chunked kernel, forward and
-    recording, keeps the first column as the whole-table kernel and the
-    plain version do."""
+    recording, keeps the first column as the plain version does."""
     from raytracingproject_tpu_torch.scene import make_random_scene
 
     half = make_random_scene(1000, seed=3)
     scene = half.take(torch.cat([torch.arange(1000), torch.arange(999, -1, -1)])).to(cuda_device)
     _, _, rays = _large_scene(cuda_device)
     o, d, t = (x[::4][:2048].contiguous() for x in rays)  # over the whole image
-    got, whole = _chunked_and_whole(monkeypatch, lambda: mk.trace_paths(o, d, t, scene, 9, 8))
-    (rad, res), (rad_w, res_w) = _chunked_and_whole(
-        monkeypatch, lambda: mk.trace_record(o, d, t, scene, 9, 8))
-    assert torch.equal(got, whole) and torch.equal(got, mk.trace_paths_twin(o, d, t, scene, 9, 8))
+    got = mk.trace_paths(o, d, t, scene, 9, 8)
+    rad, res = mk.trace_record(o, d, t, scene, 9, 8)
+    assert torch.equal(got, mk.trace_paths_twin(o, d, t, scene, 9, 8))
     prad, pres = mk.trace_record_twin(o, d, t, scene, 9, 8)
-    for a, b in ((rad, rad_w), (rad, prad), (res.idx, res_w.idx), (res.idx, pres.idx),
-                 (res.ndir, pres.ndir), (res.refl, pres.refl)):
+    for a, b in ((rad, got), (rad, prad), (res.idx, pres.idx), (res.ndir, pres.ndir),
+                 (res.refl, pres.refl)):
         assert torch.equal(a, b)
     hits = res.idx >= 0
     assert bool(hits.any()) and bool((res.idx[hits] < 1000).all())
@@ -447,12 +436,11 @@ def test_bvh_kernel_matches_twin(cuda_device, zero_draws):
 @pytest.mark.parametrize("kw", [{}, {"word_earlyout": True}, {"sub_block": True},
                                 {"sub_block": True, "word_earlyout": True, "max_nodes": 24},
                                 {"max_nodes": 600}])
-def test_front_hbm_kernel_matches_twin(cuda_device, kw, monkeypatch):
-    """K7 against its plain version, the brute kernel and K3 on the same
-    scene, with each option and on a front of more than 576 subtrees (the
-    three-level culling path); and with its box tables left in global
-    memory (the route of a front whose boxes pass shared memory) against
-    the same tables staged."""
+def test_front_hbm_kernel_matches_twin(cuda_device, kw):
+    """K7 against its plain version (bit-equal), the brute kernel and K3 on
+    the same scene, with each option and on a front of more than 576
+    subtrees (the three-level culling path); its shared memory holds the
+    live list alone, whatever the budget says."""
     scene, tree, (o, d, t) = _large_scene(cuda_device)
     front = mk.front_tables_hbm(scene, tree, **kw)
     before = mk.LAUNCHES["front_hbm"]
@@ -460,14 +448,86 @@ def test_front_hbm_kernel_matches_twin(cuda_device, kw, monkeypatch):
     torch.cuda.synchronize()
     assert mk.LAUNCHES["front_hbm"] == before + 1
     assert torch.isfinite(k).all()
-    assert _rays_differ(k, mk.trace_paths_twin(o, d, t, None, 99, 8, front=front)) <= 1e-3
+    assert torch.equal(k, mk.trace_paths_twin(o, d, t, None, 99, 8, front=front))
     assert _rays_differ(k, mk.trace_paths(o, d, t, scene, 99, 8)) <= 1e-3
     k3 = mk.trace_paths(o, d, t, None, 99, 8, front=mk.front_tables(scene, tree))
     assert _rays_differ(k, k3) <= 1e-3
     with pytest.raises(ValueError, match="FrontTablesHBM"):
         mk.trace_record(o, d, t, scene, 99, 8, front=front)
-    monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 0)
-    assert torch.equal(mk.trace_paths(o, d, t, None, 99, 8, front=front), k)
+    budget = mk.SMEM_BUDGET_BYTES
+    try:
+        mk.SMEM_BUDGET_BYTES = 0
+        assert torch.equal(mk.trace_paths(o, d, t, None, 99, 8, front=front), k)
+    finally:
+        mk.SMEM_BUDGET_BYTES = budget
+
+
+@pytest.mark.parametrize("kind", ["plain", "word_earlyout", "sub_block", "record_miss"])
+@pytest.mark.parametrize("live", [1, 5, 9, 17, 33, 65, 129, 256])
+def test_front_hbm_kernel_at_each_group_size(cuda_device, kind, live):
+    """K7 with `live` rays of every block that enter the scene (warp w of
+    block b traces the 32 rays of warp w x blocks + b, so the rays of its
+    threads w x 32 + lane < live), the rest parked where every box misses:
+    they miss at the first bounce and leave `live` (or fewer) live rays a
+    block, each group size G = min(32, 256 / L rounded down to a power of
+    two) from the second bounce on; on each front (a front of more than
+    576 subtrees for the plain and record_miss kinds) bit-equal to the
+    plain version."""
+    import dataclasses
+
+    scene, tree, (o, d, t) = _large_scene(cuda_device)
+    if kind == "sub_block":
+        front = mk.front_tables_hbm(scene, tree, sub_block=True, max_nodes=48)
+    else:
+        front = mk.front_tables_hbm(scene, tree, max_nodes=600)
+        assert front.ff.shape[1] > 576
+        front = dataclasses.replace(front, word_earlyout=kind == "word_earlyout")
+    o, d = o.clone(), d.clone()
+    n_blocks = o.shape[0] // mk.TILE
+    ray = torch.arange(o.shape[0], device=cuda_device)
+    parked = (ray // 32) // n_blocks * 32 + ray % 32 >= live
+    o[parked], d[parked] = 1e18, 1.0
+    kw = {"record_miss": True} if kind == "record_miss" else {}
+    key = "front_hbm_miss" if kind == "record_miss" else "front_hbm"
+    before = mk.LAUNCHES[key]
+    got = mk.trace_paths(o, d, t, None, 31, 8, front=front, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    assert _all_equal(got, mk.trace_paths_twin(o, d, t, None, 31, 8, front=front, **kw))
+
+
+@pytest.mark.parametrize("kind", ["forward", "record", "record_miss", "schlick3", "segment",
+                                  "segment_miss", "segment_record"])
+def test_brute_route_on_the_cover_scene_matches_plain(cuda_device, kind):
+    """Every brute scan takes the chunked kernel, the cover scene's too
+    (487 spheres, one chunk): each of its seven instantiations, on the
+    cover camera's rays, bit-equal to its plain version, and counted under
+    its chunked launch key."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    scene, _, (o, d, t) = _cover_rays(cuda_device)
+    if kind.startswith("segment"):
+        miss, record = kind == "segment_miss", kind == "segment_record"
+        state, slot = dt.initial_state(o, d, t, miss)
+        kw = dict(record_miss=miss, record=record)
+        key = f"segment_{'record_' if record else 'miss_' if miss else ''}brute_chunked"
+        before = mk.LAUNCHES[key]
+        got = mk.segment_call(state, slot, scene, 77, 0, 16, **kw)
+        want = mk.segment_twin(state, slot, scene, 77, 0, 16, **kw)
+    else:
+        fn = mk.trace_record if kind == "record" else mk.trace_paths
+        twin = mk.trace_record_twin if kind == "record" else mk.trace_paths_twin
+        kw = ({"record_miss": True} if kind == "record_miss"
+              else {"inject_bug": "schlick3"} if kind == "schlick3" else {})
+        key = {"forward": "brute_chunked", "record": "record_brute_chunked",
+               "record_miss": "brute_chunked_miss",
+               "schlick3": "brute_chunked_schlick3"}[kind]
+        before = mk.LAUNCHES[key]
+        got = fn(o, d, t, scene, 5, 16, **kw)
+        want = twin(o, d, t, scene, 5, 16, **kw)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[key] == before + 1
+    assert _all_equal(got, want)
 
 
 def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
@@ -498,9 +558,11 @@ def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
 
 def _route(mode, scene, front, tree, monkeypatch):
     """trace_paths' keyword arguments (and launch key) of one closest hit
-    on the cover scene: brute, chunked (budget set low), front, bvh, hbm."""
-    if mode == "chunked":
-        monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
+    on the cover scene: brute, chunked (budget set low: the same chunked
+    kernel, as every brute scan), front, bvh, hbm."""
+    if mode in ("brute", "chunked"):
+        if mode == "chunked":
+            monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 4096)
         return {}, "brute_chunked"
     if mode == "bvh":
         return {"bvh": tree}, "bvh"
@@ -567,7 +629,7 @@ def test_segment_kernel_matches_twin(cuda_device, scan, kind):
     five = make_random_scene(5000, seed=3, device=cuda_device) if scan == "brute_chunked" else None
     scene, front, state, slot = _segment_inputs(cuda_device, kind == "miss", five)
     f = front if scan == "front" else None
-    key = f"segment_{'' if kind == 'plain' else kind + '_'}{scan}"
+    key = f"segment_{'' if kind == 'plain' else kind + '_'}{KEY.get(scan, scan)}"
     kw = dict(front=f, record_miss=kind == "miss", record=kind == "record")
     before = mk.LAUNCHES[key]
     got = mk.segment_call(state, slot, scene, 77, 2, 12, **kw)
@@ -712,7 +774,7 @@ def test_depth_tail_and_sky_texture_render_on_the_card(cuda_device):
                                              trainable=("albedo",))
     params, opt, loss, grads = step(params, opt, None, ref)
     assert params.albedo.is_cuda and torch.isfinite(loss)
-    assert mk.LAUNCHES["segment_record_brute"] == 2
+    assert mk.LAUNCHES["segment_record_brute_chunked"] == 2
 
 
 # ---- the probe kernels (csrc/probes.cu) ----
@@ -839,9 +901,9 @@ def test_schlick3_kernel_matches_its_plain_version(cuda_device):
 
     scene = make_three_sphere_scene(device=cuda_device)
     _, _, rays = _cover_rays(cuda_device)
-    before = mk.LAUNCHES["brute_schlick3"]
+    before = mk.LAUNCHES["brute_chunked_schlick3"]
     k = mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3")
-    assert mk.LAUNCHES["brute_schlick3"] == before + 1
+    assert mk.LAUNCHES["brute_chunked_schlick3"] == before + 1
     assert torch.equal(k, mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3"))
     with pytest.raises(ValueError, match="inject_bug"):
         mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3", record_miss=True)

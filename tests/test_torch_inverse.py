@@ -470,9 +470,10 @@ def test_train_step_adam_matches_optax():
 
 @pytest.mark.parametrize("which", ["oracle", "fast"])
 def test_train_steps_resolve_the_device_as_render_does(which):
-    """With no `device` a train step runs where `render` runs (the card
-    when there is one, else the CPU), whatever device the scene was built
-    on; asking for the card without one raises, as `render` does."""
+    """With no `device` a train step runs where `render` runs: the card,
+    whatever device the scene was built on, and without one it raises as
+    `render` does, naming device="cpu"; the CPU runs only when asked for,
+    and asking for the card without one raises too."""
     from raytracingproject_tpu_torch.config import RenderSettings
     from raytracingproject_tpu_torch.grad import make_fast_train_step
 
@@ -480,8 +481,14 @@ def test_train_steps_resolve_the_device_as_render_does(which):
     cam = tiny_camera(max_depth=2)
     scene = single_sphere((0.4, 0.4, 0.4))
     assert scene.device.type == "cpu"
-    params, _, _ = make(scene, cam, spp=1, trainable=("albedo",))
-    assert params.albedo.device.type == RenderSettings().resolved_device().type
+    if torch.cuda.is_available():
+        params, _, _ = make(scene, cam, spp=1, trainable=("albedo",))
+        assert params.albedo.device.type == RenderSettings().resolved_device().type == "cuda"
+    else:
+        for fn in (lambda: make(scene, cam, spp=1, trainable=("albedo",)),
+                   lambda: RenderSettings().resolved_device()):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                fn()
     params, _, _ = make(scene, cam, spp=1, trainable=("albedo",), device="cpu")
     assert params.albedo.device.type == "cpu"
     if not torch.cuda.is_available():

@@ -406,8 +406,8 @@ def test_every_entry_point_has_a_counter_and_a_chip_smoke_check():
     segment = {f"segment_{kind}{n.removeprefix('rtp_segment_')}"
                for n in names if n.startswith("rtp_segment_")
                for kind in ("", "miss_", "record_")}
-    assert len(segment) == 9
-    faults = {f"brute_{bug}" for bug in mk.INJECT_BUGS}
+    assert len(segment) == 6  # K6 over the brute scan (chunked) and the front
+    faults = {f"brute_chunked_{bug}" for bug in mk.INJECT_BUGS}
     assert faults <= forward
     with_miss = forward | {f"{k}_miss" for k in forward - faults}
     options = ({f"{k}_opts" for k in (forward | record | segment) if k.endswith("front")}

@@ -112,13 +112,13 @@ def test_material_region_statistics_detects_injected_bug(cpu_material):
 @pytest.mark.cuda
 def test_material_region_statistics_on_the_card():
     """Both, with the megakernel on the card (at SPP_CARD): the clean brute
-    kernel and `<BRUTE, SCHLICK3>`."""
+    scan and `<CHUNKED, SCHLICK3>` (every brute scan is the chunked kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     scene, rays = _material_rays(dev, SPP_CARD)
     oracle = _oracle_stats(scene, rays)
-    before = mk.LAUNCHES["brute_schlick3"]
+    before = mk.LAUNCHES["brute_chunked_schlick3"]
     _check_clean(scene, rays, oracle)
     _check_caught(scene, rays, oracle)
-    assert mk.LAUNCHES["brute_schlick3"] == before + 1
+    assert mk.LAUNCHES["brute_chunked_schlick3"] == before + 1

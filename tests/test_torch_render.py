@@ -194,6 +194,26 @@ def test_cuda_device_without_a_card_raises():
         pmk.trace_paths(o, o, torch.zeros(4, device="meta"), None, 0, 1)
 
 
+def test_resolve_device_defaults_to_the_card(monkeypatch, tmp_path):
+    """No device asked for means the card: `resolve_device(None)`,
+    `RenderSettings().resolved_device()`, `render` and the CLI's --device
+    default raise without one, naming device="cpu" (the CPU runs only when
+    asked for); with a card, None is "cuda"."""
+    from raytracingproject_tpu_torch.config import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = pcamera.Camera(**THREE)
+    for fn in (lambda: resolve_device(None), lambda: RenderSettings().resolved_device(),
+               lambda: prender(pscene.make_three_sphere_scene(), cam),
+               lambda: cli_main(["--scene", "three", "--width", "16", "--spp", "1", "--depth",
+                                 "1", "-o", str(tmp_path / "x.ppm")])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            fn()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+
+
 def test_unported_options_raise(monkeypatch, capsys):
     """What the port does not run raises, naming its ROADMAP item or the
     route that does: the CLI's wavefront renderer (not ported), segmented
