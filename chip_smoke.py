@@ -42,14 +42,16 @@ through its kernels:
   one pass at depth 16; K5 bvh also on one train step's 180,000 rays at
   depth 50); K7, K8 and the chunked brute scan against each other, and
   their first hits against K4 on the 90,000 primary rays of a pass. K7
-  (each of its three fronts) and the chunked scan's seven instantiations
-  are held bit-equal to their plain versions (`torch.equal`) at their
-  paths' shapes, the chunked scan also on 2,000 and 3,000 spheres and on
-  its edge cases: blocks with 1, 33, 129 and 256 live rays, and a scene
-  where every hit is an exact tie; their registers and blocks per SM are
-  printed, with the chunked scan's live rays a block-bounce and the SM
-  load behind its time; the 5,000-sphere geometry train step (the chunked
-  recording kernel) is timed.
+  (each of its three fronts), K8's three instantiations and the chunked
+  scan's seven are held bit-equal to their plain versions (`torch.equal`)
+  at their paths' shapes, the chunked scan also on 2,000 and 3,000
+  spheres and on its edge cases: blocks with 1, 33, 129 and 256 live rays,
+  and a scene where every hit is an exact tie; their registers (K8's
+  stack frame too) and blocks per SM are printed, with the chunked scan's
+  live rays a block-bounce and the SM load behind its time; K8's bound
+  reads its ordered walk's count (the miss-link walk's, which PRs before
+  the ordered walk read, is printed beside it); the 5,000-sphere geometry
+  train step (the chunked recording kernel) is timed.
 
 - the depth tail: `render` with `RenderSettings(two_phase=4)` and
   `depth_segment=8` and with a sky texture (K1's record_miss; on the
@@ -155,16 +157,15 @@ OPTS = {0: "", 1: ", SCHLICK3", 2: ", FRONT_OPTS"}
 # three segments, each with and without K3's options), 7 chunked brute
 # scans (every brute scan, SCHLICK3 included), 3 BVH walks, 2 K7.
 N_INSTANTIATIONS = 24
-# Registers of the six trace_kernel instantiations that came before the
+# Registers of the three trace_kernel instantiations that came before the
 # OPT template argument (K3's options, SCHLICK3) and have kept their
 # closest hit since, as -Xptxas -v reported them for the source without
 # it: (mode, record, record_miss, segment, opt) -> registers (the record
-# front's 80 with a 60 B spill). The chunked scans (mode 2), K7 (mode 4)
-# and the three front segments (FRONT_SEGMENT_KINDS) have a closest hit of
-# their own since their redesign; their registers and blocks per SM are
-# printed, not held.
-OLD_REGISTERS = {(1, 0, 0, 0, 0): 64, (1, 1, 0, 0, 0): 80, (3, 0, 0, 0, 0): 57,
-                 (3, 1, 0, 0, 0): 59, (1, 0, 1, 0, 0): 64, (3, 0, 1, 0, 0): 61}
+# front's 80 with a 60 B spill). The chunked scans (mode 2), K8 (mode 3),
+# K7 (mode 4) and the three front segments (FRONT_SEGMENT_KINDS) have a
+# closest hit of their own since their redesign; their registers and
+# blocks per SM are printed, not held.
+OLD_REGISTERS = {(1, 0, 0, 0, 0): 64, (1, 1, 0, 0, 0): 80, (1, 0, 1, 0, 0): 64}
 # The chunked brute scan's six instantiations: (record, record_miss, segment)
 CHUNKED_KINDS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1), (1, 0, 1))
 # K6's three front segments: (record, record_miss), and their kernels' names
@@ -172,9 +173,9 @@ FRONT_SEGMENT_KINDS = ((0, 0), (0, 1), (1, 0))
 # The kernels whose closest hit computes roots only where a discriminant is
 # positive: the mixed peak measures full tests, not the same work, so they
 # get no mixed share. K4, K6's three front segments, every brute scan (the
-# chunked kernel) and K7.
+# chunked kernel), K7 and K8's three kernels.
 ROOTS_ONLY = ("closest_hit", "megakernel_segment_front", "megakernel_segment_miss_front",
-              "megakernel_segment_record_front", "brute_chunked", "front_hbm")
+              "megakernel_segment_record_front", "brute_chunked", "front_hbm", "bvh")
 
 
 def roots_only(name: str) -> bool:
@@ -396,6 +397,14 @@ def test_ops(counts: dict) -> float:
     from raytracingproject_tpu_torch.probes import roofline
 
     return roofline.test_ops(counts["pairs"], counts["roots"], counts.get("boxes", 0))
+
+
+def miss_link(counts: dict) -> dict:
+    """K8's counts as the plain version's miss-link walk has them
+    (`counting_hit`), beside the kernel's ordered walk's, which its bound
+    reads: the yardstick K8's share was read against before the kernel
+    walked in order, printed so that shares compare."""
+    return {k: counts[f"miss-link {k}"] for k in ("pairs", "roots", "boxes")}
 
 
 def megakernel_bound(counts: dict, n_rays: int, depth: int, tab_bytes: int,
@@ -1199,9 +1208,14 @@ def counting_hit(mk, scene, front, bvh, device, counts: dict):
     boxes) and, with K7's sub-block boxes, the boxes of the entered
     subtrees' 8-column groups; the columns of the subtrees (and groups)
     whose box the ray enters, padding columns included. BVH walk (K8): the
-    nodes the ray's walk visits and the spheres of the leaves it enters.
-    "roots": the pair tests among those whose discriminant is positive.
-    Dead rays are parked where every test misses and count nothing."""
+    two boxes of each node record the kernel's ordered walk visits and the
+    spheres of the leaves it enters (`probes.pair_counts.ordered_walk`,
+    the walk the kernel takes; "records", "leaves" and "steps", its
+    dependent chain, beside them), and the plain version's miss-link walk's
+    ("miss-link boxes", "miss-link pairs", "miss-link roots"), whose
+    result the ordered walk's must equal on every bounce. "roots": the
+    pair tests among those whose discriminant is positive. Dead rays are
+    parked where every test misses and count nothing."""
     import torch
 
     tab, base, chunk = mk.twin_closest_hit(scene, front, bvh, device)
@@ -1255,12 +1269,21 @@ def counting_hit(mk, scene, front, bvh, device, counts: dict):
             counts["roots"] += int((entered & (disc > 0.0)).sum())
             return base(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min)
     elif bvh is not None:
-        flat = mk.bvh_tables(bvh, device).flat
+        from raytracingproject_tpu_torch.probes.pair_counts import ordered_walk
+
+        tables = mk.bvh_tables(bvh, device)
+        plain: dict = {"boxes": 0, "pairs": 0, "roots": 0}
 
         def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
             counts["bounces"] += int((ox < 1e17).sum())
-            return mk.closest_hit_bvh_twin(tab, flat, ox, oy, oz, dx, dy, dz, tm, a, inv_a,
-                                           t_min, counts=counts)
+            rays = (ox, oy, oz, dx, dy, dz, tm, a, inv_a)
+            want = mk.closest_hit_bvh_twin(tab, tables.flat, *rays, t_min, counts=plain)
+            for k, v in plain.items():
+                counts[f"miss-link {k}"] = v
+            got = ordered_walk(tables.nodes, tab, rays, t_min, counts=counts)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  "K8's ordered walk (its model) equals the plain version on a bounce")
+            return got
     else:
         def hit(ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min):
             live = ox < 1e17
@@ -1423,20 +1446,26 @@ def chunked_blocks(mk, idx, n_cols: int, kernel_ms: float, card: str) -> None:
           f"{skew:.3f}x the mean); the kernel {kernel_ms:.3f} ms; on {card}")
 
 
-def hbm_occupancy(card: str) -> None:
-    """K7's two instantiations (forward, record_miss): registers and spill
-    stores as -Xptxas -v reported them, and blocks per SM with their shared
+def large_occupancy(card: str) -> None:
+    """K7's two instantiations (forward, record_miss) and K8's three
+    (forward, recording, record_miss): registers, spill stores and stack
+    frame as -Xptxas -v reported them, and blocks per SM with their shared
     memory (the live list; every table stays in global memory), as the
     launch gets them."""
     from raytracingproject_tpu_torch.ops.cuda import build
 
     regs = build.kernel_registers(str(build.BUILD_INFO["log"]))
     lib = build.load_library()
-    for miss in (0, 1):
-        key, blocks = (4, 0, miss, 0, 0), ctypes.c_int()
-        build.check(lib.rtp_hbm_blocks_per_sm(miss, ctypes.byref(blocks)), "occupancy")
+    kinds = [((4, 0, miss, 0, 0), lambda b, miss=miss: lib.rtp_hbm_blocks_per_sm(miss, b))
+             for miss in (0, 1)]
+    kinds += [((3, rec, miss, 0, 0), lambda b, rec=rec, miss=miss: lib.rtp_bvh_blocks_per_sm(
+        rec, miss, b)) for rec, miss in ((0, 0), (1, 0), (0, 1))]
+    for key, occupancy in kinds:
+        blocks = ctypes.c_int()
+        build.check(occupancy(ctypes.byref(blocks)), "occupancy")
         print(f"  {instantiation(key)}: {regs[key][0]} registers, {regs[key][1]} B spill "
-              f"stores, {blocks.value} blocks of 256 threads per SM; on {card}")
+              f"stores, {regs[key][2]} B stack frame, {blocks.value} blocks of 256 threads per "
+              f"SM; on {card}")
 
 
 def large_scenes(mk, trace, card: str) -> list[dict]:
@@ -1505,15 +1534,17 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
         print(f"K7 front ({name}): {f.ff.shape[1]} subtrees (super-words {f.sf.shape[1]}), "
               f"{int(f.fi.sum())} scanned columns of {f.sph.shape[0]}, ksub {f.ksub}")
     check(fronts["plain"].ff.shape[1] > 576, "the 50,000-sphere front has super-words")
-    hbm_occupancy(card)
+    large_occupancy(card)
     for name, f in fronts.items():
         worst("front_hbm", hold_large(mk, f"K7 ({name}, {N_LARGE} spheres)", "front_hbm",
                                       oc, dc, tc, None, 2024, 4, exact=True, front=f))
     worst("bvh", hold_large(mk, f"K8 ({N_LARGE} spheres)", "bvh", oc, dc, tc, big, 2024, 4,
-                            bvh=tree))
+                            exact=True, bvh=tree))
     tables = mk.bvh_tables(tree, dev)
+    print(f"K8's node records: {tables.nodes.shape[0]} ({tables.nodes.numel() * 4} B), depth "
+          f"{tables.depth} of a {mk.BVH_STACK}-entry stack")
     worst("record_bvh", hold_record(mk, f"{N_LARGE} spheres", oc, dc, tc, big, None, 2024, 4,
-                                    False, bvh=tables))
+                                    False, bvh=tables, exact=True))
 
     # ---- L3. first hits of a whole pass against K4 ----
     po, pd, pt = pass_rays(ref_cam, torch.Generator(device=dev).manual_seed(21))
@@ -1645,7 +1676,7 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     check(frac >= 0.998, "replay of K5 bvh's residuals: >= 99.8% within 2e-5")
     del rad, res, rp
     worst("record_bvh", hold_record(mk, f"one train step's rays, {N_LARGE} spheres", so, sd, st,
-                                    start_dev, None, seed, 50, False, bvh=tables))
+                                    start_dev, None, seed, 50, False, bvh=tables, exact=True))
     del so, sd, st
     # the chunked recording kernel on its own main path: geometry + albedo on 5,000 spheres
     five_cpu = make_random_scene(5000, seed=3)
@@ -1718,7 +1749,7 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
     chunked_blocks(mk, mk.trace_record(*rays1, big, 99, 16)[1].idx, big.num_spheres,
                    ms["brute_chunked"], card)
-    entries = []
+    entries, counted = [], {}
     for key in ("brute_chunked", "record_brute_chunked", "bvh", "record_bvh", "front_hbm"):
         name = "front_hbm plain" if key == "front_hbm" else key
         front = fronts["plain"] if key == "front_hbm" else None
@@ -1728,13 +1759,12 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
         plain_ms = cuda_ms(
             lambda: kept.append(twin(*rays1, big, 99, 16, front=front, bvh=tree_k)),  # noqa: B023
             1)
-        exact = "bvh" not in key  # the redesigned closest hits: the chunked scan, K7
-        if key.startswith("record"):
+        if key.startswith("record"):  # every one bit-equal
             worst(key, hold_record(mk, f"one pass's rays, {N_LARGE} spheres", *rays1, big, None,
-                                   99, 16, False, bvh=tree_k, twin=kept[0], exact=exact))
+                                   99, 16, False, bvh=tree_k, twin=kept[0], exact=True))
         else:
             worst(key, hold_large(mk, f"{key} (one pass's rays, {N_LARGE} spheres)", key, *rays1,
-                                  big, 99, 16, twin=kept[0], exact=exact, front=front,
+                                  big, 99, 16, twin=kept[0], exact=True, front=front,
                                   bvh=tree_k))
         del kept
         if key == "front_hbm":  # K7's options on the same rays, bit-equal too
@@ -1742,8 +1772,10 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
                 worst(key, hold_large(mk, f"front_hbm {opt} (one pass's rays, {N_LARGE} "
                                       "spheres)", key, *rays1, None, 99, 16, exact=True,
                                       front=fronts[opt]))
-        counts = count_tests(mk, *sub1, big, front, 99, 16, bvh=tree_k)
-        counts = {k: v * scale for k, v in counts.items()}
+        route = "bvh" if tree_k is not None else "front" if front is not None else "brute"
+        if route not in counted:  # a recording kernel's rays need what its forward's do
+            counted[route] = count_tests(mk, *sub1, big, front, 99, 16, bvh=tree_k)
+        counts = {k: v * scale for k, v in counted[route].items()}
         tab_bytes = 64 * big.num_spheres
         if front is not None:
             tab_bytes = 4 * sum(x.numel() for x in (front.sph, front.ff, front.fi, front.wf,
@@ -1755,6 +1787,11 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
               f"rays need about {({k: round(v) for k, v in counts.items()})} (counted on every "
               f"{step1}th ray, scaled by {scale:.2f}); bound {b_ms:.4f} ms by {b_by}, the kernel "
               f"reaches {b_ms / ms[name]:.3f} of it")
+        if tree_k is not None:
+            o_ms, o_by = megakernel_bound(miss_link(counts), n1, 16, tab_bytes,
+                                          key.startswith("record"))
+            print(f"{key}: read against the miss-link walk's count instead, bound {o_ms:.4f} ms "
+                  f"by {o_by}, share {o_ms / ms[name]:.3f}")
         entries.append({
             "name": f"megakernel_{key}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[key], "launches": launches[key],
@@ -2143,12 +2180,18 @@ def depth_tail(mk, card: str) -> list[dict]:
               f"{frac:.6f} of rays within 1e-3 (bit-equal {bit}); "
               f"{never.double().mean().item():.4f} of rays never missed")
         check(ident <= 2e-6, f"{key}: the miss planes rebuild the kernel's sky within 2e-6")
-        check(bit or name in ("front", "bvh"), f"{key}: bit-equal to the plain version")
+        check(bit or name == "front", f"{key}: bit-equal to the plain version")
         check(frac >= 0.999, f"{key}: >= 99.9% of rays within 1e-3 of the plain version")
         check(bool((mthr[never] == 0).all()), f"{key}: never-missed planes are 0")
         worst(key, max(d.max().item() for d in diffs))
         ms[key] = cuda_ms(lambda: mk.trace_paths(*rays1, sc, 45, 16, record_miss=True,  # noqa: B023
                                                  **kw), 10)  # noqa: B023
+        if name == "bvh":  # the tree passed on every call, as render_pass does, against its records
+            built = mk.bvh_tables(tree, dev)
+            r_ms = cuda_ms(lambda: mk.trace_paths(*rays1, sc, 45, 16, record_miss=True,
+                                                  bvh=built), 10)  # noqa: B023
+            print(f"{key}: {ms[key]:.4f} ms with the FlatBVH passed on every call, {r_ms:.4f} ms "
+                  f"with its node records (built once per tree either way)")
         plain_ms[key] = p_ms
         step = 1 if name in ("brute", "brute_chunked", "front") else 11  # walks: a subset
         sub = tuple(x[::step].contiguous() for x in rays1)
@@ -2168,6 +2211,10 @@ def depth_tail(mk, card: str) -> list[dict]:
               f"16, {sc.num_spheres} spheres); these rays need about "
               f"{({k: round(v) for k, v in counts.items()})}; bound {b_ms:.4f} ms by {b_by}, the "
               f"kernel reaches {b_ms / ms[key]:.3f} of it")
+        if name == "bvh":
+            o_ms, o_by = bound(test_ops(miss_link(counts)), n1 * 64 + tab_bytes)
+            print(f"{key}: read against the miss-link walk's count instead, bound {o_ms:.4f} ms "
+                  f"by {o_by}, share {o_ms / ms[key]:.3f}")
         del kept, plain, rad, mdir, mthr
     del big, hbm
 

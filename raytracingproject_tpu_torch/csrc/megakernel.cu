@@ -111,18 +111,36 @@
 //     less.
 //   The block size, group size and chunk size are fixed; there is no knob.
 // - BVH (K8, replaces _closest_hit_bvh :180 in _megakernel_bvh :850; with
-//   RECORD, K5's bvh core :1621): a stackless miss-link walk of the flat
-//   tree. The TPU walks ONE node pointer per 1,024-ray tile and descends
-//   when any lane hits, because it cannot branch per lane. Here every
-//   thread walks its own pointer: after the first bounce the rays of a
-//   warp go apart, and a shared pointer would make each lane pay for the
-//   union of 32 rays' nodes and leaves; the price is divergence inside
-//   the warp (lanes in a leaf scan while the others wait). Nodes are 32 B
-//   (box, miss link, packed leaf range) and spheres 64 B (one row of a
-//   sphere-major table), read from global memory through the read-only
-//   path: 50,000 spheres are 3.2 MB of spheres and 0.4 MB of nodes against
-//   50 MB of L2. What bounds it: latency of those dependent loads and
-//   divergence, not arithmetic.
+//   RECORD, K5's bvh core :1621; with MISSREC, record_miss): an ordered
+//   walk of the tree, one ray a thread. The TPU walks ONE node pointer per
+//   1,024-ray tile, in the flat tree's pre-order along miss links, because
+//   one scalar pointer served the tile (the reference means an ordered
+//   walk, src/bvh.h:16-24). The first port here walked each thread's own
+//   pointer the same way: it never entered the nearer child first, so the
+//   best t tightened late; every step was a dependent 32-byte node load;
+//   every sphere test paid the square root and both roots (2.59 ms a
+//   50,000-sphere pass, 0.017 of its bound; PERF.md). What bounds it on an
+//   H100: the latency of its dependent loads (node records, then spheres),
+//   not arithmetic. What the design does:
+//   * node records of the port's own (bvh_tables): an inner node's record
+//     holds both children's boxes and references, 64 B, so one step loads
+//     and tests two boxes;
+//   * the nearer child entered first, the other deferred with its entry t
+//     on a 32-entry stack in local memory (bvh_tables raises on a deeper
+//     tree); a deferred child entered beyond the best t is dropped when
+//     popped: a pass's primary rays take 4.1x fewer dependent steps, and
+//     1.6x fewer after one scatter (CPU count, PERF.md);
+//   * (t, column) carried lexicographically, the roots only where a
+//     discriminant is positive, the winner's record read once after the
+//     walk. The miss-link walk keeps the first minimum in column order;
+//     so does this one in any order, as long as its clamp is not strict on
+//     the best-t side (a box entered exactly at the best t may hold an
+//     equal t at a lower column), so the result is bit for bit the same,
+//     ties included;
+//   * a block traces 256 neighbouring rays, which read the same records
+//     through L1: against warps interleaved over the blocks (0.86 ms a
+//     pass) and against the same walk over lane groups on a block-level
+//     live list (1.04 ms), this (0.79 ms) won every case (PERF.md).
 // - HBM (K7, replaces _closest_hit_front_hbm :2350 in _megakernel_front_hbm
 //   :2500): K3's culling with the sphere table in global memory, one
 //   128-column block per subtree (the layout of front_tables_hbm), no
@@ -666,80 +684,6 @@ __device__ __forceinline__ void closest_hit_chunked(const ChunkSmem& C, const Pa
   }
 }
 
-// sphere_test on a sphere-major table in global memory ([n, 16] floats,
-// the rows of the (16, n) table as one 64-byte record a sphere): the same
-// arithmetic, the material read only by a winner.
-template <bool RECORD>
-__device__ __forceinline__ void sphere_test_g(const float4* __restrict__ S, int s, const Ray& r,
-                                              float t_min, typename HitOf<RECORD>::type& h) {
-  const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
-  const float ccx = g0.x + r.tm * g0.w;
-  const float ccy = g0.y + r.tm * g1.x;
-  const float ccz = g0.z + r.tm * g1.y;
-  const float rad = g1.z;
-  const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
-  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  const float disc = half_b * half_b - r.a * cq;
-  const bool dpos = disc > 0.0f;
-  const float sq = sqrtf(dpos ? disc : 1.0f);
-  const float r0 = (-half_b - sq) * r.inv_a;
-  const float r1 = (-half_b + sq) * r.inv_a;
-  const bool in0 = (r0 > t_min) && (r0 < h.bt);
-  const bool in1 = (r1 > t_min) && (r1 < h.bt);
-  if (dpos && (in0 || in1)) {
-    const float4 g2 = __ldg(S + 4 * s + 2), g3 = __ldg(S + 4 * s + 3);
-    h.bt = in0 ? r0 : r1;
-    h.hx = ccx; h.hy = ccy; h.hz = ccz;
-    h.hrad = rad;
-    h.hmat = (int)g1.w;
-    if constexpr (RECORD) h.hidx = s;
-    h.har = g2.x; h.hag = g2.y; h.hab = g2.z;
-    h.hfz = g2.w;
-    h.hio = g3.x;
-  }
-}
-
-// K8: this thread's own stackless walk of the flat tree. A node is eight
-// words: box min xyz, max xyz, the miss link (-1 ends the walk) and, for a
-// leaf, (first sphere << 8) | count (0 for an inner node, whose first
-// child is the next node). The box test is clamped to (t_min, best t).
-template <bool RECORD>
-__device__ __forceinline__ void closest_hit_bvh(const LargeParams& p, const Ray& r,
-                                                typename HitOf<RECORD>::type& h) {
-  const InvDir inv = inv_dir(r);
-  const float4* __restrict__ nodes = reinterpret_cast<const float4*>(p.nodes);
-  const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
-  int node = 0;
-  while (node >= 0) {
-    const float4 lo = __ldg(nodes + 2 * node), hi = __ldg(nodes + 2 * node + 1);
-    float t0 = (lo.x - r.ox) * inv.x;
-    float t1 = (lo.w - r.ox) * inv.x;
-    float tn = fminf(t0, t1);
-    float tf = fmaxf(t0, t1);
-    t0 = (lo.y - r.oy) * inv.y;
-    t1 = (hi.x - r.oy) * inv.y;
-    tn = fmaxf(tn, fminf(t0, t1));
-    tf = fminf(tf, fmaxf(t0, t1));
-    t0 = (lo.z - r.oz) * inv.z;
-    t1 = (hi.y - r.oz) * inv.z;
-    tn = fmaxf(tn, fmaxf(fminf(t0, t1), p.t_min));
-    tf = fminf(tf, fminf(fmaxf(t0, t1), h.bt));
-    const int miss = __float_as_int(hi.z), leaf = __float_as_int(hi.w);
-    if (tf > tn) {
-      if (leaf) {
-        const int start = leaf >> 8, end = start + (leaf & 255);
-        for (int s = start; s < end; ++s) sphere_test_g<RECORD>(S, s, r, p.t_min, h);
-        node = miss;
-      } else {
-        node = node + 1;
-      }
-    } else {
-      node = miss;
-    }
-  }
-}
-
 // ---- K6's front segment and K7: per-ray culling, each live ray over a group of lanes ----
 constexpr int LG_MAX = 5;  // a live ray gets at most 2^5 = 32 lanes: a group is part of one warp
 
@@ -935,20 +879,29 @@ __device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const 
 
 // ---- K7: the same groups over the global-memory front ----
 
-// sphere_test_roots on the sphere-major table in global memory ([n, 16]
-// floats, one 64-byte record a sphere): the same arithmetic on the
-// record's test half (centre, velocity, radius: its first 32 bytes).
-__device__ __forceinline__ void sphere_test_roots_g(const float4* __restrict__ S, int s,
-                                                    const Ray& r, float t_min, ColumnHit& h) {
+// sphere_test's quadratic for sphere s of the sphere-major table in global
+// memory ([n, 16] floats, one 64-byte record a sphere), from the record's
+// test half (centre, velocity, radius: its first 32 bytes): its
+// discriminant, and half_b.
+__device__ __forceinline__ float disc_g(const float4* __restrict__ S, int s, const Ray& r,
+                                        float& half_b) {
   const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
   const float ccx = g0.x + r.tm * g0.w;
   const float ccy = g0.y + r.tm * g1.x;
   const float ccz = g0.z + r.tm * g1.y;
   const float rad = g1.z;
   const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
-  const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
   const float cq = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  const float disc = half_b * half_b - r.a * cq;
+  return half_b * half_b - r.a * cq;
+}
+
+// sphere_test_roots on the sphere-major table in global memory: the same
+// arithmetic (disc_g), the roots only where the discriminant is positive.
+__device__ __forceinline__ void sphere_test_roots_g(const float4* __restrict__ S, int s,
+                                                    const Ray& r, float t_min, ColumnHit& h) {
+  float half_b;
+  const float disc = disc_g(S, s, r, half_b);
   if (disc > 0.0f) roots_update(half_b, disc, r, t_min, s, h);
 }
 
@@ -989,6 +942,30 @@ __device__ __forceinline__ void hbm_group_word(const FrontSmem& T, const LargePa
   }
 }
 
+// The winner's fields of a sphere-major table in global memory, read once
+// after the scan: the centre moved to the ray's time as the test computes
+// it, the material as stored. Nothing for a miss (t = inf).
+template <bool RECORD>
+__device__ __forceinline__ void winner_g(const float* sph, const Ray& r, const ColumnHit& win,
+                                         typename HitOf<RECORD>::type& h) {
+  if (win.bt < __int_as_float(0x7f800000)) {
+    const float4* __restrict__ S = reinterpret_cast<const float4*>(sph);
+    const int s = win.col;
+    const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
+    const float4 g2 = __ldg(S + 4 * s + 2), g3 = __ldg(S + 4 * s + 3);
+    h.bt = win.bt;
+    h.hx = g0.x + r.tm * g0.w;
+    h.hy = g0.y + r.tm * g1.x;
+    h.hz = g0.z + r.tm * g1.y;
+    h.hrad = g1.z;
+    h.hmat = (int)g1.w;
+    if constexpr (RECORD) h.hidx = s;
+    h.har = g2.x; h.hag = g2.y; h.hab = g2.z;
+    h.hfz = g2.w;
+    h.hio = g3.x;
+  }
+}
+
 // K7's closest hit of every live ray of the block (see HBM above); `h` is
 // filled for a live ray, the winner's record read once from global memory.
 __device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const ChunkSmem& L,
@@ -999,21 +976,97 @@ __device__ __forceinline__ void closest_hit_hbm(const FrontSmem& T, const ChunkS
       [&](int w, const Ray& y, const InvDir& inv, ColumnHit& best, const Group& q) {
         hbm_group_word(T, p, w, y, inv, best, q);
       });
-  if (win.bt < __int_as_float(0x7f800000)) {  // sphere_test_g's winner fields
-    const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
-    const int s = win.col;
-    const float4 g0 = __ldg(S + 4 * s), g1 = __ldg(S + 4 * s + 1);
-    const float4 g2 = __ldg(S + 4 * s + 2), g3 = __ldg(S + 4 * s + 3);
-    h.bt = win.bt;
-    h.hx = g0.x + r.tm * g0.w;
-    h.hy = g0.y + r.tm * g1.x;
-    h.hz = g0.z + r.tm * g1.y;
-    h.hrad = g1.z;
-    h.hmat = (int)g1.w;
-    h.har = g2.x; h.hag = g2.y; h.hab = g2.z;
-    h.hfz = g2.w;
-    h.hio = g3.x;
+  winner_g<false>(p.sph, r, win, h);
+}
+
+// ---- K8: the ordered BVH walk ----
+constexpr int BVH_STACK = 32;  // a ray's deferred children (ops/cuda/megakernel.py BVH_STACK)
+
+// The ordered walk's slab test: does the ray enter the box (lo, hi) within
+// (t_min, far]? `tn` is where it enters. The far side is not strict: a box
+// entered exactly at the best t so far may hold an equal hit at a lower
+// column, which a walk in column order would have found first.
+__device__ __forceinline__ bool enters(const float4& lo, const float4& hi, const Ray& r,
+                                       const InvDir& inv, float t_min, float far, float& tn) {
+  float t0 = (lo.x - r.ox) * inv.x;
+  float t1 = (hi.x - r.ox) * inv.x;
+  float n = fminf(t0, t1);
+  float f = fmaxf(t0, t1);
+  t0 = (lo.y - r.oy) * inv.y;
+  t1 = (hi.y - r.oy) * inv.y;
+  n = fmaxf(n, fminf(t0, t1));
+  f = fminf(f, fmaxf(t0, t1));
+  t0 = (lo.z - r.oz) * inv.z;
+  t1 = (hi.z - r.oz) * inv.z;
+  n = fmaxf(n, fmaxf(fminf(t0, t1), t_min));
+  f = fminf(f, fmaxf(t0, t1));
+  tn = n;
+  return f > n && n <= far;
+}
+
+// sphere_test_roots_g with a lexicographic update: the sphere's first root
+// past t_min replaces the carry where (t, column) is less, so that spheres
+// tested out of column order keep the first minimum in column order.
+__device__ __forceinline__ void sphere_test_lex_g(const float4* __restrict__ S, int s,
+                                                  const Ray& r, float t_min, ColumnHit& h) {
+  float half_b;
+  const float disc = disc_g(S, s, r, half_b);
+  if (disc > 0.0f) {
+    const float sq = sqrtf(disc);
+    const float r0 = (-half_b - sq) * r.inv_a;
+    const float r1 = (-half_b + sq) * r.inv_a;
+    const float t = r0 > t_min ? r0 : r1;
+    if (t > t_min) take_less(h, t, s);
   }
+}
+
+// K8's closest hit of this thread's ray: the ordered walk over the node
+// records (see BVH above; bvh_tables lays them out). At an inner record
+// both children's boxes are tested against the best t, the nearer child
+// entered first and the other deferred with its entry t; a deferred child
+// entered beyond the best t is dropped when popped; a leaf's spheres update
+// (t, column) lexicographically. The winner's record is read once after
+// the walk.
+template <bool RECORD>
+__device__ __forceinline__ void closest_hit_bvh(const LargeParams& p, const Ray& r,
+                                                typename HitOf<RECORD>::type& h) {
+  const InvDir inv = inv_dir(r);
+  const float4* __restrict__ N = reinterpret_cast<const float4*>(p.nodes);
+  const float4* __restrict__ S = reinterpret_cast<const float4*>(p.sph);
+  float stack_t[BVH_STACK];
+  int stack_ref[BVH_STACK];
+  int sp = 0;
+  ColumnHit best{__int_as_float(0x7f800000), 0};
+  int ref = 0;  // record 0: the root's parent
+  for (;;) {
+    if (ref >= 0) {
+      const float4 lo0 = __ldg(N + 4 * ref), hi0 = __ldg(N + 4 * ref + 1);
+      const float4 lo1 = __ldg(N + 4 * ref + 2), hi1 = __ldg(N + 4 * ref + 3);
+      float tn0, tn1;
+      const bool in0 = enters(lo0, hi0, r, inv, p.t_min, best.bt, tn0);
+      const bool in1 = enters(lo1, hi1, r, inv, p.t_min, best.bt, tn1);
+      const int ref0 = __float_as_int(lo0.w), ref1 = __float_as_int(hi0.w);
+      if (in0 && in1) {
+        const bool first0 = tn0 <= tn1;  // on equal entries the lower columns first
+        stack_t[sp] = first0 ? tn1 : tn0;
+        stack_ref[sp] = first0 ? ref1 : ref0;
+        ++sp;
+        ref = first0 ? ref0 : ref1;
+        continue;
+      }
+      if (in0 || in1) {
+        ref = in0 ? ref0 : ref1;
+        continue;
+      }
+    } else {
+      const int leaf = ~ref, start = leaf >> 8, end = start + (leaf & 255);
+      for (int s = start; s < end; ++s) sphere_test_lex_g(S, s, r, p.t_min, best);
+    }
+    while (sp > 0 && stack_t[sp - 1] > best.bt) --sp;
+    if (sp == 0) break;
+    ref = stack_ref[--sp];
+  }
+  winner_g<RECORD>(p.sph, r, best, h);
 }
 
 // Does any ray of this thread's warp still bounce? LISTED (CHUNKED, K6's
@@ -1079,7 +1132,7 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
   // GROUPED (K6's front segment, K7): warp w of block b traces the 32 rays
   // of warp w * gridDim.x + b, so a launch's live warps spread over the
   // blocks while a warp's rays stay neighbours (its loads and stores
-  // coalesce).
+  // coalesce). The others (K3, K8) trace 256 neighbouring rays a block.
   const int ray = MODE == CHUNKED ? (int)(threadIdx.x * gridDim.x + blockIdx.x)
                   : GROUPED ? (int)((((threadIdx.x >> 5) * gridDim.x + blockIdx.x) << 5)
                                     + (threadIdx.x & 31))
@@ -1464,6 +1517,14 @@ int chunked_occupancy(int* blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, CHUNK_SMEM_BYTES);
 }
 
+// Blocks of TPB threads one SM holds of K8's instantiation (RECORD,
+// MISSREC); it takes no shared memory.
+template <bool RECORD, bool MISSREC>
+int bvh_occupancy(int* blocks) {
+  const void* fn = (const void*)trace_kernel<BVH, RECORD, MISSREC>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, 0);
+}
+
 // Blocks of TPB threads one SM holds of the front segment's instantiation
 // (RECORD, MISSREC), with the dynamic shared memory of a front of these
 // table sizes and the live list.
@@ -1685,6 +1746,15 @@ int rtp_hbm_blocks_per_sm(int record_miss, int* blocks) {
   const void* fn = record_miss ? (const void*)trace_kernel<HBM, false, true>
                                : (const void*)trace_kernel<HBM, false>;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, LIST_SMEM_BYTES);
+}
+
+// The occupancy of K8's three instantiations: blocks per SM of the
+// forward, recording and record_miss kinds.
+int rtp_bvh_blocks_per_sm(int record, int record_miss, int* blocks) {
+  if (record && record_miss) return (int)cudaErrorInvalidValue;
+  if (record) return bvh_occupancy<true, false>(blocks);
+  if (record_miss) return bvh_occupancy<false, true>(blocks);
+  return bvh_occupancy<false, false>(blocks);
 }
 
 // The occupancy of K6's three front segments: blocks per SM of the plain,

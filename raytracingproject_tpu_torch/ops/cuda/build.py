@@ -77,6 +77,8 @@ LIBRARIES = {
         "rtp_chunked_blocks_per_sm": ([_I, _I, _I, _P], _I),
         # record_miss -> blocks per SM
         "rtp_hbm_blocks_per_sm": ([_I, _P], _I),
+        # record, record_miss -> blocks per SM
+        "rtp_bvh_blocks_per_sm": ([_I, _I, _P], _I),
         # n_cols, n_front, n_words_pad, n_super, record, record_miss -> blocks per SM
         "rtp_front_segment_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, _P], _I),
     },
@@ -150,20 +152,22 @@ def build(names=None) -> None:
 
 
 def kernel_registers(log: str) -> dict:
-    """(registers, spill store bytes) of each kernel in nvcc's -Xptxas -v
-    output `log`: an instantiation of trace_kernel keyed (mode, record,
-    record_miss, segment, opt), any other kernel by its mangled name."""
-    out, cur, spill = {}, None, 0
+    """(registers, spill store bytes, stack frame bytes) of each kernel in
+    nvcc's -Xptxas -v output `log`: an instantiation of trace_kernel keyed
+    (mode, record, record_miss, segment, opt), any other kernel by its
+    mangled name."""
+    out, cur, spill, frame = {}, None, 0, 0
     for line in log.splitlines():
         if "Compiling entry" in line:
             cur = re.search(r"function '(\w+)'", line).group(1)
             m = re.search(r"trace_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELi(\d)E", cur)
             cur = tuple(int(x) for x in m.groups()) if m else cur
-            spill = 0
+            spill = frame = 0
         elif cur is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            frame = int(re.search(r"(\d+) bytes stack frame", line).group(1))
         elif cur is not None and re.search(r"Used \d+ registers", line):
-            out[cur] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
+            out[cur] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill, frame)
             cur = None
     return out
 

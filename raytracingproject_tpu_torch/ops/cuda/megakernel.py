@@ -401,34 +401,104 @@ def front_tables_hbm(scene: Scene, bvh, max_nodes: int | None = None, order_poin
     )
 
 
+# Entries of a ray's traversal stack in the BVH kernel (csrc/megakernel.cu
+# BVH_STACK): the walk defers at most one child per inner node above the
+# one it is at, so it takes trees of at most this depth.
+BVH_STACK = 32
+
+
 @dataclasses.dataclass
 class BVHTables:
-    """A FlatBVH prepared for the BVH-walking kernel (K8) on one device."""
+    """A FlatBVH prepared for the BVH-walking kernel (K8) on one device.
+
+    `nodes` holds one record per inner node, and record 0 for the root's
+    parent (its first child the root, its second an empty box). A record
+    is sixteen 32-bit words, both children's boxes and references:
+    `lo0 xyz, ref0, hi0 xyz, ref1, lo1 xyz, 0, hi1 xyz, 0`, the boxes as
+    float32 bits. A reference is the child's record (> 0) or, for a
+    leaf, ~((leaf_start << 8) | leaf_count) (< 0). The first child of
+    inner node i is node i + 1, the second miss_link[i + 1], both in
+    pre-order, so the first holds the lower columns. `depth` is the most
+    inner nodes on a path from the root to a leaf: the most children the
+    walk defers at once."""
 
     flat: object         # the FlatBVH, its tensors on the device (the plain version walks it)
-    nodes: torch.Tensor  # (M, 8) i32 words: box min xyz, max xyz (f32 bits), miss link, leaf
+    nodes: torch.Tensor  # (1 + inner nodes, 16) i32 records
+    depth: int
+
+
+def _tree_depth(leaf_count: np.ndarray, miss: np.ndarray) -> int:
+    """The most inner nodes on a root-to-leaf path of a pre-order tree: a
+    node's inner ancestors are the inner nodes j whose subtree, nodes
+    (j, miss_link[j]) in pre-order, holds it."""
+    m = leaf_count.shape[0]
+    inner = np.flatnonzero(leaf_count == 0)
+    inside = np.zeros(m + 1, np.int64)
+    np.add.at(inside, inner + 1, 1)
+    np.add.at(inside, np.where(miss[inner] < 0, m, miss[inner]), -1)
+    return int(np.cumsum(inside)[:m][leaf_count > 0].max(initial=0))
+
+
+# The node records of the trees passed last, newest last, each with the
+# tree's tensors and their version counters: a caller that passes the same
+# FlatBVH on every pass (`render_pass(bvh=)`, `trace_paths`) has its records
+# built once, and a tree changed in place is built again.
+_BUILT: list = []
+_BUILT_KEPT = 4
 
 
 def bvh_tables(bvh, device) -> BVHTables:
     """`bvh` (a FlatBVH over a leaf-ordered scene, or BVHTables) on
-    `device`, with the kernel's node table: eight 32-bit words a node, the
-    box as float32 bits, the miss link, and for a leaf
-    (leaf_start << 8) | leaf_count, 0 for an inner node."""
+    `device`, with the kernel's node records (see BVHTables), built on the
+    host from the tree as it is, once for each tree of the last few passed.
+    Raises ValueError for a leaf of more than 255 spheres, a scene of 2^23
+    spheres or more, or a tree deeper than the kernel's stack
+    (BVH_STACK)."""
     device = torch.device(device)
     if isinstance(bvh, BVHTables):
         have = bvh.nodes.device
         if have.type == device.type and device.index in (None, have.index):
             return bvh
         bvh = bvh.flat
+    versions = tuple(x._version for x in bvh)
+    for tree, vers, dev, tables in _BUILT:
+        if dev == device and vers == versions and all(a is b for a, b in zip(tree, bvh)):
+            return tables
+    tables = _build_bvh_tables(bvh, device)
+    _BUILT.append((tuple(bvh), versions, device, tables))
+    del _BUILT[:-_BUILT_KEPT]
+    return tables
+
+
+def _build_bvh_tables(bvh, device: torch.device) -> BVHTables:
+    """BVHTables of the FlatBVH `bvh` on `device` (see `bvh_tables`)."""
     flat = type(bvh)(*(x.to(device) for x in bvh))
-    if int(flat.leaf_count.max()) > 255 or int(flat.leaf_start.max()) >= 1 << 23:
+    count = bvh.leaf_count.cpu().numpy().astype(np.int64)
+    start = bvh.leaf_start.cpu().numpy().astype(np.int64)
+    miss = bvh.miss_link.cpu().numpy().astype(np.int64)
+    if int(count.max()) > 255 or int(start.max()) >= 1 << 23:
         raise ValueError("the BVH kernel packs a leaf as (start << 8) | count: it takes leaves "
                          "of at most 255 spheres and scenes below 2^23 spheres")
-    leaf = torch.where(flat.leaf_count > 0, (flat.leaf_start << 8) | flat.leaf_count, 0)
-    nodes = torch.cat([flat.node_min.float().view(torch.int32),
-                       flat.node_max.float().view(torch.int32),
-                       flat.miss_link.int()[:, None], leaf.int()[:, None]], dim=1)
-    return BVHTables(flat=flat, nodes=nodes.contiguous())
+    depth = _tree_depth(count, miss)
+    if depth > BVH_STACK:
+        raise ValueError(f"a BVH of depth {depth}: the kernel's traversal stack holds "
+                         f"{BVH_STACK} entries (build it with bigger leaves)")
+    inner = np.flatnonzero(count == 0)
+    record = np.zeros(count.shape[0], np.int64)
+    record[inner] = 1 + np.arange(inner.size)
+    ref = np.where(count == 0, record, ~((start << 8) | count))
+    box = np.concatenate([bvh.node_min.cpu().numpy(), bvh.node_max.cpu().numpy()],
+                         axis=1).astype(np.float32).view(np.int32)  # [M, 6]
+    empty = np.full(6, 1e30, np.float32).view(np.int32)  # a point every slab test misses
+    first = np.concatenate([[0], inner + 1])
+    second = miss[inner + 1]
+    nodes = np.zeros((1 + inner.size, 16), np.int32)
+    nodes[:, 0:3], nodes[:, 4:7] = box[first, 0:3], box[first, 3:6]
+    nodes[:, 3] = ref[first]
+    nodes[0, 7], nodes[0, 8:11], nodes[0, 12:15] = -1, empty[0:3], empty[3:6]
+    nodes[1:, 7] = ref[second]
+    nodes[1:, 8:11], nodes[1:, 12:15] = box[second, 0:3], box[second, 3:6]
+    return BVHTables(flat=flat, nodes=torch.from_numpy(nodes).to(device), depth=depth)
 
 
 # ---------------------------------------------------------------------------
@@ -550,13 +620,28 @@ def closest_hit_bvh_twin(tab: torch.Tensor, bvh, ox, oy, oz, dx, dy, dz, tm, a, 
                          t_min=T_MIN, counts: dict | None = None):
     """K8's plain version: every ray walks the flat tree (`bvh`, a FlatBVH
     on the rays' device, over the leaf-ordered scene of `tab` (16, N)) with
-    its own node pointer, as a thread of the kernel does. A node's box is
-    tested within (t_min, best t so far); a leaf that passes scans its
-    spheres in order under the strict `<`; an inner node that passes goes
-    to its first child, anything else follows the miss link. Returns (best
-    t, winner column or -1). With `counts`, adds the box tests ("boxes")
-    and sphere tests ("pairs") of rays that are not parked, and the sphere
-    tests among them whose discriminant is positive ("roots")."""
+    its own node pointer, in pre-order. A node's box is tested within
+    (t_min, best t so far); a leaf that passes scans its spheres in order
+    under the strict `<`; an inner node that passes goes to its first
+    child, anything else follows the miss link. Returns (best t, winner
+    column or -1). With `counts`, adds the box tests ("boxes") and sphere
+    tests ("pairs") of rays that are not parked, and the sphere tests among
+    them whose discriminant is positive ("roots"): the work the kernel's
+    bound reads, whatever walk the kernel takes.
+
+    The kernel walks out of column order (nearer child first, the other
+    deferred) and still equals this walk bit for bit: pre-order visits the
+    leaves in column order, so this walk keeps the first minimum of
+    (t, column) in column order over the spheres it reaches, and the kernel
+    carries (t, column) lexicographically, which keeps the same minimum
+    whatever order the spheres come in. The spheres either walk reaches
+    differ only in boxes entered beyond the final best t, which hold no
+    lesser (t, column), as long as the kernel's clamp is not strict on the
+    best-t side: a box entered exactly at the best t (or a deferred child
+    popped at it) may hold an equal t at a lower column that this walk,
+    reaching it first, kept. tests/test_torch_bvh_groups.py holds the
+    kernel's walk (`probes.pair_counts.ordered_walk`) against this one and
+    shows that a strict clamp loses such a tie."""
     dev, n = ox.device, ox.shape[0]
 
     def inv(d):

@@ -4,7 +4,8 @@ process, in turns (every tree, then every tree again in reverse order),
 so that versions are compared under one card, one power limit and one
 host.
 
-    python -m raytracingproject_tpu_torch.probes.compare_builds [--frames] [--scans] NAME=DIR ...
+    python -m raytracingproject_tpu_torch.probes.compare_builds [--frames] [--scans] [--bvh] \
+        NAME=DIR ...
 
 Each DIR holds the CUDA sources of one version (closest_hit.cu,
 megakernel.cu and common.cuh, as raytracingproject_tpu_torch/csrc does;
@@ -38,7 +39,19 @@ Every version is checked bit-equal to the plain versions, then timed:
   and K5's front core on the cover scene at the bench shape and K8 on the
   50,000-sphere pass; each version's
   result bit-equal to the first version's on the same rays (and, on the
-  cover scene, to the plain version's). A version whose library still has
+  cover scene, to the plain version's);
+- with --bvh, K8's three instantiations (`bvh_cases`): the forward on one
+  pass of the reference frame (90,112 rays in slot order, depth 16) over
+  `make_random_scene(50000, seed=3)`'s leaf-8 tree and at the bench shape
+  over 5,000, 16,000 and 50,000 spheres; K5's bvh core at the bench shape
+  on the same three and on one train step's 180,000 rays at depth 50 (2
+  spp, the step's draws); `record_miss` on one pass over the cover scene
+  and over the 50,000 spheres; with --frames too, the 50,000-sphere
+  reference frame through `render_pass(bvh=)`, the materials train step
+  on those spheres through K5's bvh core and the geometry step on 5,000
+  spheres through the chunked recording kernel (400x225, 2 spp, depth
+  50, as chip_smoke.py's L6); each version's result bit-equal to the
+  first version's. A version whose library still has
   the whole-table brute entry points (`rtp_trace_brute`, ...) runs them
   where the table fits shared memory, as its own wrapper did.
 
@@ -49,6 +62,7 @@ version and turn, and a last JSON line with every time. Needs a card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -86,17 +100,50 @@ HBM_STAGED = [_T[0]] * 4 + [_T[1]] + [_T[0]] * 3 + [_T[1], _T[0], _T[1], _T[0], 
                                                     _T[3], _T[1]] + [_T[0]] * 3
 
 
+# K8's node table before the ordered walk, which a version without
+# `rtp_bvh_blocks_per_sm` reads: eight words a node (box, miss link,
+# (start << 8) | count). `bvh_tables` registers it beside the records the
+# wrapper passes, keyed by their address (both kept alive).
+OLD_NODES: dict[int, tuple] = {}
+
+
+def bvh_tables(tree, dev):
+    """`megakernel.bvh_tables(tree, dev)`, registered in OLD_NODES with the
+    node words of the miss-link walk."""
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+
+    tb = mk.bvh_tables(tree, dev)
+    f = tb.flat
+    leaf = torch.where(f.leaf_count > 0, (f.leaf_start << 8) | f.leaf_count, 0)
+    old = torch.cat([f.node_min.float().view(torch.int32), f.node_max.float().view(torch.int32),
+                     f.miss_link.int()[:, None], leaf.int()[:, None]], dim=1).contiguous()
+    OLD_NODES[tb.nodes.data_ptr()] = (tb, old)
+    return tb
+
+
 class OwnRoute:
     """A version's megakernel library as its own wrapper used it: where it
     has the whole-table brute entry points and the table fits shared
     memory, the chunked entries launch those; where its K7 predates the
     live list (no `rtp_hbm_blocks_per_sm`), K7 stages its box tables
-    whenever they fit the shared-memory budget, as its wrapper decided."""
+    whenever they fit the shared-memory budget, as its wrapper decided;
+    where its K8 predates the ordered walk (no `rtp_bvh_blocks_per_sm`),
+    K8 reads the miss-link node words (OLD_NODES) for the records it is
+    given."""
 
     def __init__(self, lib: ctypes.CDLL):
         self.lib = lib
 
     def __getattr__(self, name):
+        if (name in ("rtp_trace_bvh", "rtp_record_bvh")
+                and not hasattr(self.lib, "rtp_bvh_blocks_per_sm")):
+            fn = getattr(self.lib, name)
+
+            def miss_link_walk(*a):  # a[7] the node table, a[8] its rows
+                old = OLD_NODES[a[7]][1]
+                return fn(*a[:7], old.data_ptr(), old.shape[0], *a[9:])
+
+            return miss_link_walk
         if name == "rtp_trace_front_hbm" and not hasattr(self.lib, "rtp_hbm_blocks_per_sm"):
             fn = getattr(self.lib, name)
             fn.argtypes = HBM_STAGED
@@ -176,8 +223,6 @@ def scan_cases(dev) -> dict:
     """--scans: case name -> (the kernel call, its plain version or None),
     over the brute scan and K7 (see the module docstring). None: the plain
     version takes seconds to minutes there (chip_smoke.py holds those)."""
-    import dataclasses
-
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
     from raytracingproject_tpu_torch.camera import Camera
     from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
@@ -238,8 +283,8 @@ def scan_cases(dev) -> dict:
                                                   None)
     cases["brute 50,000 spheres pass record"] = (lambda: mk.trace_record(*rays1, big, 99, 16),
                                                  None)
-    bvh = mk.bvh_tables(tree, dev)
-    cases["K8 50,000 spheres pass forward"] = (
+    bvh = bvh_tables(tree, dev)
+    cases["K8 50,000 spheres pass forward (--scans)"] = (
         lambda: mk.trace_paths(*rays1, big, 99, 16, bvh=bvh), None)
     fronts = {"plain": mk.front_tables_hbm(big, tree)}
     fronts["word_earlyout"] = dataclasses.replace(fronts["plain"], word_earlyout=True)
@@ -260,6 +305,107 @@ def scan_cases(dev) -> dict:
     return cases
 
 
+def bvh_cases(dev) -> dict:
+    """--bvh: case name -> (the kernel call, None), over K8's three
+    instantiations (see the module docstring); chip_smoke.py holds them
+    against their plain versions, which take seconds a pass here."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.camera import Camera, camera_uniforms, rays_from_uniforms
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+    from raytracingproject_tpu_torch.probes.kfront import COVER_CAMERA
+    from raytracingproject_tpu_torch.render import _slot_rays
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+
+    bench = Camera(**dict(COVER_CAMERA, samples_per_pixel=4, max_depth=16))
+    w, h = bench.image_size()
+    rays4 = _slot_rays(bench.derive(torch.float32, dev), w, h, 4,
+                       torch.Generator(device=dev).manual_seed(1), None)
+    rays1 = _slot_rays(bench.derive(torch.float32, dev), w, h, 1,
+                       torch.Generator(device=dev).manual_seed(31), None)
+    gen = torch.Generator(device=dev).manual_seed(4)  # one train step's rays: 2 spp, [spp, H, W]
+    pix = torch.arange(w * h, device=dev).repeat(2)
+    step = rays_from_uniforms(bench.derive(torch.float32, dev), (pix % w).to(torch.int32),
+                              (pix // w).to(torch.int32), *camera_uniforms(pix.shape[0], gen, dev))
+    cases = {}
+    for n in (5000, 16000, 50000):
+        cpu = make_random_scene(n, seed=3)
+        tree = build_bvh(cpu, leaf_size=8)
+        sc = reorder_scene(cpu, tree).to(dev)
+        tb = bvh_tables(tree, dev)
+        if n == 50000:
+            cases["K8 50,000 spheres pass forward"] = (
+                lambda sc=sc, tb=tb: mk.trace_paths(*rays1, sc, 99, 16, bvh=tb), None)
+            cases["K8 50,000 spheres pass record_miss"] = (
+                lambda sc=sc, tb=tb: mk.trace_paths(*rays1, sc, 99, 16, bvh=tb,
+                                                    record_miss=True), None)
+            cases["K5 bvh 50,000 spheres train step rays, depth 50"] = (
+                lambda sc=sc, tb=tb: mk.trace_record(*step, sc, 1234, 50, bvh=tb), None)
+        cases[f"K8 {n:,} spheres bench"] = (
+            lambda sc=sc, tb=tb: mk.trace_paths(*rays4, sc, 99, 16, bvh=tb), None)
+        cases[f"K5 bvh {n:,} spheres bench"] = (
+            lambda sc=sc, tb=tb: mk.trace_record(*rays4, sc, 99, 16, bvh=tb), None)
+    cover_cpu = make_cover_scene(0)
+    tree = build_bvh(cover_cpu, leaf_size=8)
+    cover = reorder_scene(cover_cpu, tree).to(dev)
+    cover_tb = bvh_tables(tree, dev)
+    cases["K8 cover pass record_miss"] = (
+        lambda: mk.trace_paths(*rays1, cover, 31, 16, bvh=cover_tb, record_miss=True), None)
+    return cases
+
+
+def bvh_frame(scene_cpu, cam, dev):
+    """The image of `cam` over `scene_cpu` through K8: `render`'s pass loop
+    with render_pass(bvh=), one pass a sample, scene preparation included."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.render import blocks_to_image, render_pass
+
+    tree = build_bvh(scene_cpu, leaf_size=8)
+    sc = reorder_scene(scene_cpu, tree).to(dev)
+    tb = bvh_tables(tree, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    derived = cam.derive(torch.float32, dev)
+    w, h = cam.image_size()
+    acc = None
+    for _ in range(cam.samples_per_pixel):
+        out = render_pass(sc, derived, gen, width=w, height=h, max_depth=cam.max_depth,
+                          spp_chunk=1, bvh=tb, raw_slots=True)
+        acc = out if acc is None else acc + out
+    return blocks_to_image(acc, w, h, 1) / cam.samples_per_pixel
+
+
+def train_steps(cam, dev) -> dict:
+    """--bvh --frames: name -> a call of one fast train step at `cam`'s
+    shape (2 spp, depth 50), from the true scene toward a target rendered
+    once: materials on `make_random_scene(50000, seed=3)` through K5's
+    bvh core, geometry and albedo on 5,000 spheres through the chunked
+    recording kernel. The step updates its parameters in place, so it
+    trains at learning rate 0: every call steps the same scene."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.grad import make_fast_train_step
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    steps = {}
+    for name, n, kw in (("K5 bvh materials step, 50,000 spheres", 50000,
+                         dict(trainable=("albedo", "fuzz", "ior"))),
+                        ("chunked geometry step, 5,000 spheres", 5000,
+                         dict(trainable=("albedo", "center0", "radius")))):
+        cpu = make_random_scene(n, seed=3)
+        target = render(cpu, cam, torch.Generator(device=dev).manual_seed(5),
+                        RenderSettings(device="cuda"))
+        if n == 50000:
+            tree = build_bvh(cpu, leaf_size=8)
+            cpu = reorder_scene(cpu, tree)
+            kw["bvh"] = bvh_tables(tree, dev)
+        params, opt, step = make_fast_train_step(
+            cpu, cam, spp=2, learning_rate=0.0,
+            generator=torch.Generator(device=dev).manual_seed(3), **kw)
+        steps[name] = (lambda step=step, params=params, opt=opt, target=target:
+                       step(params, opt, None, target))
+    return steps
+
+
 def main(argv=None) -> int:
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
     from raytracingproject_tpu_torch.camera import Camera
@@ -274,8 +420,8 @@ def main(argv=None) -> int:
     from raytracingproject_tpu_torch.scene import make_cover_scene
 
     argv = sys.argv[1:] if argv is None else argv
-    frames, scans = "--frames" in argv, "--scans" in argv
-    versions = dict(a.split("=", 1) for a in argv if a not in ("--frames", "--scans"))
+    frames, scans, bvh = "--frames" in argv, "--scans" in argv, "--bvh" in argv
+    versions = dict(a.split("=", 1) for a in argv if a not in ("--frames", "--scans", "--bvh"))
     if not versions or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -300,7 +446,7 @@ def main(argv=None) -> int:
                       **{f"front segment, record {k[1]}, record_miss {k[2]}": v
                          for k, v in r.items() if isinstance(k, tuple) and k[0] == 1 and k[3:] == (1, 0)},
                       **{f"trace_kernel{list(k)}": v for k, v in r.items()
-                         if isinstance(k, tuple) and k[0] in (0, 2, 4)}}
+                         if isinstance(k, tuple) and k[0] in (0, 2, 3, 4)}}
     print(f"built {len(versions)} versions in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, r in regs.items():
         print(f"{name}: (registers, spill store bytes) {r}", flush=True)
@@ -354,7 +500,7 @@ def main(argv=None) -> int:
                                        "differs from its plain version")
     print("every version bit-equal to the plain versions (K4 on both ray sets, the three front "
           "segments on both segments)", flush=True)
-    cases = scan_cases(dev) if scans else {}
+    cases = {**(scan_cases(dev) if scans else {}), **(bvh_cases(dev) if bvh else {})}
     if cases:
         first = next(iter(versions))
         use(first)
@@ -368,8 +514,8 @@ def main(argv=None) -> int:
             for k, (fn, _) in cases.items():
                 if not same(fn(), want[k][0]):
                     raise RuntimeError(f"{name}: {k} differs from {first}'s")
-        print(f"the brute scan and K7: every version bit-equal to {first} on every case (and, on "
-              "the cover scene, to the plain versions)", flush=True)
+        print(f"every version bit-equal to {first} on every case ({', '.join(cases)}; and, on "
+              "the cover scene's brute scan, to the plain versions)", flush=True)
 
     fast = RenderSettings(device="cuda")
     oracle = RenderSettings(device="cuda", use_megakernel=False, use_pallas=True, use_bvh=False)
@@ -388,6 +534,14 @@ def main(argv=None) -> int:
 
         big_cpu = make_random_scene(50000, seed=3)
         frame_cases["K7 50,000 spheres"] = lambda: render(big_cpu, ref_cam, settings=fast)
+    if bvh:
+        from raytracingproject_tpu_torch.scene import make_random_scene
+
+        big_cpu = make_random_scene(50000, seed=3)
+        frame_cases["K8 50,000 spheres"] = lambda: bvh_frame(big_cpu, ref_cam, dev)
+        if frames:
+            frame_cases.update(train_steps(dataclasses.replace(ref_cam, samples_per_pixel=2),
+                                           dev))
 
     results = {name: [] for name in versions}
     order = list(versions)
@@ -402,10 +556,11 @@ def main(argv=None) -> int:
                     r[f"segment {kind} [{b0}, {b0 + n})"] = cuda_ms(
                         lambda: mk.segment_call(st, slot, fscene, 41, b0, n, **kw), 20)  # noqa: B023
             for k, (fn, _) in cases.items():
-                r[k] = cuda_ms(fn, 5 if "50,000" in k else 10)
+                r[k] = cuda_ms(fn, 5 if "50,000" in k else 30 if "cover pass" in k else 10)
             if frames:
                 for k, fn in frame_cases.items():
-                    r[f"frame {k} (s)"] = wall_s(fn, 1 if k.startswith(("oracle", "K7")) else 3)
+                    r[f"frame {k} (s)"] = wall_s(fn, 1 if k.startswith(("oracle", "K7", "K8"))
+                                                 else 5 if "step" in k else 3)
             results[name].append(r)
             print(f"turn {turn}, {name}: " + ", ".join(f"{k} {v:.5g}" for k, v in r.items())
                   + f"; on {card}", flush=True)

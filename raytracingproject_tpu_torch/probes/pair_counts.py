@@ -2,7 +2,7 @@
 front) have to compute on a pass, counted in their plain versions'
 operations: a count, not a measurement, so it runs on any device.
 
-    python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--hbm]
+    python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--hbm] [--bvh]
 
 prints one JSON line: for the cover camera's 400x225 primary rays (one a
 pixel, the oracle's pass) and for the same rays after one scatter, over
@@ -12,13 +12,19 @@ roots), and the (warp of 32 consecutive rays, sphere) pairs in which some
 ray's is positive (the pairs a warp cannot skip the roots of). With
 `--hbm`, also `hbm_counts` for K7 on one pass of the reference frame
 (400x225, 1 spp, slot order) over `make_random_scene(50000, seed=3)`'s
-global-memory front, at bounce 0 and after one scatter. Default device:
-cpu.
+global-memory front, at bounce 0 and after one scatter. With `--bvh`,
+`bvh_counts` for K8 on the same pass over the same scene's leaf-8 tree:
+the miss-link walk (the plain version's) and the kernel's ordered walk,
+one ray a thread, whose count K8's bound reads. Default device: cpu.
+
+`ordered_walk` is the ordered walk itself in plain PyTorch, which
+tests/test_torch_bvh_groups.py holds against the plain version.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import sys
 
 import torch
@@ -61,20 +67,43 @@ def hbm_pass(device, n_spheres: int = 50000, seed: int = 1):
     to a block multiple with parked rays: o, d, time), and the same rays
     after one bounce of the megakernel's plain version (Philox draws; dead
     rays parked as the kernel parks them)."""
+    scene, tree = _large_scene(device, n_spheres)
+    front = mk.front_tables_hbm(scene, tree)
+    return (front, *_pass_rays(device, seed, front=front))
+
+
+def bvh_pass(device, n_spheres: int = 50000, seed: int = 1):
+    """(leaf-ordered scene, its leaf-8 tree's BVHTables, rays, rays after
+    one scatter): as `hbm_pass`, the scatter through the BVH walk's plain
+    version."""
+    scene, tree = _large_scene(device, n_spheres)
+    tables = mk.bvh_tables(tree, device)
+    return (scene, tables, *_pass_rays(device, seed, scene=scene, bvh=tables))
+
+
+def _large_scene(device, n_spheres: int):
+    """`make_random_scene(n_spheres, seed=3)` in the leaf order of its leaf-8
+    tree, on `device`, and the tree."""
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+
+    cpu = make_random_scene(n_spheres, seed=3)
+    tree = build_bvh(cpu, leaf_size=8)
+    return reorder_scene(cpu, tree).to(torch.device(device)), tree
+
+
+def _pass_rays(device, seed: int, scene=None, front=None, bvh=None):
+    """One pass of the reference frame's rays and the same rays after one
+    bounce of the plain version of the closest hit `trace_paths` takes for
+    these arguments (see `hbm_pass`)."""
     from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
 
     dev = torch.device(device)
-    cpu = make_random_scene(n_spheres, seed=3)
-    tree = build_bvh(cpu, leaf_size=8)
-    scene = reorder_scene(cpu, tree).to(dev)
-    front = mk.front_tables_hbm(scene, tree)
     cam = Camera(**dict(COVER_CAMERA, samples_per_pixel=1, max_depth=16))
     w, h = cam.image_size()
     rays = _slot_rays(cam.derive(torch.float32, dev), w, h, 1,
                       torch.Generator(device=dev).manual_seed(seed), None)
     state, slot = dt.initial_state(*rays)
-    tab, hit, chunk = mk.twin_closest_hit(None, front, None, dev)
+    tab, hit, chunk = mk.twin_closest_hit(scene, front, bvh, dev)
     after = []
     for r0 in range(0, state.shape[1], chunk):
         planes = [state[q, r0:r0 + chunk] for q in range(mk.STATE_ROWS)]
@@ -84,7 +113,160 @@ def hbm_pass(device, n_spheres: int = 50000, seed: int = 1):
         after.append(torch.stack(new[:6]))
     after = torch.cat(after, dim=1)
     o, d, t = state[0:3].t(), state[3:6].t(), state[6]  # o, d, time
-    return front, (o, d, t), (after[0:3].t(), after[3:6].t())
+    return (o, d, t), (after[0:3].t(), after[3:6].t())
+
+
+def _take_less(bt, bc, ot, oc):
+    """Keep (ot, oc) where it is lexicographically less than (bt, bc)."""
+    less = (ot < bt) | ((ot == bt) & (oc < bc))
+    return torch.where(less, ot, bt), torch.where(less, oc, bc)
+
+
+def ordered_walk(nodes: torch.Tensor, tab: torch.Tensor, rays, t_min: float = T_MIN,
+                 strict: bool = False, counts: dict | None = None,
+                 ray_steps: list | None = None):
+    """K8's ordered walk (csrc/megakernel.cu `closest_hit_bvh`) in plain
+    PyTorch, every ray with its own record pointer and stack, over the node
+    records `nodes` (`bvh_tables`) and the leaf-ordered table `tab` (16,
+    N); rays are the nine planes (o xyz, d xyz, time, a, 1 / a) the
+    closest hits take. At an inner record both children's boxes are tested
+    within (t_min, best t] (`strict`: within (t_min, best t), the clamp
+    the walk must not take), the nearer child is entered first (the first
+    on equal entries) and the other deferred with its entry t; a deferred
+    child is dropped when popped past the best t (`strict`: at it). A
+    leaf's spheres update (t, column) lexicographically from the plain
+    version's candidate roots (`_sphere_t`). Returns (best t, winner column
+    or -1).
+
+    With `counts`, adds for the rays that are not parked: "records" (inner
+    records visited), "boxes" (two a record), "leaves", "pairs" (sphere
+    tests), "roots" (those with a positive discriminant) and "steps"
+    (records plus a leaf's spheres: the walk's dependent chain, one record
+    or sphere at a time). With `ray_steps`, appends each ray's steps ([R]
+    float64, 0 for a parked ray)."""
+    ox, oy, oz, dx, dy, dz, tm, a, inv_a = rays
+    dev, n, dt = ox.device, ox.shape[0], ox.dtype
+    inv = [1.0 / torch.where(torch.abs(v) > 1e-20, v, 1e-20) for v in (dx, dy, dz)]
+    org = (ox, oy, oz)
+    box = nodes.view(torch.float32).to(dt)
+    ref = torch.zeros(n, dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    stk_t = torch.zeros((n, mk.BVH_STACK), dtype=dt, device=dev)
+    stk_ref = torch.zeros((n, mk.BVH_STACK), dtype=torch.int64, device=dev)
+    far = torch.full((n,), math.inf, dtype=dt, device=dev)
+    win = torch.zeros(n, dtype=torch.int64, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    counted = (ox < 1e17).double()
+    steps = torch.zeros(n, dtype=torch.float64, device=dev)
+    keys = ("records", "boxes", "leaves", "pairs", "roots")
+    tally = torch.zeros(len(keys), dtype=torch.float64, device=dev)  # read once, at the end
+
+    def enters(lo, hi, rows):
+        """Does each row's ray enter its box within (t_min, best t]? And where."""
+        tn = tf = None
+        for q in range(3):
+            t0 = (lo[:, q] - org[q][rows]) * inv[q][rows]
+            t1 = (hi[:, q] - org[q][rows]) * inv[q][rows]
+            near, away = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            if q == 2:
+                near = torch.clamp_min(near, t_min)
+            tn = near if tn is None else torch.maximum(tn, near)
+            tf = away if tf is None else torch.minimum(tf, away)
+        within = tn < far[rows] if strict else tn <= far[rows]
+        return (tf > tn) & within, tn
+
+    while bool(active.any()):
+        act = torch.nonzero(active)[:, 0]
+        pop = torch.zeros(n, dtype=torch.bool, device=dev)
+        inner, leaf = act[ref[act] >= 0], act[ref[act] < 0]
+        if inner.numel():
+            k = ref[inner]
+            in0, tn0 = enters(box[k, 0:3], box[k, 4:7], inner)
+            in1, tn1 = enters(box[k, 8:11], box[k, 12:15], inner)
+            r0, r1 = nodes[k, 3].long(), nodes[k, 7].long()
+            first0 = tn0 <= tn1
+            both = in0 & in1
+            b = inner[both]
+            stk_t[b, sp[b]] = torch.where(first0, tn1, tn0)[both]
+            stk_ref[b, sp[b]] = torch.where(first0, r1, r0)[both]
+            sp[b] += 1
+            go = in0 | in1
+            ref[inner[go]] = torch.where(both, torch.where(first0, r0, r1),
+                                         torch.where(in0, r0, r1))[go]
+            pop[inner[~go]] = True
+            steps[inner] += 1.0
+            c = counted[inner].sum()
+            tally[0] += c
+            tally[1] += 2.0 * c
+        if leaf.numel():
+            packed = ~ref[leaf]
+            start, cnt = packed >> 8, packed & 255
+            offs = torch.arange(int(cnt.max()), device=dev)
+            cols = torch.clamp_max(start[:, None] + offs[None, :], tab.shape[1] - 1)
+            valid = offs[None, :] < cnt[:, None]
+            planes = [x[leaf] for x in rays]
+            t = torch.where(valid, mk._sphere_t(tab, *planes, t_min, cols=cols), math.inf)
+            i = torch.argmin(t, dim=1, keepdim=True)  # ascending columns: the first
+            lt, lc = torch.gather(t, 1, i)[:, 0], torch.gather(cols, 1, i)[:, 0]
+            far[leaf], win[leaf] = _take_less(far[leaf], win[leaf], lt, lc)
+            pop[leaf] = True
+            steps[leaf] += cnt.double()
+            if counts is not None:
+                w = counted[leaf]
+                _, disc = mk._sphere_disc(tab, *planes[:8], cols=cols)
+                tally[2] += w.sum()
+                tally[3] += (cnt * w).sum()
+                tally[4] += (((disc > 0.0) & valid).sum(dim=1) * w).sum()
+        rows = torch.nonzero(pop)[:, 0]
+        while rows.numel():  # drop the deferred children entered past the best t
+            top = stk_t[rows, (sp[rows] - 1).clamp_min(0)]
+            past = top >= far[rows] if strict else top > far[rows]
+            drop = (sp[rows] > 0) & past
+            if not bool(drop.any()):
+                break
+            sp[rows[drop]] -= 1
+        empty = sp[rows] == 0
+        active[rows[empty]] = False
+        rows = rows[~empty]
+        sp[rows] -= 1
+        ref[rows] = stk_ref[rows, sp[rows]]
+    steps *= counted
+    if counts is not None:
+        for k, v in zip(keys, tally.tolist()):
+            counts[k] = counts.get(k, 0) + int(v)
+        counts["steps"] = counts.get("steps", 0) + float(steps.sum())
+    if ray_steps is not None:
+        ray_steps.append(steps)
+    return far, torch.where(far < math.inf, win, -1)
+
+
+def bvh_counts(scene, tables: mk.BVHTables, o: torch.Tensor, d: torch.Tensor,
+               t: torch.Tensor) -> dict:
+    """K8's work on rays o, d, t (one pass in slot order, whole warps):
+    the miss-link walk's "boxes", "pairs" and "roots"
+    (`closest_hit_bvh_twin(counts=)`; its dependent chain "steps" = boxes
+    + pairs, one node or sphere at a time) and the kernel's ordered walk's
+    (`ordered_walk`, one ray a thread, each ray's result checked equal to
+    the miss-link walk's). "warp_steps": the sum over warps of 32
+    consecutive rays of their longest ray's steps (a warp walks while one
+    of its rays does)."""
+    tab = mk.scene_table(scene).to(o.device)
+    n = o.shape[0]
+    planes = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t]
+    dx, dy, dz = planes[3:6]
+    a = torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-20)
+    rays = [x.contiguous() for x in (*planes, a, 1.0 / a)]
+    plain, ordered, parts = {"boxes": 0, "pairs": 0}, {}, []
+    for r0 in range(0, n, 4096):
+        sl = [x[r0:r0 + 4096] for x in rays]
+        want = mk.closest_hit_bvh_twin(tab, tables.flat, *sl, counts=plain)
+        got = ordered_walk(tables.nodes, tab, sl, counts=ordered, ray_steps=parts)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError("the ordered walk differs from the plain version")
+    plain["steps"] = plain["boxes"] + plain["pairs"]
+    ordered["warp_steps"] = float(torch.cat(parts).view(-1, WARP).max(dim=1).values.sum())
+    return {"rays": int((rays[0] < 1e17).sum()), "miss-link walk": plain,
+            "ordered walk": ordered}
 
 
 def hbm_counts(front: mk.FrontTablesHBM, o: torch.Tensor, d: torch.Tensor,
@@ -156,8 +338,8 @@ def hbm_counts(front: mk.FrontTablesHBM, o: torch.Tensor, d: torch.Tensor,
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    hbm = "--hbm" in argv
-    argv = [a for a in argv if a != "--hbm"]
+    hbm, bvh = "--hbm" in argv, "--bvh" in argv
+    argv = [a for a in argv if a not in ("--hbm", "--bvh")]
     device = argv[0] if argv else "cpu"
     scene, (o, d, t), (o2, d2) = cover_pass(device)
     tab = trace.sphere_table(scene)
@@ -167,6 +349,12 @@ def main(argv=None) -> None:
         out[name] = {**c, "roots_share": c["roots"] / c["pairs"],
                      "warp_roots_share": c["warp_roots"] / c["warps"]}
     line = {"rays": o.shape[0], "spheres": tab.shape[1], **out}
+    if bvh:
+        scene, tables, (o, d, t), (o2, d2) = bvh_pass(device)
+        k8 = {name: bvh_counts(scene, tables, ro, rd, t)
+              for name, (ro, rd) in (("bounce 0", (o, d)), ("after one scatter", (o2, d2)))}
+        line["K8, 50,000 spheres"] = {"records": tables.nodes.shape[0], "depth": tables.depth,
+                                      **k8}
     if hbm:
         front, (o, d, t), (o2, d2) = hbm_pass(device)
         k7 = {}

@@ -414,9 +414,9 @@ def test_chunked_kernel_keeps_the_first_of_exact_ties(cuda_device):
 
 @pytest.mark.parametrize("zero_draws", [True, False])
 def test_bvh_kernel_matches_twin(cuda_device, zero_draws):
-    """K8 and K5's bvh core against their plain versions (a per-ray walk in
-    the kernel's own order: bit-equal is the expectation), and K8 against
-    the brute kernel up to ties."""
+    """K8 and K5's bvh core against their plain versions (the miss-link
+    walk in column order, whose first minimum the kernel's ordered walk
+    keeps: bit-equal), and K8 against the brute kernel up to ties."""
     scene, tree, (o, d, t) = _large_scene(cuda_device)
     before = dict(mk.LAUNCHES)
     k = mk.trace_paths(o, d, t, scene, 4242, 8, bvh=tree, zero_draws=zero_draws)
@@ -426,11 +426,69 @@ def test_bvh_kernel_matches_twin(cuda_device, zero_draws):
     assert mk.LAUNCHES["record_bvh"] == before["record_bvh"] + 1
     assert torch.isfinite(k).all() and torch.equal(rad, k)
     prad, pres = mk.trace_record_twin(o, d, t, scene, 4242, 8, bvh=tree, zero_draws=zero_draws)
-    assert _rays_differ(k, prad) <= 1e-3
-    eq = res.idx == pres.idx
-    assert eq.double().mean().item() >= 0.999
-    assert torch.equal(res.ndir[eq], pres.ndir[eq]) and torch.equal(res.refl[eq], pres.refl[eq])
+    assert torch.equal(k, prad) and _all_equal(res, pres)
     assert _rays_differ(k, mk.trace_paths(o, d, t, scene, 4242, 8, zero_draws=zero_draws)) <= 1e-3
+
+
+def _few_live_neighbours(rays):
+    """Four blocks of a kernel whose block b traces rays 256 b .. + 255,
+    with 1, 33, 129 and 256 of the camera rays `rays` (taken over the whole
+    image) live at random places in the block and the rest parked (a miss
+    at the first bounce)."""
+    import numpy as np
+
+    n = mk.TILE * len(LIVE_PER_BLOCK)
+    o, d, t = (x[::x.shape[0] // n][:n].clone() for x in rays)
+    block = np.arange(n) // mk.TILE
+    rng = np.random.default_rng(9)
+    live = np.zeros(n, bool)
+    for b, k in enumerate(LIVE_PER_BLOCK):
+        live[rng.choice(np.flatnonzero(block == b), k, replace=False)] = True
+    live = torch.from_numpy(live).to(o.device)
+    o[~live], d[~live] = 1e18, 1.0
+    return o, d, t
+
+
+@pytest.mark.parametrize("kind", ["forward", "record", "record_miss"])
+def test_bvh_kernels_with_few_live_rays_and_ties(cuda_device, kind):
+    """K8's three kernels on blocks with 1, 33, 129 and 256 live rays (the
+    rest parked: warps that bounce with one lane live), over 2,000 spheres
+    and over a scene of every sphere twice (every hit an exact tie that
+    the walk may reach in either order), and on a hand-built tree where
+    the walk meets the tie's higher column first: bit-equal to the plain
+    versions (the miss-link walk in column order)."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.scene import make_random_scene
+    from test_torch_bvh_groups import _tie_scene
+
+    scene, tree, rays = _large_scene(cuda_device)
+    o, d, t = _few_live_neighbours(rays)
+    half = make_random_scene(1000, seed=3)
+    twice = half.take(torch.cat([torch.arange(1000), torch.arange(999, -1, -1)]))
+    twice_tree = build_bvh(twice, leaf_size=8)
+    cases = [(scene, tree, (o, d, t)), (reorder_scene(twice, twice_tree).to(cuda_device),
+                                        twice_tree, (o, d, t))]
+    for inner in (False, True):
+        tie, tie_tree = _tie_scene(inner)
+        x = torch.tensor([[0.0, 0.0, 0.0]] * 3, device=cuda_device)
+        dirs = torch.tensor([[1.0, 0.0, 0.0], [1.0, 1e-3, 0.0], [0.0, -1.0, 0.0]],
+                            device=cuda_device)
+        cases.append((tie.to(cuda_device), tie_tree, (x, dirs, torch.zeros(3, device=cuda_device))))
+    key = {"forward": "bvh", "record": "record_bvh", "record_miss": "bvh_miss"}[kind]
+    for sc, tr, (ro, rd, rt) in cases:
+        before = mk.LAUNCHES[key]
+        if kind == "record":
+            got = mk.trace_record(ro, rd, rt, sc, 5, 8, bvh=tr)
+            want = mk.trace_record_twin(ro, rd, rt, sc, 5, 8, bvh=tr)
+        else:
+            kw = dict(bvh=tr, record_miss=kind == "record_miss")
+            got = mk.trace_paths(ro, rd, rt, sc, 5, 8, **kw)
+            want = mk.trace_paths_twin(ro, rd, rt, sc, 5, 8, **kw)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES[key] == before + 1
+        assert _all_equal(got, want)
+    if kind == "record":  # the tie's first bounce: column 0 (A), not its copy
+        assert got[1].idx[0, :2].tolist() == [0, 0] and got[1].idx[0, 2].item() == mk.MISS
 
 
 @pytest.mark.parametrize("kw", [{}, {"word_earlyout": True}, {"sub_block": True},

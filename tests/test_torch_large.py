@@ -136,17 +136,28 @@ def test_front_tables_hbm_equal(max_nodes, sub_block):
 
 
 def test_bvh_tables_pack_the_tree():
-    """The kernel's node words: box bits, miss link, (start << 8) | count."""
+    """The kernel's node records: both children's box bits and references
+    in each inner node's record (the root's under record 0), a leaf child
+    as ~((start << 8) | count). tests/test_torch_bvh_groups.py holds the
+    walk over them."""
     _, _, _, pb = _random_pair(300)
     nodes = mk.bvh_tables(pb, "cpu").nodes
-    assert nodes.shape == (pb.miss_link.shape[0], 8) and nodes.dtype == torch.int32
-    assert torch.equal(nodes[:, 0:3].view(torch.float32), pb.node_min)
-    assert torch.equal(nodes[:, 3:6].view(torch.float32), pb.node_max)
-    assert torch.equal(nodes[:, 6], pb.miss_link)
-    leaf = pb.leaf_count > 0
-    assert torch.equal(nodes[:, 7][leaf] >> 8, pb.leaf_start[leaf])
-    assert torch.equal(nodes[:, 7][leaf] & 255, pb.leaf_count[leaf])
-    assert bool((nodes[:, 7][~leaf] == 0).all())
+    inner = torch.nonzero(pb.leaf_count == 0)[:, 0]
+    assert nodes.shape == (1 + inner.numel(), 16) and nodes.dtype == torch.int32
+    first = torch.cat([torch.zeros(1, dtype=torch.long), inner + 1])
+    second = pb.miss_link.long()[inner + 1]
+    assert torch.equal(nodes[:, 0:3].view(torch.float32), pb.node_min[first])
+    assert torch.equal(nodes[:, 4:7].view(torch.float32), pb.node_max[first])
+    assert torch.equal(nodes[1:, 8:11].view(torch.float32), pb.node_min[second])
+    assert torch.equal(nodes[1:, 12:15].view(torch.float32), pb.node_max[second])
+    for col, child in ((3, first), (7, second)):
+        rows = slice(0, None) if col == 3 else slice(1, None)
+        ref = nodes[rows, col]
+        leaf = pb.leaf_count[child] > 0
+        assert bool((ref[~leaf] > 0).all()) and bool((ref[leaf] < 0).all())
+        assert torch.equal((~ref[leaf]) >> 8, pb.leaf_start[child][leaf])
+        assert torch.equal((~ref[leaf]) & 255, pb.leaf_count[child][leaf])
+        assert torch.equal(inner[ref[~leaf].long() - 1], child[~leaf])
     big = pb._replace(leaf_count=pb.leaf_count * 300)
     with pytest.raises(ValueError, match="255"):
         mk.bvh_tables(big, "cpu")
