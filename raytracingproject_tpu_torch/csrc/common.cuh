@@ -1,7 +1,11 @@
 // Device code shared by the path-tracing megakernel (megakernel.cu) and the
 // probe kernels (probes.cu): the sphere table's rows, the closest hit's
-// carry, the exact sphere test and the slab test with its warp vote. One
-// definition, so a probe measures the instructions the megakernels run.
+// carries and the slab test, one definition, so a probe measures the
+// instructions the megakernels run. The full sphere test (`sphere_test`,
+// the square root and both roots on every pair) and the slab test's warp
+// vote (`live_bits`) are the TPU design's, which the probes measure; since
+// K3's redesign the megakernels take roots only where a discriminant is
+// positive and cull per ray.
 
 #pragma once
 

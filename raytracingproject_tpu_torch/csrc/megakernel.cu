@@ -17,22 +17,42 @@
 // that idle because one lane of the warp is still bouncing, and (c) the
 // IEEE sqrt/div/transcendentals this build keeps for exact parity.
 //
-// What the design does about it (K3; the brute scan and K7 below):
-// - Tables live in dynamic shared memory, staged once per block; every
-//   sphere or box read is a broadcast. Past 48 KB the entry point raises the
-//   kernel's dynamic shared-memory limit (up to the card's 227 KB).
-// - Culling (K3) is decided per warp: each lane slab-tests up to 24 boxes
-//   against its own ray and `__reduce_or_sync` ORs the bits into the live
-//   word directly (the TPU's f32 bit-packing in _pack_any_bits existed only
-//   because its scalar unit could not read vector bits). Subtrees culled for
-//   every lane of the warp are never scanned. Stage 1 (word / super-word
-//   lists) walks the set bits in ascending order instead of building a list
-//   in scratch memory; the visit order (word -> chunk -> subtree -> sphere)
-//   and the strict `<` update are the TPU kernel's, so the result equals the
-//   brute scan up to last-ulp ties.
+// What the design does about it (K3, closest_hit_front_warp; the brute
+// scan, K7 and K8 below):
+// - Tables live in dynamic shared memory, staged once per block with
+//   16-byte cp.async copies (the padded tables' rows are multiples of 8
+//   words); every sphere or box read is a broadcast or conflict-free. Past
+//   48 KB the entry point raises the kernel's dynamic shared-memory limit
+//   (up to the card's 227 KB: about 3,000 spheres).
+// - Culling is per ray, not per warp: ORing each box's slab bits over the
+//   warp (`live_bits`, the TPU's tile-wide `any` of _pack_any_bits) would
+//   make every lane test every column of every subtree some lane enters,
+//   which after a scatter is several times each ray's own columns.
+// - Each bounce the warp ballots its L live lanes and gives each live ray a
+//   group of G = the largest power of two <= 32 / L lanes (G = 1 while 17
+//   or more live), the j-th live lane's ray to group j, its nine fields
+//   shuffled from the owner: no list, no barrier and no shared memory
+//   beside the tables, so the fronts the budget admits (the routing of
+//   render.prepare_scene) are the same as for a kernel without a list.
+//   K6's front segment's block-level live list (below) needs 11 KB more,
+//   which the largest fronts lack (the forms' times: PERF.md section 6).
+// - The group runs K6's front segment's per-ray work (front_group_word):
+//   stage 1 (super-word and word boxes) and each of a word's `repack`
+//   chunks' subtree boxes on the ray's own masks, dealt over its lanes,
+//   each chunk clamped by the group's best t so far; the columns of the
+//   chunk's live subtrees in ascending order, dealt over the lanes, with
+//   sphere_test's arithmetic but the square root and roots only where the
+//   discriminant is positive, each lane carrying (t, column) with a strict
+//   `<`; then (t, column) reduced lexicographically with shuffles. Per-ray
+//   culling with that reduction is exactly the plain version's function
+//   (each ray's columns masked by its own slab tests, the first minimum in
+//   column order), ties included (tests/test_torch_front_warp_groups.py).
+// - The owner lane takes its group's winner with one full-warp shuffle and
+//   reads the winner's row once from the staged table.
 // - The bounce loop runs while any lane of the warp is alive
-//   (`__any_sync`), so culling votes always see all 32 lanes. Dead lanes keep
-//   their parked rays (o = 1e18, d = (1,1,1)) and miss every box.
+//   (`__any_sync`). Dead lanes keep their parked rays (o = 1e18,
+//   d = (1,1,1)) and take no part in a group; a block traces 256
+//   neighbouring rays, which share subtrees.
 // - The winner index is not needed by the forward pass, so the TPU's
 //   `mat + 4*idx` fold is dropped; the material is its own register.
 // - Built without --use_fast_math and with -fmad=false: IEEE sqrtf, logf,
@@ -195,9 +215,10 @@
 // - MISSREC and SEG are template arguments, and their pointers live in a
 //   type of their own (TailParams, added by WithTail): the instantiations
 //   without them keep their parameter block and code.
-// - The front segment (FRONT with SEG, without K3's options: plain, miss
-//   planes, recording) has a closest hit of its own, closest_hit_front_seg
-//   (grouped_closest_hit, which K7 shares).
+// - The front segment (FRONT with SEG: plain, miss planes, recording,
+//   each with K3's options or without) has a closest hit of its own,
+//   closest_hit_front_seg (grouped_closest_hit, which K7 shares; its
+//   per-ray work, front_group_word, is K3's too).
 //   What held K3's bounce loop back there: the pipelines pack the live rays
 //   first, so after a cut the survivors (a tenth of a pass) filled the first
 //   tenth of the blocks, one ray a thread, on about a quarter of the SMs; the 32
@@ -221,7 +242,7 @@
 //   * the group deals the ray's stage-1 (word, super-word) and subtree box
 //     tests over its lanes and ORs the bits with shuffles: the ray's own
 //     masks, not the warp's union; between a word's `repack` chunks the
-//     group's best t re-slabs the next chunk's boxes, as front_word does;
+//     group's best t re-slabs the next chunk's boxes;
 //   * the group scans the live subtrees' columns of each chunk in ascending
 //     order, dealt over its lanes, with sphere_test's arithmetic but the
 //     roots only where the discriminant is positive, carrying (t, column),
@@ -236,16 +257,20 @@
 // again in types of its own, so the instantiations without it keep their
 // registers:
 // - FRONT_OPTS, K3's options (megakernel.py:335-529, tables :1061-1077):
-//   `word_earlyout` re-tests a live word's union box against the per-lane
-//   best t with a warp vote before its subtrees; `sub_block` (the forward
-//   kernel only) slab-tests the 8-column group boxes `bf` of each live
-//   subtree, staged in shared memory beside the other tables, and scans
-//   only the groups some lane enters. Both only cull, so the result is
-//   plain K3's bit for bit. Instantiated for the forward front (with and
-//   without MISSREC), K5's front core and K6's three front tails, where the
-//   JAX package threads the options. K7's options (hbm_word) scan whole
-//   128-column blocks of global memory; these scan the padded, repacked
-//   subtree ranges of the shared-memory table.
+//   `word_earlyout` re-tests a live word's union box against the group's
+//   best t before its subtrees; `sub_block` (the forward kernel only)
+//   slab-tests the 8-column group boxes `bf` of each live subtree, staged
+//   in shared memory beside the other tables, and scans only the groups
+//   the ray enters. Both only cull, so the result is the plain front's bit
+//   for bit. Instantiated for the forward front (with and without
+//   MISSREC), K5's front core and K6's three front tails, where the JAX
+//   package threads the options, through front_group_word: the forward
+//   and recording kinds on K3's warp-level groups, the three segments on
+//   the front segment's block-level list (a packed tail's few live rays a
+//   block get up to 32 lanes each, where a warp's few would get fewer;
+//   PERF.md section 6 has both forms' times). K7's options
+//   (hbm_group_word) scan 128-column blocks of global memory; these scan
+//   the padded, repacked subtree ranges of the shared-memory table.
 // - SCHLICK3, K1's planted fault (megakernel.py:683-688): Schlick's
 //   reflectance with the exponent 3 instead of 5, for the
 //   per-material-region test to catch. The brute scan (CHUNKED) only.
@@ -398,106 +423,6 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t b) {
 struct FrontSmem {
   const float* sph; const float* ff; const int* fi; const float* wf; const float* sf;
 };
-
-// Stage 2 of _closest_hit_front for one live word: `repack` chunks, each
-// re-slab-tested against the per-lane best t so far, live subtrees scanned
-// in ascending order.
-//
-// OPTS: K3's options (FRONT_OPTS; megakernel.py:464-527). First the word
-// early-out: the word's union box against the per-lane best t, the word
-// skipped when no lane of the warp can still enter it (a warp vote where
-// the TPU took a tile-wide any). Then, with sub-block boxes (SUB, and
-// o.ksub > 0), one more cull inside each live subtree: the boxes `bf` of
-// its 8-column groups against the per-lane best t, and only the groups
-// some lane enters scanned, in ascending order. Both only drop boxes that
-// hold no strictly closer hit, so the result is plain K3's bit for bit.
-// K5 and K6 take the early-out alone (SUB false), as the JAX package's
-// recording and segment kernels do. Without OPTS the options' code is
-// discarded and the kernels keep their code and registers.
-template <bool RECORD, bool OPTS = false, bool SUB = false>
-__device__ __forceinline__ void front_word(const FrontSmem& T, const Params& p, int w,
-                                           const Ray& r, const InvDir& inv,
-                                           typename HitOf<RECORD>::type& h,
-                                           const FrontOpts& o, const float* bf) {
-  if constexpr (OPTS) {
-    if (o.word_earlyout &&
-        !__any_sync(FULL, slab(T.wf, p.n_words_pad, w, r, inv, p.t_min, h.bt)))
-      return;
-  }
-  const int per = WORD / p.repack;
-  for (int c = 0; c < p.repack; ++c) {
-    const int base = w * WORD + c * per;
-    unsigned m = live_bits(T.ff, p.n_front, base, per, r, inv, p.t_min, h.bt);
-    while (m) {
-      const int k = __ffs(m) - 1;
-      m &= m - 1u;
-      const int start = T.fi[base + k];
-      const int cnt = T.fi[p.n_front + base + k];
-      if constexpr (SUB) {
-        if (o.ksub) {  // group g of the subtree is column start / 8 + g of bf
-          unsigned bm = live_bits(bf, o.n_bf, start / UNROLL, cnt / UNROLL, r, inv, p.t_min,
-                                  h.bt);
-          while (bm) {
-            const int s0 = start + UNROLL * (__ffs(bm) - 1);
-            bm &= bm - 1u;
-#pragma unroll
-            for (int s = s0; s < s0 + UNROLL; ++s)
-              sphere_test<RECORD>(T.sph, p.n_cols, s, r, p.t_min, h);
-          }
-          continue;
-        }
-      }
-#pragma unroll 8
-      for (int s = start; s < start + cnt; ++s)
-        sphere_test<RECORD>(T.sph, p.n_cols, s, r, p.t_min, h);
-    }
-  }
-}
-
-
-// Stage 1 of the front-culled closest hits: calls word(w) for every word
-// some lane of the warp enters, in ascending order.
-template <class WordFn>
-__device__ __forceinline__ void front_live_words(const FrontSmem& T, const Params& p,
-                                                 const Ray& r, const InvDir& inv,
-                                                 WordFn&& word) {
-  const float inf = __int_as_float(0x7f800000);
-  const int n_words = p.n_front / WORD;
-  const int n_super = (n_words + WORD - 1) / WORD;
-  if (n_words == 1) {  // one word: trivially live
-    word(0);
-  } else if (n_super == 1) {  // <= 576 subtrees: one word-box pack
-    unsigned wm = live_bits(T.wf, p.n_words_pad, 0, n_words, r, inv, p.t_min, inf);
-    while (wm) {
-      const int w = __ffs(wm) - 1;
-      wm &= wm - 1u;
-      word(w);
-    }
-  } else {  // super-words of 24 words
-    unsigned sm = live_bits(T.sf, p.n_super, 0, n_super, r, inv, p.t_min, inf);
-    while (sm) {
-      const int sw = __ffs(sm) - 1;
-      sm &= sm - 1u;
-      unsigned wm = live_bits(T.wf, p.n_words_pad, sw * WORD, WORD, r, inv, p.t_min, inf);
-      while (wm) {
-        const int k = __ffs(wm) - 1;
-        wm &= wm - 1u;
-        word(sw * WORD + k);
-      }
-    }
-  }
-}
-
-template <bool RECORD, bool OPTS = false, bool SUB = false>
-__device__ __forceinline__ void closest_hit_front(const FrontSmem& T, const Params& p,
-                                                  const Ray& r,
-                                                  typename HitOf<RECORD>::type& h,
-                                                  const FrontOpts& o = {},
-                                                  const float* bf = nullptr) {
-  const InvDir inv = inv_dir(r);
-  front_live_words(T, p, r, inv,
-                   [&](int w) { front_word<RECORD, OPTS, SUB>(T, p, w, r, inv, h, o, bf); });
-}
 
 // ---- CHUNKED: the brute scan, its table staged in chunks ----
 constexpr int SCAN_ROWS = ROW_RAD + 1;  // rows sphere_test reads: centre, velocity, radius
@@ -721,7 +646,7 @@ __device__ __forceinline__ float group_min(float t, const Group& q) {
   return t;
 }
 
-// "The group's ray enters box base + k" bits for k < cnt (cnt <= 24), the
+// "The group's ray enters box base + k" bits for k < cnt (cnt <= 32), the
 // boxes dealt over the lanes (lane g tests k = g, g + G, ...): the ray's own
 // mask, where live_bits gives the warp's union.
 __device__ __forceinline__ unsigned group_bits(const float* B, int n, int base, int cnt,
@@ -738,9 +663,28 @@ __device__ __forceinline__ unsigned group_bits(const float* B, int n, int base, 
 // culls: a later chunk's columns lose ties to the best one's), then the
 // columns of the chunk's live subtrees, in ascending order, dealt over the
 // lanes: lane g tests the g-th, (g + G)-th, ... of them with a strict `<`.
-__device__ __forceinline__ void front_seg_word(const FrontSmem& T, const Params& p, int w,
-                                               const Ray& r, const InvDir& inv, ColumnHit& best,
-                                               const Group& q) {
+//
+// OPTS: K3's options (FRONT_OPTS; megakernel.py:464-527), which only cull,
+// so the result is the plain front's bit for bit. First the word early-out:
+// the word's union box against the group's best t, the word skipped when
+// the ray enters it only beyond. Then, with sub-block boxes (SUB, and
+// o.ksub > 0), one more cull inside each live subtree: its 8-column groups'
+// boxes `bf` against the group's best t, dealt over the lanes like the
+// subtree boxes, and only the columns of the groups the ray enters dealt
+// over the lanes. K5 and K6 take the early-out alone (SUB false), as the
+// JAX package's recording and segment kernels do. Without OPTS the
+// options' code is discarded.
+template <bool OPTS = false, bool SUB = false>
+__device__ __forceinline__ void front_group_word(const FrontSmem& T, const Params& p, int w,
+                                                 const Ray& r, const InvDir& inv,
+                                                 ColumnHit& best, const Group& q,
+                                                 [[maybe_unused]] const FrontOpts& o,
+                                                 [[maybe_unused]] const float* bf) {
+  if constexpr (OPTS) {
+    if (o.word_earlyout &&
+        !slab(T.wf, p.n_words_pad, w, r, inv, p.t_min, group_min(best.bt, q)))
+      return;
+  }
   const int per = WORD / p.repack;
   for (int c = 0; c < p.repack; ++c) {
     const int base = w * WORD + c * per;
@@ -752,6 +696,20 @@ __device__ __forceinline__ void front_seg_word(const FrontSmem& T, const Params&
       m &= m - 1u;
       const int start = T.fi[base + k];
       const int cnt = T.fi[p.n_front + base + k];
+      if constexpr (SUB) {
+        if (o.ksub) {  // group g of the subtree is column start / 8 + g of bf
+          unsigned bm = group_bits(bf, o.n_bf, start / UNROLL, cnt / UNROLL, r, inv, p.t_min,
+                                   group_min(best.bt, q), q);
+          while (bm) {
+            const int s0 = start + UNROLL * (__ffs(bm) - 1);
+            bm &= bm - 1u;
+            for (; pos < UNROLL; pos += q.G)
+              sphere_test_roots(T.sph, p.n_cols, s0 + pos, r, p.t_min, best);
+            pos -= UNROLL;
+          }
+          continue;
+        }
+      }
       for (; pos < cnt; pos += q.G) sphere_test_roots(T.sph, p.n_cols, start + pos, r, p.t_min,
                                                       best);
       pos -= cnt;
@@ -759,8 +717,9 @@ __device__ __forceinline__ void front_seg_word(const FrontSmem& T, const Params&
   }
 }
 
-// Stage 1 on the group's ray's own masks, as front_live_words descends:
-// calls word(w) for every word the ray enters, in ascending order.
+// Stage 1 on the group's ray's own masks (super-word boxes, then the word
+// boxes of the super-words it enters): calls word(w) for every word the ray
+// enters, in ascending order.
 template <class WordFn>
 __device__ __forceinline__ void group_live_words(const FrontSmem& T, const Params& p,
                                                  const Ray& r, const InvDir& inv, const Group& q,
@@ -849,21 +808,15 @@ __device__ __forceinline__ ColumnHit grouped_closest_hit(const FrontSmem& T, con
   return win;
 }
 
-// The closest hit of every live ray of the block over the front (K6's
-// front segment); `h` is filled for a live ray, from the staged table.
+// sphere_test's winner fields from the staged front table, read once after
+// the scan by the ray's own thread: the centre moved to the ray's time as
+// the test computes it, the material as stored. Nothing for a miss (t = inf).
 template <bool RECORD>
-__device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const ChunkSmem& L,
-                                                      const Params& p, const Ray& r, bool alive,
-                                                      const LiveList& live,
-                                                      typename HitOf<RECORD>::type& h) {
-  const ColumnHit win = grouped_closest_hit(
-      T, L, p, r, alive, live,
-      [&](int w, const Ray& y, const InvDir& inv, ColumnHit& best, const Group& q) {
-        front_seg_word(T, p, w, y, inv, best, q);
-      });
-  if (win.bt < __int_as_float(0x7f800000)) {  // sphere_test's winner fields
-    const float* S = T.sph;
-    const int n = p.n_cols, s = win.col;
+__device__ __forceinline__ void winner_s(const float* S, int n, const Ray& r,
+                                         const ColumnHit& win,
+                                         typename HitOf<RECORD>::type& h) {
+  if (win.bt < __int_as_float(0x7f800000)) {
+    const int s = win.col;
     h.bt = win.bt;
     h.hx = S[ROW_CX * n + s] + r.tm * S[ROW_MX * n + s];
     h.hy = S[ROW_CY * n + s] + r.tm * S[ROW_MY * n + s];
@@ -875,6 +828,86 @@ __device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const 
     h.hfz = S[ROW_FUZZ * n + s];
     h.hio = S[ROW_IOR * n + s];
   }
+}
+
+// The closest hit of every live ray of the block over the front, each ray
+// over a group of the block's lanes on the block's live list (K6's front
+// segment); `h` is filled for a live ray, from the staged table. OPTS, SUB:
+// K3's options, as front_group_word takes them.
+template <bool RECORD, bool OPTS = false, bool SUB = false>
+__device__ __forceinline__ void closest_hit_front_seg(const FrontSmem& T, const ChunkSmem& L,
+                                                      const Params& p, const Ray& r, bool alive,
+                                                      const LiveList& live,
+                                                      typename HitOf<RECORD>::type& h,
+                                                      const FrontOpts& o, const float* bf) {
+  const ColumnHit win = grouped_closest_hit(
+      T, L, p, r, alive, live,
+      [&](int w, const Ray& y, const InvDir& inv, ColumnHit& best, const Group& q) {
+        front_group_word<OPTS, SUB>(T, p, w, y, inv, best, q, o, bf);
+      });
+  winner_s<RECORD>(T.sph, p.n_cols, r, win, h);
+}
+
+// ---- K3: the same groups within a warp ----
+
+// The position of the j-th (from 0) set bit of m; j < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
+  int pos = 0;
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (j >= c) {
+      j -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// K3's closest hit of this warp's live rays (see K3 above): the warp's L
+// live lanes (a ballot; L >= 1, the bounce loop runs while one lives), each
+// live ray over a group of G = the largest power of two <= 32 / L lanes,
+// the j-th live lane's ray in group j (its nine fields shuffled from the
+// owner); the group culls and scans with front_group_word as K6's front
+// segment does, reduces (t, column) lexicographically, and the owner lane
+// takes its group's winner (a shuffle from lane j * G) and reads the
+// winner's row from the staged table. Every lane of the warp calls it and
+// reaches every full-warp shuffle; a dead lane's `h` stays a miss.
+template <bool RECORD, bool OPTS = false, bool SUB = false>
+__device__ __forceinline__ void closest_hit_front_warp(const FrontSmem& T, const Params& p,
+                                                       const Ray& r, bool alive,
+                                                       typename HitOf<RECORD>::type& h,
+                                                       const FrontOpts& o, const float* bf) {
+  const unsigned live = __ballot_sync(FULL, alive);
+  const int n = __popc(live);
+  const int lane = threadIdx.x & 31;
+  const int lg = 31 - __clz(32 / n);  // G = 2^lg lanes a live ray
+  Group q;
+  q.G = 1 << lg;
+  q.g = lane & (q.G - 1);
+  q.mask = q.G == 32 ? FULL : ((1u << q.G) - 1u) << (lane & ~(q.G - 1));
+  const int j = lane >> lg;  // the group's ray: the warp's j-th live lane
+  const int src = nth_set_bit(live, j < n ? j : 0);
+  Ray y;
+  y.ox = __shfl_sync(FULL, r.ox, src); y.oy = __shfl_sync(FULL, r.oy, src);
+  y.oz = __shfl_sync(FULL, r.oz, src);
+  y.dx = __shfl_sync(FULL, r.dx, src); y.dy = __shfl_sync(FULL, r.dy, src);
+  y.dz = __shfl_sync(FULL, r.dz, src);
+  y.tm = __shfl_sync(FULL, r.tm, src);
+  y.a = __shfl_sync(FULL, r.a, src); y.inv_a = __shfl_sync(FULL, r.inv_a, src);
+  ColumnHit best{__int_as_float(0x7f800000), 0};
+  if (j < n) {
+    const InvDir inv = inv_dir(y);
+    group_live_words(T, p, y, inv, q,
+                     [&](int w) { front_group_word<OPTS, SUB>(T, p, w, y, inv, best, q, o, bf); });
+    // the group to its least (t, column): a strict-`<` scan's first minimum
+    for (int off = q.G >> 1; off > 0; off >>= 1)
+      take_less(best, __shfl_xor_sync(q.mask, best.bt, off),
+                __shfl_xor_sync(q.mask, best.col, off));
+  }
+  const int from = alive ? __popc(live & ((1u << lane) - 1u)) << lg : lane;  // lane j * G
+  const ColumnHit win{__shfl_sync(FULL, best.bt, from), __shfl_sync(FULL, best.col, from)};
+  if (alive) winner_s<RECORD>(T.sph, p.n_cols, r, win, h);
 }
 
 // ---- K7: the same groups over the global-memory front ----
@@ -1089,17 +1122,34 @@ __device__ __forceinline__ bool any_alive(bool alive, [[maybe_unused]] LiveList&
   }
 }
 
+// Start copying n words of a front table into shared memory: 16 bytes a
+// copy where the count and both addresses allow it (the padded tables'
+// rows are multiples of 8 words), else 4. A commit, cp_async_wait_all and a
+// barrier complete it.
+__device__ __forceinline__ void stage_table(float* dst, const void* src, int n) {
+  const float* f = static_cast<const float*>(src);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(f);
+  if ((n & 3) == 0 && (addr & 15) == 0)
+    for (int q = 4 * threadIdx.x; q < n; q += 4 * TPB) cp_async16(dst + q, f + q);
+  else
+    for (int q = threadIdx.x; q < n; q += TPB) cp_async4(dst + q, f + q);
+}
+
 // ---- the bounce loop (K1; K5 with RECORD) ----
 template <int MODE, bool RECORD, bool MISSREC = false, bool SEG = false, int OPT = NO_OPT>
 __global__ void __launch_bounds__(TPB)
 trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
-  // K6's front segment without K3's options has a closest hit of its own
-  constexpr bool FRONT_SEG = MODE == FRONT && SEG && OPT == NO_OPT;
-  constexpr bool GROUPED = FRONT_SEG || MODE == HBM;  // each live ray over a group of lanes
-  constexpr bool LISTED = MODE == CHUNKED || GROUPED;  // a block-level live list
+  // The front segments (K6, with K3's options or without) take the block's
+  // live list (closest_hit_front_seg); K3, its record_miss kind and K5's
+  // front core run closest_hit_front_warp, whose groups live in a warp.
+  constexpr bool FRONT_LISTED = MODE == FRONT && SEG;
+  // a block-level live list: the brute scan, K7 and the front segments
+  constexpr bool LISTED = MODE == CHUNKED || MODE == HBM || FRONT_LISTED;
+  constexpr bool SUB = OPT == FRONT_OPTS && !RECORD && !SEG;  // K3's sub-block descent
   extern __shared__ float smem[];
   FrontSmem T;
   [[maybe_unused]] float* s_bf = nullptr;  // FRONT_OPTS: the sub-block boxes
+  [[maybe_unused]] FrontOpts opts{};       // FRONT_OPTS: K3's options
   [[maybe_unused]] ChunkSmem C{};          // CHUNKED: its buffers; LISTED: the live list
   [[maybe_unused]] LiveList live{0, 0};
   if constexpr (MODE == CHUNKED) C = chunk_smem(smem);
@@ -1109,17 +1159,23 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
     float* s_wf = s_ff + 8 * p.n_front;
     float* s_sf = s_wf + 8 * p.n_words_pad;
     int* s_fi = reinterpret_cast<int*>(s_sf + 8 * p.n_super);
-    for (int q = threadIdx.x; q < N_ROWS * p.n_cols; q += TPB) s_sph[q] = p.sph[q];
-    for (int q = threadIdx.x; q < 8 * p.n_front; q += TPB) s_ff[q] = p.ff[q];
-    for (int q = threadIdx.x; q < 8 * p.n_words_pad; q += TPB) s_wf[q] = p.wf[q];
-    for (int q = threadIdx.x; q < 8 * p.n_super; q += TPB) s_sf[q] = p.sf[q];
-    for (int q = threadIdx.x; q < 2 * p.n_front; q += TPB) s_fi[q] = p.fi[q];
+    [[maybe_unused]] float* rest = reinterpret_cast<float*>(s_fi + 2 * p.n_front);
+    stage_table(s_sph, p.sph, N_ROWS * p.n_cols);
+    stage_table(s_ff, p.ff, 8 * p.n_front);
+    stage_table(s_wf, p.wf, 8 * p.n_words_pad);
+    stage_table(s_sf, p.sf, 8 * p.n_super);
+    stage_table(reinterpret_cast<float*>(s_fi), p.fi, 2 * p.n_front);
     if constexpr (OPT == FRONT_OPTS) {
-      s_bf = reinterpret_cast<float*>(s_fi + 2 * p.n_front);
-      if (p.opts.ksub)
-        for (int q = threadIdx.x; q < 8 * p.opts.n_bf; q += TPB) s_bf[q] = p.opts.bf[q];
+      opts = p.opts;
+      if (opts.ksub) {
+        s_bf = rest;
+        stage_table(s_bf, opts.bf, 8 * opts.n_bf);
+        rest += 8 * opts.n_bf;
+      }
     }
-    if constexpr (FRONT_SEG) C = list_smem(reinterpret_cast<float*>(s_fi + 2 * p.n_front));
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    cp_async_wait_all();
+    if constexpr (FRONT_LISTED) C = list_smem(rest);
     T.sph = s_sph; T.ff = s_ff; T.fi = s_fi; T.wf = s_wf; T.sf = s_sf;
   } else if constexpr (MODE == HBM) {  // every table in global memory; fi is [1, n_front]
     T.sph = p.sph; T.ff = p.ff; T.fi = p.fi; T.wf = p.wf; T.sf = p.sf;
@@ -1129,14 +1185,16 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
 
   // The wrapper pads R to TPB. CHUNKED: thread t of block b traces ray
   // t * gridDim.x + b, so each block holds a sample of the whole launch.
-  // GROUPED (K6's front segment, K7): warp w of block b traces the 32 rays
-  // of warp w * gridDim.x + b, so a launch's live warps spread over the
-  // blocks while a warp's rays stay neighbours (its loads and stores
-  // coalesce). The others (K3, K8) trace 256 neighbouring rays a block.
+  // K7 and the front segments (K6): warp w of block b traces the 32 rays
+  // of warp w * gridDim.x + b, so a launch's live warps (a packed tail's
+  // survivors sit in its first blocks) spread over the blocks while a
+  // warp's rays stay neighbours (its loads and stores coalesce). The
+  // others (K3, K8) trace 256 neighbouring rays a block.
   const int ray = MODE == CHUNKED ? (int)(threadIdx.x * gridDim.x + blockIdx.x)
-                  : GROUPED ? (int)((((threadIdx.x >> 5) * gridDim.x + blockIdx.x) << 5)
-                                    + (threadIdx.x & 31))
-                            : blockIdx.x * TPB + threadIdx.x;
+                  : (MODE == HBM || FRONT_LISTED)
+                      ? (int)((((threadIdx.x >> 5) * gridDim.x + blockIdx.x) << 5)
+                              + (threadIdx.x & 31))
+                      : blockIdx.x * TPB + threadIdx.x;
   Ray r;
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
@@ -1182,10 +1240,11 @@ trace_kernel(typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type p) {
     typename HitOf<RECORD>::type h;
     hit_init(h);
     if constexpr (RECORD) h.hidx = 0;
-    if constexpr (FRONT_SEG) closest_hit_front_seg<RECORD>(T, C, p, r, alive, live, h);
-    else if constexpr (MODE == FRONT && OPT == FRONT_OPTS)
-      closest_hit_front<RECORD, true, !RECORD && !SEG>(T, p, r, h, p.opts, s_bf);
-    else if constexpr (MODE == FRONT) closest_hit_front<RECORD>(T, p, r, h);
+    if constexpr (FRONT_LISTED)
+      closest_hit_front_seg<RECORD, OPT == FRONT_OPTS, SUB>(T, C, p, r, alive, live, h, opts,
+                                                             s_bf);
+    else if constexpr (MODE == FRONT)
+      closest_hit_front_warp<RECORD, OPT == FRONT_OPTS, SUB>(T, p, r, alive, h, opts, s_bf);
     else if constexpr (MODE == CHUNKED) closest_hit_chunked<RECORD>(C, p, r, alive, live, h);
     else if constexpr (MODE == BVH) closest_hit_bvh<RECORD>(p, r, h);
     else closest_hit_hbm(T, C, p, r, alive, live, h);
@@ -1364,7 +1423,7 @@ int launch(const typename KernelParams<MODE, RECORD, MISSREC, SEG, OPT>::type& p
            cudaStream_t stream) {
   if (n_rays <= 0 || n_rays % TPB != 0) return (int)cudaErrorInvalidValue;
   size_t smem = smem_bytes<MODE>(p);
-  if constexpr (MODE == FRONT && SEG && OPT == NO_OPT) smem += LIST_SMEM_BYTES;  // the live list
+  if constexpr (MODE == FRONT && SEG) smem += LIST_SMEM_BYTES;  // the front segment's live list
   if constexpr (OPT == FRONT_OPTS) {
     static_assert(MODE == FRONT, "K3's options are options of the front");
     if (p.opts.ksub) {
@@ -1525,16 +1584,30 @@ int bvh_occupancy(int* blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, 0);
 }
 
-// Blocks of TPB threads one SM holds of the front segment's instantiation
-// (RECORD, MISSREC), with the dynamic shared memory of a front of these
-// table sizes and the live list.
-template <bool RECORD, bool MISSREC>
-int front_segment_occupancy(const Params& p, int* blocks) {
-  const void* fn = (const void*)trace_kernel<FRONT, RECORD, MISSREC, true>;
-  const size_t smem = smem_bytes<FRONT>(p) + LIST_SMEM_BYTES;
+// Blocks of TPB threads one SM holds of the front instantiation (RECORD,
+// MISSREC, SEG, OPT), with the dynamic shared memory of a front of these
+// table sizes, n_bf sub-block boxes and, where it takes one, the live list.
+template <bool RECORD, bool MISSREC, bool SEG, int OPT>
+int front_occupancy(const Params& p, int n_bf, int* blocks) {
+  const void* fn = (const void*)trace_kernel<FRONT, RECORD, MISSREC, SEG, OPT>;
+  const size_t smem = smem_bytes<FRONT>(p) + sizeof(float) * 8 * (size_t)n_bf +
+                      (SEG ? LIST_SMEM_BYTES : 0);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, TPB, smem);
+}
+
+template <int OPT>
+int front_occupancy_of(const Params& p, int n_bf, int record, int record_miss, int segment,
+                       int* blocks) {
+  if (segment) {
+    if (record) return front_occupancy<true, false, true, OPT>(p, n_bf, blocks);
+    if (record_miss) return front_occupancy<false, true, true, OPT>(p, n_bf, blocks);
+    return front_occupancy<false, false, true, OPT>(p, n_bf, blocks);
+  }
+  if (record) return front_occupancy<true, false, false, OPT>(p, n_bf, blocks);
+  if (record_miss) return front_occupancy<false, true, false, OPT>(p, n_bf, blocks);
+  return front_occupancy<false, false, false, OPT>(p, n_bf, blocks);
 }
 
 }  // namespace
@@ -1757,16 +1830,19 @@ int rtp_bvh_blocks_per_sm(int record, int record_miss, int* blocks) {
   return bvh_occupancy<false, false>(blocks);
 }
 
-// The occupancy of K6's three front segments: blocks per SM of the plain,
-// record_miss and recording kinds over a front of these table sizes.
-int rtp_front_segment_blocks_per_sm(int n_cols, int n_front, int n_words_pad, int n_super,
-                                    int record, int record_miss, int* blocks) {
-  if (record && record_miss) return (int)cudaErrorInvalidValue;
+// The occupancy of the twelve front instantiations: blocks per SM of the
+// forward (K3, plain or record_miss), recording (K5) and segment (K6:
+// plain, record_miss or recording) kinds, with K3's options (opts) or
+// without, over a front of these table sizes (n_bf sub-block boxes: the
+// forward kinds with options alone).
+int rtp_front_blocks_per_sm(int n_cols, int n_front, int n_words_pad, int n_super, int n_bf,
+                            int record, int record_miss, int segment, int opts, int* blocks) {
+  if ((record && record_miss) || (n_bf && (!opts || record || segment)))
+    return (int)cudaErrorInvalidValue;
   Params p{};
   p.n_cols = n_cols; p.n_front = n_front; p.n_words_pad = n_words_pad; p.n_super = n_super;
-  if (record) return front_segment_occupancy<true, false>(p, blocks);
-  if (record_miss) return front_segment_occupancy<false, true>(p, blocks);
-  return front_segment_occupancy<false, false>(p, blocks);
+  if (opts) return front_occupancy_of<FRONT_OPTS>(p, n_bf, record, record_miss, segment, blocks);
+  return front_occupancy_of<NO_OPT>(p, n_bf, record, record_miss, segment, blocks);
 }
 
 // The generator alone: the four words of `bounce` for ray slots [0, n),

@@ -80,7 +80,7 @@ LIBRARIES = {
         # record, record_miss -> blocks per SM
         "rtp_bvh_blocks_per_sm": ([_I, _I, _P], _I),
         # n_cols, n_front, n_words_pad, n_super, record, record_miss -> blocks per SM
-        "rtp_front_segment_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, _P], _I),
+        "rtp_front_blocks_per_sm": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     },
     "closest_hit": {
         "rtp_error_string": _ERROR_STRING,

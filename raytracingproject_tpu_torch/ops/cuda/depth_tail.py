@@ -19,9 +19,9 @@ The carried state is ray-minor ([planes, R]): a warp's loads and stores of
 one plane coalesce, and one `index_select` along dim 1 packs every plane.
 A ray keeps its slot in the monolithic trace (`slot`) and draws its random
 numbers by (seed, slot, global bounce), so with either closest hit a
-pipeline follows the monolithic kernel's paths: exactly for the brute
-scan, up to last-ulp ties for the front (its culling is decided per warp,
-and the warps are packed differently).
+pipeline follows the monolithic kernel's paths exactly, over the brute
+scan and over the front alike (both cull and reduce per ray, so the
+packing of the warps moves no value).
 
 The compaction packs rows of ROW_WIDTH consecutive rays: a row is live
 when any of its rays is. The JAX package packs 128-ray lane rows because

@@ -33,7 +33,8 @@ from raytracingproject_tpu_torch.scene import Scene
 
 # Rays per CUDA block (TPB in csrc/megakernel.cu). The TPU kernel's
 # 1024-ray (8, 128) tile is TPU layout; here a block is 8 warps of 32 rays,
-# and culling decisions are made per warp.
+# and culling decisions are made per ray (over lane groups of a warp or a
+# block).
 TILE = 256
 
 # sphere table rows: cx cy cz mx my mz rad mat alb_r alb_g alb_b fuzz ior
@@ -555,9 +556,11 @@ def closest_hit_brute_twin(tab, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min=T_MI
     return _first_min(_sphere_t(tab, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_min))
 
 
-def subtree_slab_mask(ff: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min=T_MIN) -> torch.Tensor:
+def subtree_slab_mask(ff: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min=T_MIN,
+                      far: torch.Tensor | None = None) -> torch.Tensor:
     """[R, F] "ray enters subtree box f within (t_min, inf)": the JAX
-    package's _slab_factory math without the best-t far clamp."""
+    package's _slab_factory math without the best-t far clamp; with `far`
+    ([R]), within (t_min, far], the kernels' clamped `slab`."""
     def inv(d):
         return 1.0 / torch.where(torch.abs(d) > 1e-20, d, 1e-20)
 
@@ -576,6 +579,8 @@ def subtree_slab_mask(ff: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min=T_MIN) -> 
     t1 = (row(5) - col(oz)) * idz
     tn = torch.maximum(tn, torch.clamp_min(torch.minimum(t0, t1), t_min))
     tf = torch.minimum(tf, torch.maximum(t0, t1))
+    if far is not None:
+        tf = torch.minimum(tf, col(far))
     return tf > tn
 
 
@@ -1310,8 +1315,7 @@ def segment_call(state: torch.Tensor, slot: torch.Tensor, scene: Scene | None, s
     tail = (int(seed), bounce0, depth, t_min, int(zero_draws), int(record_miss), *res, stream)
     if front is not None:
         scan = "front_opts" if _front_opts(front, False) else "front"
-        _require_front(front, dev, sub_block=False,
-                       extra=SEGMENT_LIST_BYTES if scan == "front" else 0)
+        _require_front(front, dev, sub_block=False, extra=SEGMENT_LIST_BYTES)  # the live list
         err = lib.rtp_segment_front(*head, *_front_args(front, False), *tail)
     else:
         tab, scan = _brute_scan(scene, dev), "brute_chunked"

@@ -14,12 +14,15 @@ tools/measure.py of the JAX package).
 - `kexp`: closest-hit variants, the full hit carry against best t and
   winner alone, unrolled x1, x4, x8 (`run`).
   `python -m raytracingproject_tpu_torch.probes.kexp [n_spheres]`.
-- `compare_builds`: K4 and K6's front segment built from several source
-  trees and timed in turns in one process (old against new).
-  `python -m raytracingproject_tpu_torch.probes.compare_builds [--frames] NAME=DIR ...`.
-- `pair_counts`: K4's work on the oracle's pass, counted (pairs with a
-  positive discriminant, per ray and per warp); a count, so it runs on
-  any device. `python -m raytracingproject_tpu_torch.probes.pair_counts [device]`.
+- `compare_builds`: the kernels built from several source trees and
+  timed in turns in one process (old against new).
+  `python -m raytracingproject_tpu_torch.probes.compare_builds [--frames] [--scans] [--bvh]
+  [--front] NAME=DIR ...`.
+- `pair_counts`: the work of K4, K3, K7 and K8 on a pass, counted (pairs
+  with a positive discriminant, per ray and per warp; the warp union
+  against each ray's own masks; warp steps); a count, so it runs on any
+  device. `python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--front]
+  [--hbm] [--bvh]`.
 
 The kernels are hand-written CUDA in csrc/probes.cu. Each wrapper runs its
 plain PyTorch version for CPU tensors and launches the kernel (or raises)

@@ -5,7 +5,7 @@ so that versions are compared under one card, one power limit and one
 host.
 
     python -m raytracingproject_tpu_torch.probes.compare_builds [--frames] [--scans] [--bvh] \
-        NAME=DIR ...
+        [--front] NAME=DIR ...
 
 Each DIR holds the CUDA sources of one version (closest_hit.cu,
 megakernel.cu and common.cuh, as raytracingproject_tpu_torch/csrc does;
@@ -43,15 +43,27 @@ Every version is checked bit-equal to the plain versions, then timed:
 - with --bvh, K8's three instantiations (`bvh_cases`): the forward on one
   pass of the reference frame (90,112 rays in slot order, depth 16) over
   `make_random_scene(50000, seed=3)`'s leaf-8 tree and at the bench shape
-  over 5,000, 16,000 and 50,000 spheres; K5's bvh core at the bench shape
-  on the same three and on one train step's 180,000 rays at depth 50 (2
-  spp, the step's draws); `record_miss` on one pass over the cover scene
-  and over the 50,000 spheres; with --frames too, the 50,000-sphere
+  over 5,000, 16,000 and 50,000 spheres; K5's bvh core on that pass, at
+  the bench shape on the same three and on one train step's 180,000 rays
+  at depth 50 (2 spp, the step's draws); `record_miss` on one pass over
+  the cover scene and over the 50,000 spheres; with --frames too, the 50,000-sphere
   reference frame through `render_pass(bvh=)`, the materials train step
   on those spheres through K5's bvh core and the geometry step on 5,000
   spheres through the chunked recording kernel (400x225, 2 spp, depth
   50, as chip_smoke.py's L6); each version's result bit-equal to the
-  first version's. A version whose library still has
+  first version's;
+- with --front, K3's nine instantiations and its neighbours (`front_cases`):
+  K3 (forward) and K5's front core at the bench shape and `record_miss`
+  on one pass over the cover scene's front as `render` builds it; K3's
+  options (sub_block and word_earlyout) on the same cases, and K6's three
+  front tails with word_earlyout on one pass cut at 4 then 12 bounces; K3
+  on one pass over `render`'s fronts of make_random_scene(2000 / 3000,
+  seed=3), the latter also at depth 0 (the table's staging); for their
+  times beside these, the brute scan's forward and recording kernels on
+  the cover bench shape, K7 and K8 on the 50,000-sphere pass; each
+  version's result bit-equal to the first version's and, where the plain
+  version is given, to it. A case a version fails to launch ends the
+  comparison. A version whose library still has
   the whole-table brute entry points (`rtp_trace_brute`, ...) runs them
   where the table fits shared memory, as its own wrapper did.
 
@@ -305,6 +317,74 @@ def scan_cases(dev) -> dict:
     return cases
 
 
+def front_cases(dev) -> dict:
+    """--front: case name -> (the kernel call, its plain version or None),
+    over K3's instantiations and the kernels beside them (see the module
+    docstring)."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+    from raytracingproject_tpu_torch.probes.kfront import COVER_CAMERA
+    from raytracingproject_tpu_torch.render import _slot_rays, prepare_scene
+    from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
+
+    bench = Camera(**dict(COVER_CAMERA, samples_per_pixel=4, max_depth=16))
+    w, h = bench.image_size()
+    rays4 = _slot_rays(bench.derive(torch.float32, dev), w, h, 4,
+                       torch.Generator(device=dev).manual_seed(1), None)
+    rays1 = _slot_rays(bench.derive(torch.float32, dev), w, h, 1,
+                       torch.Generator(device=dev).manual_seed(31), None)
+    settings = RenderSettings(device=str(dev))
+    cover_cpu = make_cover_scene(0)
+    ctree = build_bvh(cover_cpu, leaf_size=8)  # as prepare_scene builds it
+    cover = reorder_scene(cover_cpu, ctree).to(dev)
+    front, opts = (mk.front_tables(cover, ctree, order_point=COVER_CAMERA["lookfrom"], repack=2,
+                                   sub_block=sub, word_earlyout=sub) for sub in (False, True))
+    cases = {}
+    for tag, f in (("", front), (" with options", opts)):
+        cases[f"K3 cover bench{tag}"] = (
+            lambda f=f: mk.trace_paths(*rays4, cover, 99, 16, front=f),
+            lambda f=f: mk.trace_paths_twin(*rays4, cover, 99, 16, front=f))
+        cases[f"K5 front cover bench{tag}"] = (
+            lambda f=f: mk.trace_record(*rays4, cover, 99, 16, front=f), None)
+        cases[f"K3 record_miss cover pass{tag}"] = (
+            lambda f=f: mk.trace_paths(*rays1, cover, 98, 16, front=f, record_miss=True),
+            lambda f=f: mk.trace_paths_twin(*rays1, cover, 98, 16, front=f, record_miss=True))
+    for kind in KINDS:  # K6's front tails with word_earlyout: one pass cut at 4, then 12 packed
+        kw = dict(front=opts, record_miss=kind == "miss", record=kind == "record")
+        st, slot = dt.initial_state(*rays1, kind == "miss")
+        first = mk.segment_twin(st, slot, cover, 41, 0, 4, **kw)
+        st1 = first[0] if kind == "record" else first
+        src, _, _ = dt.alive_first_perm(st1[mk.ST_ALIVE])
+        st2, slot2 = dt.take_ray_rows(st1, src, dim=1), dt.take_ray_rows(slot, src)
+        for (a, sl, b0, n) in ((st, slot, 0, 4), (st2, slot2, 4, 12)):
+            cases[f"K6 front {kind} with word_earlyout [{b0}, {b0 + n})"] = (
+                lambda a=a, sl=sl, b0=b0, n=n, kw=kw: mk.segment_call(a, sl, cover, 41, b0, n,
+                                                                       **kw),
+                lambda a=a, sl=sl, b0=b0, n=n, kw=kw: mk.segment_twin(a, sl, cover, 41, b0, n,
+                                                                       **kw))
+    for n in (2000, 3000):
+        sc, f = prepare_scene(make_random_scene(n, seed=3), bench, settings)
+        cases[f"K3 {n:,} spheres pass"] = (
+            lambda sc=sc, f=f: mk.trace_paths(*rays1, sc, 99, 16, front=f),
+            lambda sc=sc, f=f: mk.trace_paths_twin(*rays1, sc, 99, 16, front=f))
+    cases["K3 3,000 spheres pass, depth 0 (staging)"] = (
+        lambda sc=sc, f=f: mk.trace_paths(*rays1, sc, 99, 0, front=f), None)
+    cases["brute cover bench forward"] = (lambda: mk.trace_paths(*rays4, cover, 99, 16), None)
+    cases["brute cover bench record"] = (lambda: mk.trace_record(*rays4, cover, 99, 16), None)
+    big_cpu = make_random_scene(50000, seed=3)
+    tree = build_bvh(big_cpu, leaf_size=8)
+    big = reorder_scene(big_cpu, tree).to(dev)
+    hbm, tb = mk.front_tables_hbm(big, tree), bvh_tables(tree, dev)
+    cases["K7 50,000 spheres pass"] = (
+        lambda: mk.trace_paths(*rays1, None, 99, 16, front=hbm), None)
+    cases["K8 50,000 spheres pass"] = (
+        lambda: mk.trace_paths(*rays1, big, 99, 16, bvh=tb), None)
+    return cases
+
+
 def bvh_cases(dev) -> dict:
     """--bvh: case name -> (the kernel call, None), over K8's three
     instantiations (see the module docstring); chip_smoke.py holds them
@@ -338,6 +418,8 @@ def bvh_cases(dev) -> dict:
             cases["K8 50,000 spheres pass record_miss"] = (
                 lambda sc=sc, tb=tb: mk.trace_paths(*rays1, sc, 99, 16, bvh=tb,
                                                     record_miss=True), None)
+            cases["K5 bvh 50,000 spheres pass"] = (
+                lambda sc=sc, tb=tb: mk.trace_record(*rays1, sc, 99, 16, bvh=tb), None)
             cases["K5 bvh 50,000 spheres train step rays, depth 50"] = (
                 lambda sc=sc, tb=tb: mk.trace_record(*step, sc, 1234, 50, bvh=tb), None)
         cases[f"K8 {n:,} spheres bench"] = (
@@ -420,8 +502,9 @@ def main(argv=None) -> int:
     from raytracingproject_tpu_torch.scene import make_cover_scene
 
     argv = sys.argv[1:] if argv is None else argv
-    frames, scans, bvh = "--frames" in argv, "--scans" in argv, "--bvh" in argv
-    versions = dict(a.split("=", 1) for a in argv if a not in ("--frames", "--scans", "--bvh"))
+    flags = ("--frames", "--scans", "--bvh", "--front")
+    frames, scans, bvh, k3 = (f in argv for f in flags)
+    versions = dict(a.split("=", 1) for a in argv if a not in flags)
     if not versions or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -443,10 +526,8 @@ def main(argv=None) -> int:
         libs[name]["megakernel"] = OwnRoute(libs[name]["megakernel"])
         r = build.kernel_registers(log)
         regs[name] = {"closest_hit_kernel": build.named(r, "closest_hit_kernel"),
-                      **{f"front segment, record {k[1]}, record_miss {k[2]}": v
-                         for k, v in r.items() if isinstance(k, tuple) and k[0] == 1 and k[3:] == (1, 0)},
                       **{f"trace_kernel{list(k)}": v for k, v in r.items()
-                         if isinstance(k, tuple) and k[0] in (0, 2, 3, 4)}}
+                         if isinstance(k, tuple)}}
     print(f"built {len(versions)} versions in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, r in regs.items():
         print(f"{name}: (registers, spill store bytes) {r}", flush=True)
@@ -500,7 +581,8 @@ def main(argv=None) -> int:
                                        "differs from its plain version")
     print("every version bit-equal to the plain versions (K4 on both ray sets, the three front "
           "segments on both segments)", flush=True)
-    cases = {**(scan_cases(dev) if scans else {}), **(bvh_cases(dev) if bvh else {})}
+    cases = {**(scan_cases(dev) if scans else {}), **(bvh_cases(dev) if bvh else {}),
+             **(front_cases(dev) if k3 else {})}
     if cases:
         first = next(iter(versions))
         use(first)
@@ -514,8 +596,8 @@ def main(argv=None) -> int:
             for k, (fn, _) in cases.items():
                 if not same(fn(), want[k][0]):
                     raise RuntimeError(f"{name}: {k} differs from {first}'s")
-        print(f"every version bit-equal to {first} on every case ({', '.join(cases)}; and, on "
-              "the cover scene's brute scan, to the plain versions)", flush=True)
+        print(f"every version bit-equal to {first} on every case "
+              f"({', '.join(cases)}; and, where given, to the plain versions)", flush=True)
 
     fast = RenderSettings(device="cuda")
     oracle = RenderSettings(device="cuda", use_megakernel=False, use_pallas=True, use_bvh=False)

@@ -1,8 +1,9 @@
-"""What K4 (the oracle's fused closest hit) and K7 (the global-memory
-front) have to compute on a pass, counted in their plain versions'
-operations: a count, not a measurement, so it runs on any device.
+"""What K4 (the oracle's fused closest hit), K3 (the front in shared
+memory), K7 (the global-memory front) and K8 (the BVH walk) have to
+compute on a pass, counted in their plain versions' operations: a count,
+not a measurement, so it runs on any device.
 
-    python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--hbm] [--bvh]
+    python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--front] [--hbm] [--bvh]
 
 prints one JSON line: for the cover camera's 400x225 primary rays (one a
 pixel, the oracle's pass) and for the same rays after one scatter, over
@@ -15,14 +16,24 @@ ray's is positive (the pairs a warp cannot skip the roots of). With
 global-memory front, at bounce 0 and after one scatter. With `--bvh`,
 `bvh_counts` for K8 on the same pass over the same scene's leaf-8 tree:
 the miss-link walk (the plain version's) and the kernel's ordered walk,
-one ray a thread, whose count K8's bound reads. Default device: cpu.
+one ray a thread, whose count K8's bound reads. With `--front`,
+`front_counts` for K3 on the same pass over the cover scene's front and
+over `make_random_scene(3000, seed=3)`'s (the largest the shared memory
+holds), each as `render` builds it at the bench shape, at bounce 0 and
+after one scatter: the warp union's work against each ray's own, the
+kernel's own work (its clamps included), and the warp steps of the union,
+of one lane a ray and of the warp-level lane groups. Default device: cpu.
 
 `ordered_walk` is the ordered walk itself in plain PyTorch, which
-tests/test_torch_bvh_groups.py holds against the plain version.
+tests/test_torch_bvh_groups.py holds against the plain version;
+`front_walk` is the front kernels' culling (K3, K6's front segment, K7),
+clamps included, which tests/test_torch_front_warp_groups.py and
+tests/test_torch_hbm_groups.py hold against the plain versions.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import sys
@@ -69,6 +80,20 @@ def hbm_pass(device, n_spheres: int = 50000, seed: int = 1):
     rays parked as the kernel parks them)."""
     scene, tree = _large_scene(device, n_spheres)
     front = mk.front_tables_hbm(scene, tree)
+    return (front, *_pass_rays(device, seed, front=front))
+
+
+def front_pass(device, scene_cpu, seed: int = 1):
+    """(front, rays, rays after one scatter): `scene_cpu`'s K3 front as
+    `render` builds it at the bench shape (leaf-8 tree, subtrees ordered
+    near-to-far from the cover camera, repack 2, within the shared-memory
+    budget), and one pass of the reference frame's rays before and after
+    one bounce of the front's plain version (as `hbm_pass`)."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+
+    tree = build_bvh(scene_cpu, leaf_size=8)
+    scene = reorder_scene(scene_cpu, tree).to(torch.device(device))
+    front = mk.front_tables(scene, tree, order_point=COVER_CAMERA["lookfrom"], repack=2)
     return (front, *_pass_rays(device, seed, front=front))
 
 
@@ -269,16 +294,123 @@ def bvh_counts(scene, tables: mk.BVHTables, o: torch.Tensor, d: torch.Tensor,
             "ordered walk": ordered}
 
 
+def front_walk(front, tab: torch.Tensor):
+    """The front kernels' culling in plain PyTorch, one ray as one lane
+    group runs it: K3 and K6's front segment (`front_group_word`, `front`
+    a FrontTables, `tab` its table `front.sph`) and K7 (`hbm_group_word`, a
+    FrontTablesHBM, `tab` its visited columns as `twin_closest_hit` gives
+    them). Returns walk(rays, t_min, counts=None) -> (best t, column of
+    `tab` or -1), rays the nine planes the closest hits take.
+
+    Stage 1 (super-word and word boxes) is not clamped. Then, for each word
+    the ray enters, in ascending order: with `word_earlyout`, the word's
+    box within (t_min, best t so far]; for each of the word's chunks
+    (`repack` of them for K3, one for K7), the chunk's subtree boxes within
+    the best t so far; with sub-block boxes (`bf`), each live subtree's
+    8-column group boxes within the best t so far; then the columns of what
+    is left, (t, column) kept lexicographically. The best t at each test
+    is the least t of every column scanned before it, which is what a
+    group's `group_min` of its lanes' carries reads. The result equals the
+    plain version's (a clamped box holds no strictly closer hit).
+
+    With `counts`, adds for the rays that are not parked: "boxes" (box
+    tests), "pairs" (columns scanned, padding included) and "roots" (those
+    whose discriminant is positive): what the kernel's groups test."""
+    hbm = isinstance(front, mk.FrontTablesHBM)
+    n_front = front.ff.shape[1]
+    n_words = n_front // mk.WORD
+    n_super = -(-n_words // mk.WORD)
+    per = mk.WORD if hbm else mk.WORD // front.repack
+    dev = tab.device
+    if hbm:  # the visited columns of subtree s, compacted in ascending order
+        cnt = front.fi[0].long().tolist()
+        start = list(itertools.accumulate(cnt, initial=0))[:-1]
+        bf0 = [s * front.ksub for s in range(n_front)]
+    else:
+        start, cnt = front.fi[0].long().tolist(), front.fi[1].long().tolist()
+        bf0 = [s0 // mk.UNROLL for s0 in start]
+    sub_cols = [torch.arange(start[s], start[s] + cnt[s], device=dev) for s in range(n_front)]
+    chunks = []  # (first subtree, columns, each column's subtree in the chunk)
+    for s0 in range(0, n_front, per):
+        cols = torch.cat(sub_cols[s0:s0 + per])
+        rel = torch.cat([torch.full((cnt[s],), s - s0, dtype=torch.int64, device=dev)
+                         for s in range(s0, s0 + per)])
+        chunks.append((s0, cols, rel))
+    super_of = torch.arange(n_words, device=dev) // mk.WORD
+
+    def walk(rays, t_min: float = T_MIN, counts: dict | None = None):
+        ox, oy, oz, dx, dy, dz, tm, a, _ = rays
+        geo = (ox, oy, oz, dx, dy, dz)
+        n = ox.shape[0]
+        live = ox < 1e17
+        t = mk._sphere_t(tab, *rays, t_min)
+        pos = mk._sphere_disc(tab, *geo, tm, a)[1] > 0.0
+        best_t = torch.full((n,), math.inf, dtype=t.dtype, device=dev)
+        best_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        got = {"boxes": torch.zeros((), dtype=torch.int64, device=dev),
+               "pairs": torch.zeros((), dtype=torch.int64, device=dev),
+               "roots": torch.zeros((), dtype=torch.int64, device=dev)}
+
+        def enters(boxes, far=None):
+            return mk.subtree_slab_mask(boxes, *geo, t_min, far) & live[:, None]
+
+        def scan(cols, scanned):  # the columns `scanned` [n, len(cols)] selects
+            nonlocal best_t, best_c
+            ts = torch.where(scanned, t[:, cols], math.inf)
+            gt = ts.min(dim=1).values
+            gc = torch.where(ts == gt[:, None], cols, tab.shape[1]).min(dim=1).values
+            best_t, best_c = _take_less(best_t, best_c, gt, torch.where(gt < math.inf, gc, -1))
+            got["pairs"] += scanned.sum()
+            got["roots"] += (scanned & pos[:, cols]).sum()
+
+        if n_words == 1:
+            m_word = live[:, None]
+        elif n_super == 1:
+            got["boxes"] += live.sum() * n_words
+            m_word = enters(front.wf)[:, :n_words]
+        else:
+            m_super = enters(front.sf)[:, :n_super]
+            got["boxes"] += live.sum() * n_super + m_super.sum() * mk.WORD
+            m_word = enters(front.wf)[:, :n_words] & m_super[:, super_of]
+        for w in range(n_words):
+            lw = m_word[:, w]
+            if not bool(lw.any()):
+                continue
+            if front.word_earlyout:
+                got["boxes"] += lw.sum()
+                lw = lw & enters(front.wf[:, w:w + 1], best_t)[:, 0]
+            for s0, cols, rel in chunks[w * (mk.WORD // per):(w + 1) * (mk.WORD // per)]:
+                got["boxes"] += lw.sum() * per
+                m = enters(front.ff[:, s0:s0 + per], best_t) & lw[:, None]
+                if front.bf is None:
+                    scan(cols, m[:, rel])
+                    continue
+                for k in range(per):
+                    s = s0 + k
+                    if cnt[s] == 0 or not bool(m[:, k].any()):
+                        continue
+                    n_grp = cnt[s] // mk.UNROLL
+                    got["boxes"] += m[:, k].sum() * n_grp
+                    grp = enters(front.bf[:, bf0[s]:bf0[s] + n_grp], best_t) & m[:, k:k + 1]
+                    scan(sub_cols[s], grp.repeat_interleave(mk.UNROLL, dim=1))
+        if counts is not None:
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + int(v)
+        return best_t, best_c
+
+    return walk
+
+
 def hbm_counts(front: mk.FrontTablesHBM, o: torch.Tensor, d: torch.Tensor,
                t: torch.Tensor) -> dict:
     """K7's sphere tests on rays o, d, t (warps of 32 consecutive rays; a
     parked ray enters no box): "union_pairs", what the warp-union culling
     tests (every lane of a warp with a live ray tests every column of every
     subtree some lane of the warp enters); "own_pairs", what each ray's own
-    masks select (the bound's count; both unclamped by the best t, so an
-    upper bound of what either kernel tests); "warp_roots", the (warp,
-    column) pairs of the union in which some lane's discriminant is
-    positive, of "warp_pairs"; "own_roots", the own pairs whose
+    masks select (both unclamped by the best t, so an upper bound of what
+    either kernel tests; the bound reads `front_walk`'s count, clamps
+    included); "warp_roots", the (warp, column) pairs of the union in which
+    some lane's discriminant is positive, of "warp_pairs"; "own_roots", the own pairs whose
     discriminant is positive (a lane group scans one ray, so these are
     also its (group, column) pairs). Columns are the front's padded ones
     below each subtree's count."""
@@ -336,10 +468,82 @@ def hbm_counts(front: mk.FrontTablesHBM, o: torch.Tensor, d: torch.Tensor,
     return out
 
 
+def front_counts(front: mk.FrontTables, o: torch.Tensor, d: torch.Tensor,
+                 t: torch.Tensor) -> dict:
+    """K3's sphere tests on rays o, d, t (warps of 32 consecutive rays, as
+    K3 maps 256 neighbouring rays a block; a parked ray enters no box):
+    "kernel_pairs", "kernel_roots" and "kernel_boxes", what the kernel's
+    groups test, clamps included (`front_walk`; the bound's count); the
+    rest unclamped by the best t, so upper bounds of what a kernel tests:
+    "own_pairs", the columns each live ray's own masks select (super-word,
+    word and subtree boxes; equal to the mask sum of
+    `closest_hit_front_twin`); "own_roots", those whose discriminant is
+    positive; "union_pairs", what the warp-union culling tests (every lane
+    of a warp with a live ray, every column of every subtree some lane
+    enters). Warp steps, summed over the warps with a live ray (a warp
+    scans while one lane does): "union_steps", the union's columns;
+    "longest_steps", the longest lane's own columns (one lane a ray);
+    "group_steps", the warp-level lane groups: with L live lanes each ray
+    over G = the largest power of two <= 32 / L lanes, each of its
+    `repack` chunks' live columns dealt over them (ceil(n / G) steps a
+    chunk), the warp's longest ray."""
+    dev = o.device
+    n_front = front.ff.shape[1]
+    n_words = n_front // mk.WORD
+    n_super = -(-n_words // mk.WORD)
+    per = mk.WORD // front.repack
+    word_of = torch.arange(n_front, device=dev) // mk.WORD
+    super_of = torch.arange(n_words, device=dev) // mk.WORD
+    cnt = front.fi[1].double()
+    owner = front.column_subtree()
+    keys = ("rays", "warps", "own_pairs", "own_roots", "union_pairs", "union_steps",
+            "longest_steps", "group_steps")
+    out = dict.fromkeys(keys, 0)
+    walk, walked = front_walk(front, front.sph), {}
+    step = 4096  # rays at a time, whole warps
+    for r0 in range(0, o.shape[0], step):
+        ox, oy, oz = (o[r0:r0 + step, q].contiguous() for q in range(3))
+        dx, dy, dz = (d[r0:r0 + step, q].contiguous() for q in range(3))
+        tm = t[r0:r0 + step]
+        live = ox < 1e17
+
+        def enters(boxes):
+            return mk.subtree_slab_mask(boxes, ox, oy, oz, dx, dy, dz, T_MIN) & live[:, None]
+
+        if n_words == 1:
+            m_word = live[:, None]
+        elif n_super == 1:
+            m_word = enters(front.wf)[:, :n_words]
+        else:
+            m_word = enters(front.wf)[:, :n_words] & enters(front.sf)[:, :n_super][:, super_of]
+        m_sub = enters(front.ff) & m_word[:, word_of]  # [r, F]
+        own = m_sub.double() @ cnt
+        a = torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-20)
+        walk((ox, oy, oz, dx, dy, dz, tm, a, 1.0 / a), T_MIN, counts=walked)
+        _, disc = mk._sphere_disc(front.sph, ox, oy, oz, dx, dy, dz, tm, a)
+        n_warps = ox.shape[0] // WARP
+        lanes = live.view(n_warps, WARP)
+        has = lanes.any(dim=1)
+        union = m_sub.view(n_warps, WARP, n_front).any(dim=1).double() @ cnt
+        n_live = lanes.sum(dim=1).clamp_min(1)
+        g = 2 ** torch.floor(torch.log2((WARP // n_live).double()))  # G of each warp
+        chunks = (m_sub.double() * cnt).view(-1, n_front // per, per).sum(dim=2)
+        steps = torch.ceil(chunks / g.repeat_interleave(WARP)[:, None]).sum(dim=1)
+        out["rays"] += int(live.sum())
+        out["warps"] += int(has.sum())
+        out["own_pairs"] += int(own.sum())
+        out["own_roots"] += int(((disc > 0.0) & m_sub[:, owner]).sum())
+        out["union_pairs"] += int(WARP * union[has].sum())
+        out["union_steps"] += int(union[has].sum())
+        out["longest_steps"] += int(own.view(n_warps, WARP).max(dim=1).values.sum())
+        out["group_steps"] += int(steps.view(n_warps, WARP).max(dim=1).values.sum())
+    return {**out, **{f"kernel_{k}": v for k, v in walked.items()}}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    hbm, bvh = "--hbm" in argv, "--bvh" in argv
-    argv = [a for a in argv if a not in ("--hbm", "--bvh")]
+    hbm, bvh, front = "--hbm" in argv, "--bvh" in argv, "--front" in argv
+    argv = [a for a in argv if a not in ("--hbm", "--bvh", "--front")]
     device = argv[0] if argv else "cpu"
     scene, (o, d, t), (o2, d2) = cover_pass(device)
     tab = trace.sphere_table(scene)
@@ -349,6 +553,20 @@ def main(argv=None) -> None:
         out[name] = {**c, "roots_share": c["roots"] / c["pairs"],
                      "warp_roots_share": c["warp_roots"] / c["warps"]}
     line = {"rays": o.shape[0], "spheres": tab.shape[1], **out}
+    if front:
+        for label, cpu in (("K3, cover", make_cover_scene(0)),
+                           ("K3, 3,000 spheres", make_random_scene(3000, seed=3))):
+            fr, (o, d, t), (o2, d2) = front_pass(device, cpu)
+            k3 = {}
+            for name, (ro, rd) in (("bounce 0", (o, d)), ("after one scatter", (o2, d2))):
+                c = front_counts(fr, ro, rd, t)
+                k3[name] = {**c, "union_over_own": c["union_pairs"] / max(c["own_pairs"], 1),
+                            "own_roots_share": c["own_roots"] / max(c["own_pairs"], 1),
+                            "kernel_over_own": c["kernel_pairs"] / max(c["own_pairs"], 1),
+                            "union_over_groups": c["union_steps"] / max(c["group_steps"], 1),
+                            "longest_over_groups": c["longest_steps"] / max(c["group_steps"], 1)}
+            line[label] = {"subtrees": fr.ff.shape[1], "columns": fr.sph.shape[1],
+                           "repack": fr.repack, **k3}
     if bvh:
         scene, tables, (o, d, t), (o2, d2) = bvh_pass(device)
         k8 = {name: bvh_counts(scene, tables, ro, rd, t)

@@ -965,3 +965,90 @@ def test_schlick3_kernel_matches_its_plain_version(cuda_device):
     assert torch.equal(k, mk.trace_paths_twin(*rays, scene, 21, 16, inject_bug="schlick3"))
     with pytest.raises(ValueError, match="inject_bug"):
         mk.trace_paths(*rays, scene, 21, 16, inject_bug="schlick3", record_miss=True)
+
+
+# ---- K3's warp-level lane groups: every front instantiation at each live count ----
+
+FRONT_KINDS = ["front", "front_miss", "record_front", "front_opts", "front_opts_miss",
+               "record_front_opts", "segment_front_opts", "segment_miss_front_opts",
+               "segment_record_front_opts"]
+
+
+def _front_kind(kind, rays, dead, scene, front, seed: int = 19, depth: int = 12):
+    """(the kernel's result, its plain version's) of the front instantiation
+    `kind` (its launch key) on `rays`, the rays where `dead` parked as the
+    kernel parks a dead ray (the segments: dead in the carried state, so
+    they take no part from the first bounce; the monolithic kernels: a miss
+    at their first bounce)."""
+    from raytracingproject_tpu_torch.ops.cuda import depth_tail as dt
+
+    miss, rec = "miss" in kind, kind.startswith(("record", "segment_record"))
+    if kind.startswith("segment"):
+        state, slot = dt.initial_state(*rays, miss)
+        off = torch.ones(state.shape[1], dtype=torch.bool, device=dead.device)
+        off[:dead.shape[0]] = dead  # the padding rays are dead already
+        state[mk.ST_ALIVE, off] = 0.0
+        state[0:3, off], state[3:6, off] = 1e18, 1.0
+        kw = dict(front=front, record_miss=miss, record=rec)
+        return (mk.segment_call(state, slot, scene, seed, 2, depth, **kw),
+                mk.segment_twin(state, slot, scene, seed, 2, depth, **kw))
+    o, d, t = (x.clone() for x in rays)
+    o[dead], d[dead] = 1e18, 1.0
+    if rec:
+        return (mk.trace_record(o, d, t, scene, seed, depth, front=front),
+                mk.trace_record_twin(o, d, t, scene, seed, depth, front=front))
+    return (mk.trace_paths(o, d, t, scene, seed, depth, front=front, record_miss=miss),
+            mk.trace_paths_twin(o, d, t, scene, seed, depth, front=front, record_miss=miss))
+
+
+@pytest.mark.parametrize("kind", FRONT_KINDS)
+@pytest.mark.parametrize("live", [1, 2, 3, 16, 17, 32])
+def test_front_kernels_at_each_live_count(cuda_device, kind, live):
+    """K3's nine instantiations (forward, record_miss, K5's front core;
+    with K3's options those and K6's three front tails) with `live` rays
+    of every warp live (lanes < live), the rest parked: on K3's warp-level
+    groups each group size G = 32 / L rounded down to a power of two, the
+    groups fetched from any lane; on the segments' block-level list
+    G = 256 / (8 L), at most 32; bit-equal to the plain version. The
+    options kinds run the front with sub-block boxes and word_earlyout
+    (the recording and segment kinds take word_earlyout alone)."""
+    scene, fronts = _option_fronts(cuda_device)
+    front = fronts["both" if "opts" in kind else "plain"]
+    _, _, rays = _cover_rays(cuda_device)
+    dead = torch.arange(rays[0].shape[0], device=cuda_device) % 32 >= live
+    before = mk.LAUNCHES[kind]
+    got, want = _front_kind(kind, rays, dead, scene, front)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[kind] == before + 1
+    assert _all_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["front", "front_miss", "record_front", "segment_front_opts"])
+def test_front_kernels_on_the_largest_front(cuda_device, kind):
+    """make_random_scene(3000, seed=3): `render`'s route is still K3 (a
+    FrontTables; its tables leave one block an SM), and the monolithic
+    front kernels are bit-equal to their plain versions on it. A front
+    segment (here with word_earlyout) refuses it: its live list does not
+    fit beside the tables (the depth tail builds its fronts within
+    SMEM_BUDGET_BYTES - SEGMENT_LIST_BYTES)."""
+    import dataclasses
+
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    scene, front = prepare_scene(make_random_scene(3000, seed=3), Camera(**COVER),
+                                 RenderSettings(device=cuda_device))
+    assert isinstance(front, mk.FrontTables) and front.sph.shape[1] > 3000
+    if "opts" in kind:
+        front = dataclasses.replace(front, word_earlyout=True)
+    _, _, rays = _cover_rays(cuda_device)
+    dead = torch.zeros(rays[0].shape[0], dtype=torch.bool, device=cuda_device)
+    before = mk.LAUNCHES[kind]
+    if kind.startswith("segment"):
+        with pytest.raises(ValueError, match="shared memory"):
+            _front_kind(kind, rays, dead, scene, front)
+        assert mk.LAUNCHES[kind] == before
+        return
+    got, want = _front_kind(kind, rays, dead, scene, front)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[kind] == before + 1
+    assert _all_equal(got, want)

@@ -33,6 +33,7 @@ import torch
 from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
 from raytracingproject_tpu_torch.config import T_MIN
 from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+from raytracingproject_tpu_torch.probes.pair_counts import front_walk
 from raytracingproject_tpu_torch.scene import make_cover_scene, make_random_scene
 
 THREADS = 256   # threads (rays) of a block, csrc/megakernel.cu TPB
@@ -82,10 +83,11 @@ def _take_less(bt, bc, ot, oc):
     return torch.where(less, ot, bt), torch.where(less, oc, bc)
 
 
-def grouped_hbm_hit(front: mk.FrontTablesHBM, rays, g_size: int):
+def grouped_hbm_hit(front: mk.FrontTablesHBM, rays, g_size: int, counts: dict | None = None):
     """K7's closest hit of R rays, each over a group of `g_size` lanes:
     (best t, winner padded column or -1), culled, scanned and reduced as
-    the kernel's groups do."""
+    the kernel's groups do. With `counts`, adds the columns the groups scan
+    ("pairs")."""
     geo = rays[:6]
     t = mk._sphere_t(front.sph.t(), *rays, T_MIN)  # [R, F * BLOCK] candidate roots
     r = t.shape[0]
@@ -125,6 +127,8 @@ def grouped_hbm_hit(front: mk.FrontTablesHBM, rays, g_size: int):
             cols[:, k * BLOCK:k * BLOCK + n] = scanned
             seen = torch.where(scanned, t[:, sid * BLOCK:sid * BLOCK + n], math.inf)
             best = torch.minimum(best, seen.min(dim=1).values)
+        if counts is not None:
+            counts["pairs"] = counts.get("pairs", 0) + int(cols.sum())
         tw = torch.where(cols, t[:, w * width:(w + 1) * width], math.inf)
         lane = (torch.cumsum(cols, dim=1) - 1) % g_size  # place in the word's live columns
         for g in range(g_size):  # each lane's strict-`<` scan keeps its first minimum
@@ -235,6 +239,30 @@ def test_groups_equal_plain_hbm_front_with_super_words(super_front, earlyout, g_
     scene, front = super_front
     front = dataclasses.replace(front, word_earlyout=earlyout)
     _hold(front, _rays(scene, 48, seed=g_size + 5 * earlyout), g_size)
+
+
+@pytest.mark.parametrize("kind", ["plain", "word_earlyout", "sub_block",
+                                  "sub_block + word_earlyout", "super-words"])
+def test_front_walk_counts_the_columns_the_groups_scan(fronts, super_front, kind):
+    """`probes.pair_counts.front_walk`, whose count K7's bound reads, on the
+    visited columns: bit-equal to the plain version, scanning the columns
+    the model's groups scan (the clamps included), which are no more than
+    the unclamped masks select."""
+    scene, front = super_front if kind == "super-words" else (fronts[0], fronts[1][kind])
+    rays = _rays(scene, 64, seed=11 + len(kind), parked=8)
+    cols = front.valid_columns()
+    tab = front.sph[cols].t().contiguous()
+    group = None if front.bf is None else cols // mk.UNROLL
+    want = mk.closest_hit_hbm_twin(front, tab, cols // BLOCK, group, *rays, T_MIN)
+    walked, scanned = {}, {}
+    got = front_walk(front, tab)(rays, T_MIN, counts=walked)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    grouped_hbm_hit(front, rays, 1, counts=scanned)
+    mask = mk.subtree_slab_mask(front.ff, *rays[:6], T_MIN)[:, cols // BLOCK]
+    if group is not None:
+        mask &= mk.subtree_slab_mask(front.bf, *rays[:6], T_MIN)[:, group]
+    assert 0 < walked["pairs"] == scanned["pairs"] <= int(mask.sum())
+    assert walked["roots"] <= walked["pairs"] and walked["boxes"] > 0
 
 
 @pytest.mark.parametrize("g_size", GROUPS)
