@@ -6,7 +6,7 @@
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source, all
 started together), holds each against its plain PyTorch version on the
-card, and drives the port's four main paths, each checked to have gone
+card, and drives the port's main paths, each checked to have gone
 through its kernels:
 
 - serving: the cover scene through `render_image`, `render` and the CLI
@@ -90,6 +90,19 @@ through its kernels:
   `render_pass` and `make_fast_train_step`; `<CHUNKED, SCHLICK3>` against
   its plain version and the per-material-region statistic on the card
   (clean under z = 5, the planted fault past it).
+
+- geometry training, the silhouette estimator and the session (G1-G3,
+  E1, S1): the cover scene's FrontRefresher with two spheres moved and a
+  radius changed, `refresh_device` on the card bit-equal to the host
+  `refresh`; K5's front core over the refreshed tables bit-equal to its
+  plain version on one geometry step's 180,000 rays at depth 50, its
+  winners against the chunked scan's; `make_fast_geometry_train_step`
+  (refresher and explicit front) equal to the brute `make_fast_train_step`
+  from the same seed, through K5's front core alone, timed in turns with
+  it; the cover-scale silhouette recovery of tests/test_edge_grad.py
+  (`make_soft_train_step`, no kernel) over five seed pairs, held to that
+  test's bounds on the median; `RendererSession` at its defaults for a
+  3-second loop, through K3, its frames per second.
 
 It then times kernels and plain versions at the bench shape (400x225,
 4 spp, depth 16; K4 and the large-scene kernels at one pass of 90,000
@@ -213,6 +226,11 @@ TRAIN_STEPS = 7  # per full-width configuration: 2 warm-up, 5 timed
 # below this. Measured 0.218 on an H100 80GB HBM3 at 700 W; the limit
 # leaves that run a margin of 1.8x.
 DESCENT_RATIO = 0.4
+# E1's seed pairs (target render, steps): the pair tests/test_edge_grad.py
+# keys its one run with, (0, 7), and the four after it. Whether a single
+# run meets that test's bounds depends on its draws (E1 prints every run),
+# so E1 holds the bounds to the median over the five.
+E1_SEEDS = ((0, 7), (1, 8), (2, 9), (3, 10), (4, 11))
 # Float32 gradients of the oracle against the replay of its own record
 # (65,536 cover rays, depth 8), relative norm per field. Measured on an
 # H100 80GB HBM3 at 700 W: <= 4.4e-6 in all six fields (radius), the
@@ -3017,6 +3035,310 @@ def region_statistic(mk, card: str) -> dict:
             "library_ms": None, "pairs": counts["pairs"]}
 
 
+def geometry_training(mk, card: str) -> None:
+    """Phases G1-G3, geometry training on the front-culled kernel: the
+    cover scene's FrontRefresher (built as prepare_scene builds the front
+    for a depth-50 camera: leaf 8, near-to-far from the camera, repack 1),
+    two spheres moved and one radius changed.
+    G1: refresh_device on the card bit-equal to the host refresh in every
+    table, every sphere inside its refreshed subtree box; its time.
+    G2: K5's front core (<FRONT, RECORD>) over the refreshed tables on one
+    geometry step's rays (400x225, 2 spp, depth 50) bit-equal to its plain
+    version, its winners against the chunked recording scan's.
+    G3: make_fast_geometry_train_step (refresher= and explicit front) on
+    the moved scene against the brute make_fast_train_step from the same
+    generator seed, launches counted; times of both; ten steps' losses."""
+    import dataclasses
+    import statistics
+    import warnings
+
+    import torch
+
+    from raytracingproject_tpu_torch.bvh import build_bvh
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.grad import (
+        SceneParams, extract_params, make_fast_geometry_train_step, make_fast_train_step,
+    )
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    dev = torch.device("cuda")
+    cam = Camera(**COVER_CAMERA, samples_per_pixel=2, max_depth=50)
+    settings = RenderSettings(device="cuda")
+    t_phase = time.perf_counter()
+    cover = make_cover_scene(0).to(dev)
+    refresher = mk.FrontRefresher(cover, build_bvh(cover, leaf_size=max(settings.bvh_leaf_size, 8)),
+                                  order_point=tuple(float(x) for x in cam.lookfrom), repack=1)
+    p = extract_params(cover)
+    c0 = p.center0.clone()
+    c0[5] += torch.tensor([0.05, -0.03, 0.04], device=dev)
+    c0[200] += torch.tensor([-0.04, 0.02, 0.03], device=dev)
+    radius = p.radius.clone()
+    radius[100] *= 1.2
+    moved = p._replace(center0=c0, radius=radius)
+    moved_scene = dataclasses.replace(cover, center0=c0, radius=radius)
+
+    # ---- G1. the refresh: on the card against the host ----
+    fr = refresher.refresh_device(moved)
+    host = refresher.refresh(moved)
+    torch.cuda.synchronize()
+    tables = ("sph", "ff", "fi", "wf", "sf", "remap", "owner")
+    check(all(torch.equal(getattr(fr, k), getattr(host, k)) for k in tables),
+          "G1: refresh_device on the card bit-equal to the host refresh (every table)")
+    owner = fr.column_subtree()
+    inside = all(
+        bool(((fr.sph[0:3] + tt * fr.sph[3:6] - fr.sph[6].abs() >= fr.ff[0:3, owner])
+              & (fr.sph[0:3] + tt * fr.sph[3:6] + fr.sph[6].abs() <= fr.ff[3:6, owner])).all())
+        for tt in (0.0, 1.0))
+    check(inside, "G1: every sphere inside its refreshed subtree box at t = 0 and t = 1")
+    ev = []
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        refresher.refresh_device(moved)
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    refresh_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
+    host_s = statistics.median(synced_s(lambda: refresher.refresh(moved))[1] for _ in range(5))
+    print(f"G1 refresh ({fr.ff.shape[1]} subtrees over {fr.sph.shape[1]} columns, "
+          f"{4 * sum(getattr(fr, k).numel() for k in tables[:5])} B of tables): refresh_device "
+          f"{refresh_ms:.4f} ms (CUDA events, median of 20), host refresh {1e3 * host_s:.3f} ms "
+          f"(synchronised, median of 5); bit-equal; spheres inside their boxes; "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+
+    # ---- G2. <FRONT, RECORD> on the refreshed tables at one geometry step's shape ----
+    t_phase = time.perf_counter()
+    o, d, t, seed = step_rays(cam, torch.Generator(device=dev).manual_seed(4))
+    hold_record(mk, "refreshed tables, moved cover", o, d, t, moved_scene, fr, seed, 50, False,
+                exact=True)
+    _, res_f = mk.trace_record(o, d, t, moved_scene, seed, 50, front=fr)
+    _, res_b = mk.trace_record(o, d, t, moved_scene, seed, 50)
+    differ = int((res_f.idx != res_b.idx).sum())
+    rays_differ_idx = int((res_f.idx != res_b.idx).any(dim=0).sum())
+    print(f"G2 record_front on refreshed tables ({o.shape[0]} rays, depth 50): bit-equal to "
+          f"the plain version; idx entries differing from the chunked recording scan's: "
+          f"{differ} of {res_f.idx.numel()} ({rays_differ_idx} rays); "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    check(differ <= res_f.idx.numel() // 10000,
+          "G2: winners on refreshed tables equal the chunked scan's (ties at most 1e-4)")
+    del o, d, t, res_f, res_b
+
+    # ---- G3. the geometry step against the brute step, launches, times ----
+    t_phase = time.perf_counter()
+    trainable = ("center0", "radius", "albedo")
+    target = render(make_cover_scene(0), Camera(**COVER_CAMERA, samples_per_pixel=16,
+                                                max_depth=50),
+                    torch.Generator(device=dev).manual_seed(5), settings)
+    gen = lambda: torch.Generator(device=dev).manual_seed(3)  # noqa: E731
+    bp, bo, bstep = make_fast_train_step(moved_scene, cam, spp=2, learning_rate=2e-3,
+                                         trainable=trainable)
+    gp, go, gstep = make_fast_geometry_train_step(moved_scene, cam, refresher=refresher, spp=2,
+                                                  learning_rate=2e-3, trainable=trainable)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the caller (here) passes fresh tables every step
+        ep, eo, estep = make_fast_geometry_train_step(moved_scene, cam, spp=2,
+                                                      learning_rate=2e-3, trainable=trainable)
+    rp, ro, _ = make_fast_geometry_train_step(moved_scene, cam, refresher=refresher, spp=2,
+                                              learning_rate=2e-3, trainable=trainable)
+    _, _, bloss, bg = bstep(bp, bo, gen(), target)
+    mk.reset_launches()
+    _, _, gloss, gg = gstep(gp, go, gen(), target)
+    torch.cuda.synchronize()
+    launches = dict(mk.LAUNCHES)
+    _, _, eloss, eg = estep(ep, eo, gen(), target,
+                            refresher.refresh_device(SceneParams(*(x.detach() for x in ep))))
+    _, _, rloss, rg = gstep(rp, ro, gen(), target)  # the same step again: the noise floor
+
+    def grad_diff(a, b):
+        return max((getattr(a, f) - getattr(b, f)).abs().max().item() for f in SceneParams._fields)
+
+    g_err, e_err, r_err = grad_diff(gg, bg), grad_diff(eg, gg), grad_diff(rg, gg)
+    print(f"G3 geometry step (refresher) vs brute step (cover 400x225, 2 spp, depth 50, "
+          f"{trainable}): loss {gloss.item():.9f} vs {bloss.item():.9f}, max |grad diff| "
+          f"{g_err:.3e}; explicit-front form: loss {eloss.item():.9f}, max |grad diff| {e_err:.3e}; "
+          f"the refresher step run again: loss {rloss.item():.9f}, max |grad diff| {r_err:.3e} "
+          f"(the replay backward's atomic adds run in no fixed order on the card); launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    check(launches["record_front"] > 0 and sum(launches.values()) == launches["record_front"],
+          "G3: the geometry step went through K5's front core alone")
+    check(abs(gloss.item() - bloss.item()) <= 1e-6 * abs(bloss.item()) and g_err <= 1e-6,
+          "G3: geometry step's loss (rtol 1e-6) and grads (atol 1e-6) equal the brute step's")
+    check(abs(eloss.item() - gloss.item()) <= 1e-6 * abs(gloss.item()) and e_err <= 1e-6,
+          "G3: the explicit-front form equals the refresher form (rtol 1e-6, atol 1e-6)")
+
+    forms = {"geometry (refresher, K5 front)": [gstep, gp, go, False, []],
+             "brute (K5 chunked)": [bstep, bp, bo, False, []],
+             "geometry (explicit host refresh)": [estep, ep, eo, True, []]}
+    for _ in range(7):  # the three forms in turns, one step each a round
+        for name, form in forms.items():
+            step, params, opt, extra, secs = form
+            args = (refresher.refresh(params),) if extra else ()
+            (params, opt, loss, _), sec = synced_s(
+                lambda: step(params, opt, None, target, *args))  # noqa: B023
+            secs.append(sec)
+            check(torch.isfinite(loss).item(), f"G3 {name}: finite loss")
+    times = {name: statistics.median(form[4][2:]) for name, form in forms.items()}
+    geo_s = times["geometry (refresher, K5 front)"]
+    print("G3 seconds per train step (in turns, median of 5 warm rounds; cover 400x225, 2 spp, "
+          "depth 50): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+          + f"; geometry / brute {geo_s / times['brute (K5 chunked)']:.3f}; the refresh's share "
+          f"of a geometry step {refresh_ms / (1e3 * geo_s):.5f}; on {card}")
+
+    start = perturbed_cover("geometry").to(dev)
+    params, opt, step = make_fast_geometry_train_step(
+        start, cam, refresher=mk.FrontRefresher(start, build_bvh(start, leaf_size=8),
+                                                order_point=tuple(float(x) for x in cam.lookfrom),
+                                                repack=1),
+        spp=2, learning_rate=2e-3, trainable=trainable,
+        generator=torch.Generator(device=dev).manual_seed(9))
+    losses = []
+    for _ in range(10):
+        params, opt, loss, _ = step(params, opt, None, target)
+        losses.append(loss.item())
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    print(f"G3 ten geometry steps from the perturbed cover (recorded, not gated): losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; last-3 / first-3 mean {last / first:.4f} ({'falls' if last < first else 'rises'})"
+          f"; {time.perf_counter() - t_phase:.1f} s; on {card}")
+
+
+def soft_recovery(target_seed: int, step_seed: int) -> dict:
+    """One run of the cover-scale silhouette recovery
+    (tests/test_edge_grad.py:192-260) on the card: the cover scene at 128
+    px wide, 2 spp, depth 3, candidates_k = 8; sphere n - 2 (the big
+    Lambertian at (-4, 1, 0)) moved by (0.25, -0.15, 0.2) and shrunk to 0.8
+    of its radius; 160 steps of Adam(2e-2), the softness annealed from 0.05
+    to 0.003, every other sphere held; the target an oracle render drawn
+    from `target_seed`, the steps' draws from `step_seed`. Returns the
+    centre's error per axis, the angular sizes (fitted, true, start), the
+    last loss, the median seconds a step and the megakernel launches."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.grad import make_soft_train_step
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    dev = torch.device("cuda")
+    scene = make_cover_scene(0)
+    n = scene.num_spheres
+    sphere = n - 2
+    check(scene.center0[sphere].tolist() == [-4.0, 1.0, 0.0], "E1: sphere n - 2 is at (-4, 1, 0)")
+    cam = Camera(aspect_ratio=16.0 / 9.0, image_width=128, samples_per_pixel=2, max_depth=3,
+                 vfov=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0), defocus_angle=0.0)
+    oracle = RenderSettings(device="cuda", use_megakernel=False, use_bvh=False)
+    target = render(scene, cam, torch.Generator(device=dev).manual_seed(target_seed), oracle)
+    true_c = scene.center0[sphere].double().numpy()
+    true_r = scene.radius[sphere].item()
+    c0 = scene.center0.clone()
+    c0[sphere] += torch.tensor([0.25, -0.15, 0.2])
+    radius = scene.radius.clone()
+    radius[sphere] *= 0.8
+    wrong = dataclasses.replace(scene, center0=c0, radius=radius)
+    params, opt, step = make_soft_train_step(
+        wrong, cam, optimizer=lambda ps: torch.optim.Adam(ps, lr=2e-2), spp=2, softness=0.05,
+        trainable=("center0", "radius"), candidates_k=8,
+        generator=torch.Generator(device=dev).manual_seed(step_seed))
+    held = torch.ones(n, dtype=torch.bool, device=dev)
+    held[sphere] = False
+    n_steps = 160
+    secs = []
+    mk.reset_launches()
+    for i in range(n_steps):
+        w = 0.05 * (0.003 / 0.05) ** (i / (n_steps - 1))
+        old = (params.center0.detach().clone(), params.radius.detach().clone())
+        (params, opt, loss, _), sec = synced_s(
+            lambda: step(params, opt, None, target, w))  # noqa: B023
+        secs.append(sec)
+        with torch.no_grad():  # every sphere but the target one is held
+            params.center0[held] = old[0][held]
+            params.radius[held] = old[1][held]
+    got_c = params.center0[sphere].detach().double().cpu().numpy()
+    got_r = params.radius[sphere].item()
+    lookfrom = np.array([13.0, 2.0, 3.0])
+    return {
+        "err": np.abs(got_c - true_c), "centre": got_c, "radius": got_r,
+        "ang": got_r / np.linalg.norm(lookfrom - got_c),
+        "ang_true": true_r / np.linalg.norm(lookfrom - true_c),
+        "ang_start": 0.8 * true_r / np.linalg.norm(lookfrom - true_c
+                                                   - np.array([0.25, -0.15, 0.2])),
+        "loss": loss.item(), "step_s": statistics.median(secs[2:]),
+        "launches": sum(mk.LAUNCHES.values()),
+    }
+
+
+def soft_step(card: str) -> None:
+    """Phase E1, the silhouette estimator at cover scale: `soft_recovery`
+    for each of E1_SEEDS. Every run must improve on the start (y and z
+    errors below the start's 0.15 and 0.2); the median over the runs of
+    each axis's error must meet the JAX test's bounds (y and z below 0.08,
+    x, the depth axis, below 0.40), and so must the median angular-size
+    error (below 10% of the truth, and below 0.4 of the start's)."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    runs = [soft_recovery(*seeds) for seeds in E1_SEEDS]
+    for seeds, r in zip(E1_SEEDS, runs):
+        print(f"E1 soft step, seeds {seeds} (cover, 128x72, 2 spp, depth 3, k 8, 160 steps): "
+              f"loss {r['loss']:.6f}; centre {r['centre'].round(4).tolist()}, error "
+              f"{r['err'].round(4).tolist()}; radius {r['radius']:.4f}; angular size "
+              f"{r['ang']:.5f} vs {r['ang_true']:.5f} (start {r['ang_start']:.5f}); seconds per "
+              f"step (median) {r['step_s']:.4f} s")
+        check(r["launches"] == 0, "E1: the soft step launches no megakernel")
+        check(r["err"][1] < 0.15 and r["err"][2] < 0.2, f"E1 {seeds}: the fit improved on the start")
+    err = np.median([r["err"] for r in runs], axis=0)
+    ang_true, ang_start = runs[0]["ang_true"], runs[0]["ang_start"]
+    ang_err = float(np.median([abs(r["ang"] - ang_true) for r in runs]))
+    print(f"E1 median over {len(runs)} runs: centre error {err.round(4).tolist()} (bounds 0.40, "
+          f"0.08, 0.08), angular-size error {ang_err:.5f} (bounds {0.10 * ang_true:.5f}, "
+          f"{0.4 * abs(ang_start - ang_true):.5f}); seconds per step (median) "
+          f"{float(np.median([r['step_s'] for r in runs])):.4f} s; "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    check(err[1] < 0.08 and err[2] < 0.08 and err[0] < 0.40,
+          "E1: the median centre error within the JAX bounds")
+    check(ang_err < 0.10 * ang_true and ang_err < 0.4 * abs(ang_start - ang_true),
+          "E1: the median angular-size error within the JAX bounds")
+
+
+def session_loop(mk, card: str) -> None:
+    """Phase S1, the session: RendererSession with the default settings
+    (1024x768, 4 spp, depth 8, two frames in flight, the megakernel with
+    the front, on the card), init, load_preconfigured_shapes and a
+    3-second interactive loop, K3's launches counted."""
+    import numpy as np
+
+    from raytracingproject_tpu_torch import RendererSession
+
+    t_phase = time.perf_counter()
+    s = RendererSession()
+    s.init()
+    s.load_preconfigured_shapes()
+    s.draw_frame()  # warm: the first frame's host work
+    s.flush()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    frames = s.start_interactive_loop(duration_ms=3000)
+    loop_s = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    print(f"S1 session (defaults: {s.settings.width}x{s.settings.height}, "
+          f"{s.camera.samples_per_pixel} spp, depth {s.camera.max_depth}, "
+          f"{s.settings.max_frames_in_flight} frames in flight): {frames} frames in {loop_s:.3f} s "
+          f"= {frames / loop_s:.3f} frames/s; launches {({k: v for k, v in launches.items() if v})}; "
+          f"{s.dump_device_info()}; {time.perf_counter() - t_phase:.1f} s; on {card}")
+    check(frames > 0 and launches["front"] > 0, "S1: the session loop rendered through K3")
+    check(s.last_frame is not None and s.last_frame.shape == (768, 1024, 3)
+          and bool(np.isfinite(s.last_frame).all()), "S1: the last frame is finite, 768x1024x3")
+
+
 def main() -> int:
     import torch
 
@@ -3286,6 +3608,15 @@ def main() -> int:
 
     # ---- 17. the oracle's gradients against the replay of its own record ----
     oracle_against_replay(card)
+
+    # ---- 18. G1-G3: geometry training on the front-culled kernel (refreshed tables) ----
+    geometry_training(mk, card)
+
+    # ---- 19. E1: the silhouette estimator's cover-scale recovery ----
+    soft_step(card)
+
+    # ---- 20. S1: the session's interactive loop ----
+    session_loop(mk, card)
     kernels.extend(probe_entries)
     print(f"bounds at {ops_rate():.5g} instructions/s, the larger of the measured "
           f"{RATE['ops']:.5g} FFMA instructions/s and the data sheet's {PEAK_FP32 / 2:.4g} (its "

@@ -12,6 +12,11 @@ exceptions:
   unless asked for the oracle loop, the JAX package's default
   (`use_megakernel=False`; with `use_pallas` its closest hit is the fused
   kernel K4, with `use_bvh` alone the per-ray BVH walk).
+
+The last deviation is deliberate and pinned by
+tests/test_torch_session.py: the port's callers rely on the megakernel
+default, so a caller that wants the JAX package's render passes
+`RenderSettings(use_megakernel=False, use_bvh=False)`.
 """
 
 from __future__ import annotations

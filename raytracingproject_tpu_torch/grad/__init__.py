@@ -7,12 +7,19 @@ scene fields) and, on the fast path between the forward and the backward,
 `PathResiduals` (the recorded path decisions). `render_loss` and
 `make_train_step` differentiate the oracle renderer with autograd;
 `make_fast_train_step` records with the megakernel and differentiates the
-replay; `xla_trace_record` records with the oracle.
+replay; `make_fast_geometry_train_step` does the same over a front whose
+tables a FrontRefresher rebuilds every step, so centres and radii train on
+the culled kernel; `make_soft_train_step` differentiates the smoothed
+primary visibility of `soft_primary_radiance` (silhouette gradients);
+`xla_trace_record` records with the oracle.
 """
 
+from raytracingproject_tpu_torch.grad.edge import make_soft_train_step, soft_primary_radiance
 from raytracingproject_tpu_torch.grad.fast import (
     GEOMETRY_FIELDS,
+    make_fast_geometry_train_step,
     make_fast_radiance,
+    make_fast_radiance_dynamic_front,
     make_fast_radiance_twophase,
     make_fast_train_step,
 )
@@ -47,4 +54,8 @@ __all__ = [
     "make_fast_radiance",
     "make_fast_radiance_twophase",
     "make_fast_train_step",
+    "make_fast_radiance_dynamic_front",
+    "make_fast_geometry_train_step",
+    "soft_primary_radiance",
+    "make_soft_train_step",
 ]

@@ -11,8 +11,12 @@ parameters are not trained, as in the JAX package).
 
 A front (FrontTables) or a BVH is built over fixed geometry: its boxes go
 stale when centres or radii move, so either with trainable geometry is
-refused. `bvh` is how materials are trained on scenes past the front's
-shared-memory budget (the BVH-walking recording kernel, K5's bvh core).
+refused by make_fast_train_step. Geometry trains on the front through
+`make_fast_geometry_train_step`, whose tables a FrontRefresher rebuilds
+from the current parameters every step (`make_fast_radiance_dynamic_front`
+takes them per call). `bvh` is how materials are trained on scenes past
+the front's shared-memory budget (the BVH-walking recording kernel, K5's
+bvh core).
 Materials are read afresh on every forward (`front_with_params`),
 so a materials-only step with a front renders with the current albedo,
 fuzz and ior. (The JAX package's front forward reads the table copied at
@@ -25,6 +29,7 @@ over the packed survivors only (`replay_radiance_twophase`).
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -41,7 +46,7 @@ from raytracingproject_tpu_torch.ops.cuda.depth_tail import (
     trace_paths_twophase, trace_record_twophase,
 )
 from raytracingproject_tpu_torch.ops.cuda.megakernel import (
-    FrontTables, bvh_tables, front_with_params, trace_record,
+    FrontRefresher, FrontTables, bvh_tables, front_with_params, trace_record,
 )
 from raytracingproject_tpu_torch.scene import Scene
 
@@ -51,7 +56,6 @@ GEOMETRY_FIELDS = ("center0", "center_delta", "radius")
 class _Config(NamedTuple):
     scene: Scene
     max_depth: int
-    front: FrontTables | None
     bvh: object
     replay_groups: int
     replay_skip_dead: bool | None
@@ -60,13 +64,15 @@ class _Config(NamedTuple):
 
 
 class _FastRadiance(torch.autograd.Function):
-    """forward = trace_record, backward = autograd through replay_radiance
-    on the recorded residuals (the custom VJP of the JAX package)."""
+    """forward = trace_record (over `front` when given), backward =
+    autograd through replay_radiance on the recorded residuals (the custom
+    VJP of the JAX package)."""
 
     @staticmethod
-    def forward(ctx, cfg: _Config, origin, direction, time, seed: int, *leaves):
+    def forward(ctx, cfg: _Config, front: FrontTables | None, origin, direction, time,
+                seed: int, *leaves):
         scene = apply_params(cfg.scene, SceneParams(*leaves))
-        front = None if cfg.front is None else front_with_params(cfg.front, scene)
+        front = None if front is None else front_with_params(front, scene)
         rad, res = cfg.tracer(origin, direction, time, scene, seed, cfg.max_depth,
                               front=front, zero_draws=cfg.zero_draws, bvh=cfg.bvh)
         ctx.save_for_backward(origin, direction, time, *leaves)
@@ -82,8 +88,8 @@ class _FastRadiance(torch.autograd.Function):
             lambda params: replay_radiance(params, cfg.scene, origin, direction, time, ctx.res,
                                            n_groups=cfg.replay_groups,
                                            skip_dead=cfg.replay_skip_dead),
-            leaves, ctx.needs_input_grad[5:], g)
-        return (None, None, None, None, None, *grads)
+            leaves, ctx.needs_input_grad[6:], g)
+        return (None, None, None, None, None, None, *grads)
 
 
 def _replay_grads(replay: Callable, leaves, needs, g) -> list:
@@ -120,11 +126,40 @@ def make_fast_radiance(scene: Scene, max_depth: int, front: FrontTables | None =
     replay_radiance's `n_groups` and `skip_dead`. `tracer` is the recording
     forward (the kernel wrapper; a check may pass its plain version,
     `trace_record_twin`, to hold the kernel against it on the card)."""
-    cfg = _Config(scene, max_depth, front, bvh, replay_groups, replay_skip_dead, zero_draws,
-                  tracer)
+    cfg = _Config(scene, max_depth, bvh, replay_groups, replay_skip_dead, zero_draws, tracer)
 
     def radiance_fn(params: SceneParams, origin, direction, time, seed: int):
-        return _FastRadiance.apply(cfg, origin, direction, time, int(seed), *params)
+        return _FastRadiance.apply(cfg, front, origin, direction, time, int(seed), *params)
+
+    return radiance_fn
+
+
+def make_fast_radiance_dynamic_front(scene: Scene, max_depth: int, replay_groups: int = 1,
+                                     replay_skip_dead: bool | None = None,
+                                     zero_draws: bool = False, tracer: Callable = trace_record):
+    """make_fast_radiance with the front tables as an argument of each call
+    (make_fast_radiance_dynamic_front of the JAX package, grad/fast.py:168-232):
+    radiance_fn(params, origin, direction, time, seed, front) -> [R, 3].
+
+    The geometry-training path: the caller refreshes the tables from the
+    current parameters every step (ops.cuda.megakernel.FrontRefresher), so
+    the culling bounds are exact for the geometry being differentiated.
+    `scene` is in its original order and `front.remap` must map the
+    padded columns to that order, as a refreshed front's does
+    (`remap_order` "scene"); `front_tables`' fronts, which map to leaf
+    order, are refused. The tables get no gradient: the replay backward
+    re-derives every sphere attribute from `params`. The other arguments
+    are make_fast_radiance's."""
+    cfg = _Config(scene, max_depth, None, replay_groups, replay_skip_dead, zero_draws, tracer)
+
+    def radiance_fn(params: SceneParams, origin, direction, time, seed: int,
+                    front: FrontTables):
+        if not isinstance(front, FrontTables) or front.remap_order != "scene":
+            raise ValueError(
+                "the dynamic-front radiance takes a FrontTables whose remap maps to the "
+                "original scene order (FrontRefresher.refresh / refresh_device); "
+                "front_tables' remap maps to BVH leaf order")
+        return _FastRadiance.apply(cfg, front, origin, direction, time, int(seed), *params)
 
     return radiance_fn
 
@@ -267,7 +302,9 @@ def make_fast_train_step(
         if geo:
             raise ValueError(
                 f"bvh/front snapshot FIXED geometry but {sorted(geo)} are trainable; train "
-                "materials only, or pass bvh=None and front=None for geometry training")
+                "materials only, train geometry with make_fast_geometry_train_step("
+                "refresher=FrontRefresher(...)), or pass bvh=None and front=None (the brute "
+                "recording forward)")
     mask = trainable_mask(trainable)
     device = resolve_device(device)
     scene = scene.to(device)
@@ -275,12 +312,6 @@ def make_fast_train_step(
         front = front.to(device)
     if bvh is not None:
         bvh = bvh_tables(bvh, device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-
-    width, height = camera.image_size()
-    dtype = scene.center0.dtype
-    cam = camera.derive(dtype, device)
     if two_phase is not None:
         radiance_fn = make_fast_radiance_twophase(scene, camera.max_depth, cut=two_phase,
                                                   cap_frac=cap_frac, front=front)
@@ -288,23 +319,105 @@ def make_fast_train_step(
         radiance_fn = make_fast_radiance(scene, camera.max_depth, front=front, bvh=bvh,
                                          replay_groups=replay_groups,
                                          replay_skip_dead=replay_skip_dead)
+    step = _make_step(scene, camera, spp, mask, device, generator, radiance_fn)
+    params0, opt_state0 = init_train_state(scene, mask, optimizer, learning_rate)
+    return params0, opt_state0, step
+
+
+def _make_step(scene: Scene, camera, spp: int, mask: SceneParams, device: torch.device,
+               generator: torch.Generator | None, radiance_fn: Callable) -> Callable:
+    """step(params, opt_state, gen, target, *extra) of the fast train
+    steps: draws the camera rays ([spp, H, W] order) and then the path
+    seed from `gen` (None: `generator`, else a generator on `device` seeded
+    with 0), takes the mean-squared loss of
+    radiance_fn(params, o, d, t, seed, *extra) against `target`, and
+    applies the optimizer to the fields `mask` trains."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    width, height = camera.image_size()
+    dtype = scene.center0.dtype
+    cam = camera.derive(dtype, device)
     pix = torch.arange(height * width, device=device).repeat(spp)
     i_idx = (pix % width).to(torch.int32)
     j_idx = (pix // width).to(torch.int32)
 
-    def loss_fn(params: SceneParams, gen: torch.Generator, target: torch.Tensor):
+    def step(params: SceneParams, opt_state, gen: torch.Generator | None, target, *extra):
+        gen = generator if gen is None else gen
         o, d, t = rays_from_uniforms(
             cam, i_idx, j_idx, *camera_uniforms(pix.shape[0], gen, device, dtype))
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device))
-        rad = radiance_fn(params, o, d, t, seed)
+        rad = radiance_fn(params, o, d, t, seed, *extra)
         img = rad.reshape(spp, height, width, 3).mean(dim=0)
-        return torch.mean((img - target) ** 2)
-
-    def step(params: SceneParams, opt_state, gen: torch.Generator | None, target):
-        loss = loss_fn(params, generator if gen is None else gen, target.to(device))
+        loss = torch.mean((img - target.to(device)) ** 2)
         grads = SceneParams(*torch.autograd.grad(loss, list(params)))
         apply_updates(opt_state, params, grads, mask)
         return params, opt_state, loss.detach(), grads
+
+    return step
+
+
+def make_fast_geometry_train_step(
+    scene: Scene,
+    camera,
+    optimizer=None,
+    *,
+    refresher: FrontRefresher | None = None,
+    spp: int = 8,
+    learning_rate: float = 2e-2,
+    trainable: tuple[str, ...] | None = None,
+    replay_groups: int = 1,
+    replay_skip_dead: bool | None = None,
+    device=None,
+    generator: torch.Generator | None = None,
+):
+    """Geometry-capable fast training on the front-culled recording
+    kernel, its tables refreshed every step (make_fast_geometry_train_step
+    of the JAX package, grad/fast.py:235-343).
+
+    `scene` is in its original order (never reordered). With `refresher`
+    (a FrontRefresher over `scene`): step(params, opt_state, gen, target)
+    refreshes the tables from the current parameters on the device
+    (`refresh_device`, under no_grad: the counterpart of the JAX package's
+    stop_gradient(refresh_in_jit(params))) and then traces over them.
+    Without it: step(params, opt_state, gen, target, front), the caller
+    passing fresh tables every step (e.g. refresher.refresh(params)); the
+    constructor warns when geometry fields are trainable. Either way the
+    culling bounds are exact for the geometry being differentiated.
+
+    Optimizer, `trainable`, device, generator and the draws of each step
+    are make_fast_train_step's: given the same generator seed, this step
+    and the brute make_fast_train_step see the same rays and Philox seed.
+    Returns (params0, opt_state0, step)."""
+    mask = trainable_mask(trainable)
+    device = resolve_device(device)
+    scene = scene.to(device)
+    radiance_fn = make_fast_radiance_dynamic_front(scene, camera.max_depth,
+                                                   replay_groups=replay_groups,
+                                                   replay_skip_dead=replay_skip_dead)
+    if refresher is not None:
+        refresher = refresher.to(device)
+
+        def refreshed_radiance(params: SceneParams, o, d, t, seed: int):
+            with torch.no_grad():
+                front = refresher.refresh_device(SceneParams(*(x.detach() for x in params)))
+            return radiance_fn(params, o, d, t, seed, front)
+
+        step = _make_step(scene, camera, spp, mask, device, generator, refreshed_radiance)
+    else:
+        geo = set(GEOMETRY_FIELDS if trainable is None else trainable) & set(GEOMETRY_FIELDS)
+        if geo:
+            warnings.warn(
+                "make_fast_geometry_train_step without a refresher: the caller MUST pass "
+                "fresh front tables every step (e.g. refresher.refresh(params)); reusing one "
+                f"front while {sorted(geo)} train gives silently wrong culling/gradients. "
+                "Prefer passing refresher= for the on-device refresh.",
+                stacklevel=2,
+            )
+        inner = _make_step(scene, camera, spp, mask, device, generator, radiance_fn)
+
+        def step(params: SceneParams, opt_state, gen: torch.Generator | None, target,
+                 front: FrontTables):
+            return inner(params, opt_state, gen, target, front.to(device))
 
     params0, opt_state0 = init_train_state(scene, mask, optimizer, learning_rate)
     return params0, opt_state0, step

@@ -21,6 +21,7 @@ chunks and spreads each block's live rays over its threads).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -126,18 +127,25 @@ class FrontTables:
     `word_earlyout` (a live word's union box re-tested against the best t
     before its subtrees). The forward kernel takes both; the recording (K5)
     and segment (K6) kernels take `word_earlyout` and scan without the
-    sub-block boxes, as the JAX package's do."""
+    sub-block boxes, as the JAX package's do.
+
+    `remap` maps a padded column to a sphere of the scene the tables were
+    built over: the leaf-ordered scene for `front_tables` (`remap_order`
+    "leaf"), the original scene for `FrontRefresher` ("scene"). `owner`,
+    where the builder has it, is `column_subtree()`'s map."""
 
     sph: torch.Tensor    # (16, Np) front-padded sphere table
     ff: torch.Tensor     # (8, F) f32 subtree boxes (min xyz, max xyz, 0, 0)
     fi: torch.Tensor     # (2, F) i32 (start, padded count)
     wf: torch.Tensor     # (8, Wp) f32 word union boxes
     sf: torch.Tensor     # (8, S) f32 super-word union boxes
-    remap: torch.Tensor  # (Np,) i32 padded column -> leaf-order sphere
+    remap: torch.Tensor  # (Np,) i32 padded column -> sphere (see remap_order)
     repack: int = 1
     bf: torch.Tensor | None = None   # (8, Np // 8 + ksub) f32 boxes of 8-column groups
     ksub: int = 0
     word_earlyout: bool = False
+    remap_order: str = "leaf"
+    owner: torch.Tensor | None = None  # (Np,) int64 padded column -> subtree
 
     def to(self, device) -> "FrontTables":
         t = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
@@ -146,16 +154,25 @@ class FrontTables:
 
     def column_subtree(self) -> torch.Tensor:
         """(Np,) int64: the subtree owning each padded column."""
-        fi = self.fi.cpu().numpy()
-        owner = np.zeros(self.sph.shape[1], np.int64)
-        for k in range(fi.shape[1]):
-            s, c = int(fi[0, k]), int(fi[1, k])
-            owner[s : s + c] = k
+        if self.owner is not None:
+            return self.owner.to(self.sph.device)
+        owner = _column_owner(self.fi.cpu().numpy(), self.sph.shape[1])
         return torch.from_numpy(owner).to(self.sph.device)
 
 
+def _column_owner(fi: np.ndarray, n_cols: int) -> np.ndarray:
+    """(n_cols,) int64: the subtree owning each padded column of a front
+    whose (start, padded count) table is `fi`."""
+    owner = np.zeros(n_cols, np.int64)
+    for k in range(fi.shape[1]):
+        s, c = int(fi[0, k]), int(fi[1, k])
+        owner[s : s + c] = k
+    return owner
+
+
 class FrontOverBudget(ValueError):
-    """`front_tables`' tables exceed the shared-memory budget they were given."""
+    """Front tables exceed the shared-memory budget they were given
+    (`front_tables`, `FrontRefresher`)."""
 
 
 def default_front_nodes(n_spheres: int) -> int:
@@ -279,7 +296,7 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
         sph=t(sph_pad).to(device), ff=t(ff).to(device), fi=t(fi).to(device),
         wf=t(wf).to(device), sf=t(sf).to(device), remap=t(remap).to(device),
         repack=repack, bf=None if bf is None else t(bf).to(device), ksub=ksub,
-        word_earlyout=bool(word_earlyout),
+        word_earlyout=bool(word_earlyout), owner=t(_column_owner(fi, pos)).to(device),
     )
 
 
@@ -297,6 +314,169 @@ def front_with_params(front: FrontTables, scene: Scene) -> FrontTables:
     geometry training with a front stays refused."""
     sph = scene_table(scene).index_select(1, front.remap.to(scene.device, torch.long))
     return dataclasses.replace(front, sph=sph.contiguous())
+
+
+class FrontRefresher:
+    """Front tables for GEOMETRY training, refreshed from the current
+    parameters on every step (FrontRefresher of the JAX package,
+    megakernel.py:1102-1337).
+
+    The partition (the BVH front's subtrees, their sphere ranges padded to
+    UNROLL columns, the words and super-words) is fixed here, once, on the
+    host; a refresh recomputes only the values: the padded sphere table
+    and the exact union boxes of every subtree, word and super-word. The
+    culling stays exact for any partition as long as each box bounds its
+    spheres, which exact unions do; only its quality decays as the
+    geometry drifts from the build-time sort (build a new refresher then).
+
+    `scene` is in its original order, never reordered: `remap` maps a
+    padded column to that order (`prim_order` composed in, `remap_order`
+    "scene"), so the training scene and its parameters stay as they are.
+    `bvh` is a FlatBVH over `scene`; `max_nodes`, `order_point` and
+    `repack` (None: DEFAULT_REPACK) are `front_tables`'. The tables'
+    shared memory is counted as `front_tables` counts it; past
+    SMEM_BUDGET_BYTES this raises FrontOverBudget, before any launch.
+
+    The static maps (column to source sphere, column to subtree, the
+    `real` subtrees) live on `scene`'s device; `to(device)` moves them."""
+
+    def __init__(self, scene: Scene, bvh, max_nodes: int | None = None, order_point=None,
+                 repack: int | None = None):
+        from raytracingproject_tpu_torch.bvh import bvh_front
+
+        self.repack = DEFAULT_REPACK if repack is None else repack
+        if self.repack <= 0 or WORD % self.repack:
+            raise ValueError(f"repack {self.repack} must divide {WORD}")
+        if max_nodes is None:
+            max_nodes = default_front_nodes(scene.num_spheres)
+        max_nodes = ((max_nodes + WORD - 1) // WORD) * WORD
+        fr = bvh_front(bvh, max_nodes=max_nodes, order_point=order_point)
+        n_front = fr.start.shape[0]
+        cols = []
+        start = np.zeros(n_front, np.int32)
+        count = np.zeros(n_front, np.int32)
+        pos = 0
+        for k in range(n_front):
+            s, c = int(fr.start[k]), int(fr.count[k])
+            if c == 0:
+                continue
+            cp = ((c + UNROLL - 1) // UNROLL) * UNROLL
+            ids = np.arange(s, s + c, dtype=np.int64)
+            cols.append(np.concatenate([ids, np.repeat(ids[-1:], cp - c)]))
+            start[k], count[k] = pos, cp
+            pos += cp
+        self.n_front = n_front
+        self.n_words = n_front // WORD
+        self.n_super = (self.n_words + WORD - 1) // WORD
+        self.n_words_pad = self.n_super * WORD if self.n_super > 1 else self.n_words
+        smem_bytes = 4 * (N_ROWS * pos + 8 * n_front + 2 * n_front + 8 * self.n_words_pad
+                          + 8 * self.n_super)
+        if smem_bytes > SMEM_BUDGET_BYTES:
+            raise FrontOverBudget(
+                f"refreshed front tables need {smem_bytes} B of shared memory (> "
+                f"{SMEM_BUDGET_BYTES}): {pos} padded spheres x {N_ROWS} rows. Geometry "
+                "training at this scale takes the brute recording forward "
+                "(make_fast_train_step without front or bvh)")
+        fi = np.stack([start, count])
+        self._real_np = count > 0
+        self._starts_np = start[self._real_np]
+        dev = scene.device
+        prim_order = bvh.prim_order.cpu().numpy().astype(np.int64)
+        self.scene = scene
+        self.col_src = torch.from_numpy(prim_order[np.concatenate(cols)]).to(dev)
+        self.owner = torch.from_numpy(_column_owner(fi, pos)).to(dev)
+        self.real = torch.from_numpy(count > 0).to(dev)
+        self.fi = torch.from_numpy(fi).to(dev)
+        self.remap = self.col_src.to(torch.int32)
+
+    def to(self, device) -> "FrontRefresher":
+        """This refresher with its scene and static maps on `device`."""
+        out = copy.copy(self)
+        out.scene = self.scene.to(device)
+        for name in ("col_src", "owner", "real", "fi", "remap"):
+            setattr(out, name, getattr(self, name).to(device))
+        return out
+
+    def _tables(self, sph: torch.Tensor, ff, wf, sf) -> FrontTables:
+        return FrontTables(sph=sph, ff=ff, fi=self.fi, wf=wf, sf=sf, remap=self.remap,
+                           repack=self.repack, remap_order="scene", owner=self.owner)
+
+    def _padded_table(self, params) -> torch.Tensor:
+        """(16, Np): the current parameters' sphere table, in column order."""
+        scene = dataclasses.replace(self.scene, **params._asdict())
+        return scene_table(scene).index_select(1, self.col_src)
+
+    def refresh(self, params) -> FrontTables:
+        """FrontTables for `params` (a grad.SceneParams over `scene`),
+        computed in numpy on the host (`refresh` of the JAX package,
+        megakernel.py:1281); on `scene`'s device."""
+        dev = self.col_src.device
+        sph = self._padded_table(params).detach().cpu().numpy()
+        c0 = sph[0:3]
+        c1 = c0 + sph[3:6]
+        rad = np.abs(sph[6])
+        bmin = (np.minimum(c0, c1) - rad).T  # (Np, 3)
+        bmax = (np.maximum(c0, c1) + rad).T
+        real = self._real_np
+        fmin = np.full((self.n_front, 3), 1e30, np.float32)
+        fmax = np.full((self.n_front, 3), 1e30, np.float32)
+        fmin[real] = np.minimum.reduceat(bmin, self._starts_np, axis=0)
+        fmax[real] = np.maximum.reduceat(bmax, self._starts_np, axis=0)
+        ff = np.zeros((8, self.n_front), np.float32)
+        ff[0:3] = fmin.T
+        ff[3:6] = fmax.T
+        wf, sf = _union_boxes(fmin, fmax, real)
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        return self._tables(t(sph), t(ff), t(wf), t(sf))
+
+    def refresh_device(self, params) -> FrontTables:
+        """FrontTables for `params`, computed on their device with device
+        ops alone: the counterpart of the JAX package's `refresh_in_jit`
+        (megakernel.py:1178). One index_select gathers the padded table;
+        the subtree boxes are scatter_reduce amin / amax over the static
+        column-to-subtree map, the word and super-word boxes reductions
+        over WORD-aligned rows; no host round trip. Min and max are exact,
+        so this equals `refresh` bit for bit. Call it under
+        torch.no_grad(): the tables carry no gradient."""
+        sph = self._padded_table(params)
+        c0 = sph[0:3]
+        c1 = c0 + sph[3:6]
+        rad = torch.abs(sph[6])
+        bmin = (torch.minimum(c0, c1) - rad).t()  # (Np, 3)
+        bmax = (torch.maximum(c0, c1) + rad).t()
+        seg = self.owner[:, None].expand(-1, 3)
+        far = torch.full((self.n_front, 3), 1e30, dtype=sph.dtype, device=sph.device)
+        real = self.real[:, None]
+        fmin = torch.where(real, far.scatter_reduce(0, seg, bmin, "amin", include_self=False),
+                           1e30)
+        fmax = torch.where(real, far.scatter_reduce(0, seg, bmax, "amax", include_self=False),
+                           1e30)
+        zeros = lambda n: torch.zeros((2, n), dtype=sph.dtype, device=sph.device)  # noqa: E731
+        ff = torch.cat([fmin.t(), fmax.t(), zeros(self.n_front)])
+        # padding subtrees carry 1e30 (they lose every min) and -1e30 for the
+        # max; a word or super-word with no real subtree is the 1e30 point
+        wmin, wmax, w_real = _word_union(fmin, torch.where(real, fmax, -1e30), self.real,
+                                         self.n_words)
+        pad = self.n_super * WORD - self.n_words
+        wmin = torch.cat([wmin, torch.full((pad, 3), 1e30, dtype=sph.dtype, device=sph.device)])
+        wmax = torch.cat([wmax, torch.full((pad, 3), 1e30, dtype=sph.dtype, device=sph.device)])
+        w_real = torch.cat([w_real, torch.zeros(pad, dtype=torch.bool, device=sph.device)])
+        smin, smax, _ = _word_union(wmin, torch.where(w_real[:, None], wmax, -1e30), w_real,
+                                    self.n_super)
+        n_wf = self.n_words_pad
+        wf = torch.cat([wmin[:n_wf].t(), wmax[:n_wf].t(), zeros(n_wf)])
+        sf = torch.cat([smin.t(), smax.t(), zeros(self.n_super)])
+        return self._tables(sph, ff, wf, sf)
+
+
+def _word_union(lo: torch.Tensor, hi_masked: torch.Tensor, real: torch.Tensor, n: int):
+    """(lo, hi, real) of `n` groups of WORD consecutive boxes: the union of
+    each group's real boxes (`hi_masked` holds -1e30 where a box is not
+    real), the 1e30 point where a group has none."""
+    any_real = real.reshape(n, WORD).any(dim=1)
+    lo = torch.where(any_real[:, None], lo.reshape(n, WORD, 3).amin(dim=1), 1e30)
+    hi = torch.where(any_real[:, None], hi_masked.reshape(n, WORD, 3).amax(dim=1), 1e30)
+    return lo, hi, any_real
 
 
 @dataclasses.dataclass

@@ -161,7 +161,9 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import raytracingproject_tpu_torch as rt\n"
         "from raytracingproject_tpu_torch import bridge, __main__, grad\n"
-        "from raytracingproject_tpu_torch.grad import fast, inverse, replay\n"
+        "from raytracingproject_tpu_torch.grad import edge, fast, inverse, replay\n"
+        "from raytracingproject_tpu_torch import session\n"
+        "from raytracingproject_tpu_torch.utils import cache, checkpoint, profiling\n"
         "from raytracingproject_tpu_torch.scene import make_three_sphere_scene\n"
         "cam = rt.Camera(aspect_ratio=2.0, image_width=16, samples_per_pixel=1, max_depth=2,"
         " lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0), focus_dist=1.0)\n"
