@@ -104,6 +104,22 @@ through its kernels:
   test's bounds on the median; `RendererSession` at its defaults for a
   3-second loop, through K3, its frames per second.
 
+- sharding and the wavefront (P1, W1): a 1x1 mesh of an NCCL world of one
+  (`parallel.make_mesh()`), `render_sharded` with the megakernel and the
+  front at the reference configuration through K3 alone, its mean within
+  5% of `render`'s; `make_sharded_train_step` at 400x225, 2 spp, depth 50
+  (brute K5, front K5, two-phase K6 recording) and
+  `make_sharded_soft_train_step` at E1's size, each step's loss and
+  gradients within 1e-5 of the unsharded step's on the same rays and seed,
+  both timed in turns; `wavefront.render_wavefront_image` at the
+  reference configuration, its closest hit K4 once an iteration, its
+  host reads counted (one an iteration, the rest once a frame), its mean
+  within 5% of the megakernel's, two runs from one seed bit-equal, K4
+  held against its plain version on the wavefront's own pools (mid-run,
+  and with dead slots), Mrays/s at the bench shape beside `render`'s, the
+  plain `closest_hit` in the same loop once for comparison, and an
+  iteration's refill, bounce, K4 and accumulation times.
+
 It then times kernels and plain versions at the bench shape (400x225,
 4 spp, depth 16; K4 and the large-scene kernels at one pass of 90,000
 rays, the latter also at the bench shape alone) and the train steps, and
@@ -3339,6 +3355,343 @@ def session_loop(mk, card: str) -> None:
           and bool(np.isfinite(s.last_frame).all()), "S1: the last frame is finite, 768x1024x3")
 
 
+def sharded_one_card(mk, card: str) -> dict:
+    """Phase P1, the sharded paths on one card: a 1x1 mesh of an NCCL
+    world of one (`make_mesh()`). `render_sharded` with the megakernel
+    and the front at the reference configuration (400x225, 30 spp, depth
+    50) through K3, its mean within 5% of `render`'s; the sharded train
+    step on the cover scene at 400x225, 2 spp, depth 50 (the brute K5
+    forward on geometry + albedo, the front form on materials, and
+    two_phase=4) and the sharded soft step at E1's size (cover 128x72, 2
+    spp, depth 3, k 8), each step's loss and gradients against the
+    unsharded step's on the shard's derived generator (the same rays and
+    seed): loss within 1e-5 relative, every gradient within 1e-5 of the
+    largest (the replay's atomic adds run in no fixed order on the card:
+    the unsharded step run twice gives the floor). Seconds per step of
+    both, in turns: the collectives' cost on a world of one. Returns the
+    launches of each path."""
+    import dataclasses
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.grad import (
+        SceneParams, make_fast_train_step, make_soft_train_step,
+    )
+    from raytracingproject_tpu_torch.parallel import (
+        make_mesh, make_sharded_soft_train_step, make_sharded_train_step, render_sharded,
+    )
+    from raytracingproject_tpu_torch.parallel.shard import draw_base, shard_generator
+    from raytracingproject_tpu_torch.render import prepare_scene, render
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and tuple(mesh.shape) == (1, 1), "P1: make_mesh() is a 1x1 mesh of an NCCL world of one")
+    paths = {}
+
+    # ---- P1a. render_sharded: megakernel + front at the reference configuration ----
+    ref_cam = Camera(**COVER_CAMERA, samples_per_pixel=30, max_depth=50)
+    settings = RenderSettings(device="cuda")
+    scene, front = prepare_scene(make_cover_scene(0), ref_cam, settings)
+    render_sharded(scene, ref_cam, gen(0), mesh, use_megakernel=True, front=front)  # warm
+    mk.reset_launches()
+    img, shard_s = synced_s(lambda: render_sharded(scene, ref_cam, gen(1), mesh,
+                                                   use_megakernel=True, front=front))
+    paths["render_sharded"] = {k: v for k, v in mk.LAUNCHES.items() if v}
+    ref, render_s = synced_s(lambda: render(make_cover_scene(0), ref_cam, gen(1), settings))
+    m_s, m_r = img.mean().item(), ref.mean().item()
+    print(f"P1 render_sharded (1x1 NCCL mesh, megakernel + front, 400x225, 30 spp, depth 50): "
+          f"launches {paths['render_sharded']}; mean {m_s:.5f} vs render's {m_r:.5f}; "
+          f"{shard_s:.4f} s vs render's {render_s:.4f} s on {card}")
+    check(paths["render_sharded"] == {"front": 30},
+          "P1: render_sharded went through K1 with K3 alone, one launch a sample")
+    check(tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
+          "P1: the sharded image is finite, 225x400x3")
+    check(abs(m_s - m_r) <= 0.05 * m_r, "P1: the sharded mean within 5% of render's")
+
+    # ---- P1b. the sharded train steps against make_fast_train_step ----
+    cam = Camera(**COVER_CAMERA, samples_per_pixel=2, max_depth=50)
+    target = render(make_cover_scene(0), Camera(**COVER_CAMERA, samples_per_pixel=16,
+                                                max_depth=50), gen(5), settings)
+    geo = perturbed_cover("geometry").to(dev)
+    mat, mat_front = prepare_scene(perturbed_cover("materials").to(dev), cam, settings)
+    configs = {  # start, make_fast_train_step's keywords, Adam's rate, the launch key
+        "brute K5 (geometry + albedo)": (geo, dict(trainable=("albedo", "center0", "radius")),
+                                         2e-3, "record_brute_chunked"),
+        "front K5 (materials)": (mat, dict(trainable=("albedo", "fuzz", "ior"), front=mat_front),
+                                 1e-2, "record_front"),
+        "two-phase 4 (brute, geometry + albedo)": (
+            geo, dict(trainable=("albedo", "center0", "radius"), two_phase=4), 2e-3,
+            "segment_record_brute_chunked"),
+    }
+
+    def grad_err(a, b):
+        scale = max(getattr(b, f).abs().max().item() for f in SceneParams._fields)
+        return max((getattr(a, f) - getattr(b, f)).abs().max().item()
+                   for f in SceneParams._fields) / scale
+
+    for name, (start, kw, lr, key) in configs.items():
+        sp, so, sstep = make_sharded_train_step(start, cam, mesh, spp=2, use_megakernel=True,
+                                                learning_rate=lr, **kw)
+        up, uo, ustep = make_fast_train_step(start, cam, spp=2, learning_rate=lr, **kw)
+        rp, ro, _ = make_fast_train_step(start, cam, spp=2, learning_rate=lr, **kw)
+        mk.reset_launches()
+        _, _, sloss, sg = sstep(sp, so, gen(3), target)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+        paths[name] = launches
+        shard_gen = lambda: shard_generator(draw_base(gen(3)), 0, 0, dev)  # noqa: E731
+        _, _, uloss, ug = ustep(up, uo, shard_gen(), target)
+        _, _, rloss, rg = ustep(rp, ro, shard_gen(), target)
+        l_err, g_err, floor = (abs(sloss.item() - uloss.item()) / abs(uloss.item()),
+                               grad_err(sg, ug), grad_err(rg, ug))
+        print(f"P1 sharded step, {name} (cover 400x225, 2 spp, depth 50): loss "
+              f"{sloss.item():.9f} vs unsharded {uloss.item():.9f} (relative {l_err:.2e}); max "
+              f"|grad diff| / max |grad| {g_err:.2e} (the unsharded step twice: {floor:.2e}); "
+              f"launches {launches}")
+        check(launches.get(key, 0) > 0 and sum(launches.values()) == sum(
+            v for k, v in launches.items() if k.startswith(("record_", "segment_record_"))),
+            f"P1 {name}: the step went through the recording kernels ({key})")
+        check(l_err <= 1e-5 and g_err <= 1e-5,
+              f"P1 {name}: loss and gradients within 1e-5 of the unsharded step's")
+        secs = {"sharded": [], "unsharded": []}
+        for _ in range(5):  # in turns, one step each a round
+            for form, (step, p, o) in (("sharded", (sstep, sp, so)),
+                                       ("unsharded", (ustep, up, uo))):
+                (_, _, loss, _), sec = synced_s(lambda: step(p, o, None, target))  # noqa: B023
+                secs[form].append(sec)
+                check(torch.isfinite(loss).item(), f"P1 {name} {form}: finite loss")
+        s_med, u_med = statistics.median(secs["sharded"][1:]), statistics.median(
+            secs["unsharded"][1:])
+        print(f"P1 seconds per step, {name} (in turns, median of 4 warm rounds): sharded "
+              f"{s_med:.4f} s, unsharded {u_med:.4f} s, ratio {s_med / u_med:.3f} on {card}")
+
+    # ---- P1c. the sharded soft step at E1's size ----
+    soft_cam = Camera(aspect_ratio=16.0 / 9.0, image_width=128, samples_per_pixel=2, max_depth=3,
+                      vfov=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      defocus_angle=0.0)
+    cover = make_cover_scene(0)
+    soft_target = render(cover, soft_cam, gen(0), RenderSettings(device="cuda",
+                                                                 use_megakernel=False,
+                                                                 use_bvh=False))
+    c0 = cover.center0.clone()
+    c0[cover.num_spheres - 2] += torch.tensor([0.25, -0.15, 0.2])
+    wrong = dataclasses.replace(cover, center0=c0)
+    kw = dict(spp=2, softness=0.05, trainable=("center0", "radius"), candidates_k=8)
+    sp, so, sstep = make_sharded_soft_train_step(wrong, soft_cam, mesh, **kw)
+    up, uo, ustep = make_soft_train_step(wrong, soft_cam, **kw)
+    mk.reset_launches()
+    _, _, sloss, sg = sstep(sp, so, gen(7), soft_target, 0.02)
+    launches = sum(mk.LAUNCHES.values())
+    _, _, uloss, ug = ustep(up, uo, shard_generator(draw_base(gen(7)), 0, 0, dev), soft_target,
+                            0.02)
+    l_err, g_err = abs(sloss.item() - uloss.item()) / abs(uloss.item()), grad_err(sg, ug)
+    secs = {"sharded": [], "unsharded": []}
+    for _ in range(6):
+        for form, (step, p, o) in (("sharded", (sstep, sp, so)), ("unsharded", (ustep, up, uo))):
+            (_, _, loss, _), sec = synced_s(lambda: step(p, o, None, soft_target))  # noqa: B023
+            secs[form].append(sec)
+    s_med, u_med = statistics.median(secs["sharded"][1:]), statistics.median(
+        secs["unsharded"][1:])
+    print(f"P1 sharded soft step (cover 128x72, 2 spp, depth 3, k 8): loss {sloss.item():.9f} vs "
+          f"unsharded {uloss.item():.9f} (relative {l_err:.2e}); max |grad diff| / max |grad| "
+          f"{g_err:.2e}; megakernel launches {launches}; seconds per step (in turns, median of 5 "
+          f"warm rounds) sharded {s_med:.4f} s, unsharded {u_med:.4f} s, ratio "
+          f"{s_med / u_med:.3f}; {time.perf_counter() - t_phase:.1f} s; on {card}")
+    check(launches == 0, "P1: the soft step launches no megakernel")
+    check(l_err <= 1e-5 and g_err <= 1e-5,
+          "P1 soft step: loss and gradients within 1e-5 of the unsharded step's")
+    dist.destroy_process_group()
+    return paths
+
+
+def count_syncs(fn):
+    """(fn(), {(file, line): count}): the synchronising CUDA calls fn()
+    made, by the Python line that made them (torch's sync debug mode at
+    "warn", each of its warnings recorded)."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter((Path(w.filename).name, w.lineno) for w in caught
+                                    if "synchronizing" in str(w.message))
+
+
+def plain_hit_wavefront(wf, scene, cd, generator, width: int, height: int, spp: int,
+                        max_depth: int, pool_size: int) -> tuple:
+    """`render_wavefront`'s loop with `ops.intersect.closest_hit` where
+    its bounce takes K4 (`wf.refill`, the plain closest hit, `wf.shade`):
+    a comparison on the card, never a route the renderer takes. Returns
+    (radiance sum [npix, 3], iterations)."""
+    import torch
+
+    from raytracingproject_tpu_torch.config import T_MIN
+    from raytracingproject_tpu_torch.ops.intersect import closest_hit
+
+    npix, total, dev = width * height, width * height * spp, cd.center.device
+    key = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev))
+    acc = torch.zeros((npix, 3), device=dev)
+    pool = wf._empty_pool(pool_size, torch.float32, dev)
+    nxt = torch.zeros((), dtype=torch.int64, device=dev)
+    iterations, running = 0, True
+    while running:
+        pool, nxt = wf.refill(pool, nxt, total, cd, width, npix, key)
+        rec = closest_hit(pool.origin, pool.direction, pool.time, scene.center0,
+                          scene.center_delta, scene.radius, t_min=T_MIN)
+        pool, acc = wf.shade(pool, rec, acc, scene, generator, max_depth)
+        iterations += 1
+        queued, live = torch.stack([nxt, pool.alive.sum()]).tolist()
+        running = queued < total or live > 0
+    return acc, iterations
+
+
+def wavefront_phase(mk, trace, card: str, megakernel_mean: float) -> int:
+    """Phase W1, the wavefront: `render_wavefront_image` on the cover
+    scene at the reference configuration (400x225, 30 spp, depth 50), its
+    closest hit K4 once an iteration, its host reads counted by torch's
+    sync debug mode (one an iteration, the loop's condition; the others,
+    the key's and the set-up's, fewer than a bench frame's iterations), finite,
+    its mean within 5% of the front megakernel's render; two runs from one
+    seed bit-equal; K4 held against its plain version (and
+    `ops.intersect.closest_hit`) on the bench shape's pool mid-run, every
+    slot live, and late, with dead, stale slots; Mrays/s at the bench shape
+    (400x225, 4 spp, depth 16) beside `render`'s (the front megakernel),
+    in turns; the same loop with the plain `closest_hit` on the card,
+    timed once as a comparison; the refill's, the bounce's, K4's and the
+    accumulation's ms an iteration on the mid-run pool. Returns K4's
+    launches on the wavefront's main path."""
+    import statistics
+
+    import torch
+
+    from raytracingproject_tpu_torch import wavefront as wf
+    from raytracingproject_tpu_torch.camera import Camera
+    from raytracingproject_tpu_torch.config import RenderSettings
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_cover_scene
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    settings = RenderSettings(device="cuda")
+    cover = make_cover_scene(0)
+    ref_cam = Camera(**COVER_CAMERA, samples_per_pixel=30, max_depth=50)
+    bench_cam = Camera(**COVER_CAMERA, samples_per_pixel=4, max_depth=16)
+    wf.render_wavefront_image(cover, bench_cam, gen(0), settings)  # warm
+    bench_stats = {}
+    _, bench_sites = count_syncs(lambda: wf.render_wavefront_image(cover, bench_cam, gen(2),
+                                                                   settings, stats=bench_stats))
+
+    trace.reset_launches()
+    mk.reset_launches()
+    stats = {}
+    img, sites = count_syncs(lambda: wf.render_wavefront_image(cover, ref_cam, gen(1), settings,
+                                                               stats=stats))
+    launches = trace.LAUNCHES["closest_hit"]
+    mean = img.mean().item()
+    again, frame_s = synced_s(lambda: wf.render_wavefront_image(cover, ref_cam, gen(1), settings))
+    iters, reads = stats["iterations"], sum(sites.values())
+    per_frame = {"reference": reads - iters, "bench": sum(bench_sites.values()) - bench_stats["iterations"]}
+    print(f"W1 wavefront (cover, 400x225, 30 spp, depth 50, pool "
+          f"{wf.wavefront_pool_size(400 * 225 * 30, settings.rays_per_batch)}): {iters} "
+          f"iterations, {reads} host reads (synchronising CUDA calls, torch's sync debug mode; "
+          f"by line: {', '.join(f'{f}:{ln} x{n}' for (f, ln), n in sites.most_common())}), "
+          f"closest_hit launches {launches}, megakernel launches {sum(mk.LAUNCHES.values())}; "
+          f"mean {mean:.5f} vs the front megakernel's {megakernel_mean:.5f}; {frame_s:.4f} s a "
+          f"frame (the second run) on {card}")
+    print(f"W1 host reads less iterations: {per_frame['reference']} a reference frame, "
+          f"{per_frame['bench']} a bench frame ({bench_stats['iterations']} iterations)")
+    check(launches == iters > 0 and sum(mk.LAUNCHES.values()) == 0,
+          "W1: the wavefront's closest hit is K4, once an iteration")
+    # fewer than the bench frame's 21 iterations: no other read comes once an iteration
+    check(sites.most_common(1)[0][1] == iters
+          and max(per_frame.values()) < bench_stats["iterations"],
+          "W1: one host read an iteration (the loop's condition), the others once a frame")
+    check(tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
+          "W1: the wavefront image is finite, 225x400x3")
+    check(abs(mean - megakernel_mean) <= 0.05 * megakernel_mean,
+          "W1: the wavefront's mean within 5% of the megakernel render's")
+    diff = (again - img).abs().max().item()
+    print(f"W1 two runs from one seed: bit-equal {torch.equal(again, img)}, max |diff| {diff:.3e}")
+    check(torch.equal(again, img), "W1: two wavefront runs from one seed are bit-equal")
+
+    # K4 at the wavefront's own shape: the bench shape's pool after 3 iterations, refilled
+    # (every slot live), and after the queue drained (dead slots keep their stale rays)
+    n_rays = 400 * 225 * 4
+    w, h = bench_cam.image_size()
+    pool = wf.wavefront_pool_size(n_rays, settings.rays_per_batch)
+    cd = bench_cam.derive(torch.float32, dev)
+    cov = cover.to(dev)
+    key = 12345
+    acc = torch.zeros((w * h, 3), device=dev)
+    p = wf._empty_pool(pool, torch.float32, dev)
+    nxt = torch.zeros((), dtype=torch.int64, device=dev)
+    g = gen(11)
+    for _ in range(3):
+        p, nxt = wf.refill(p, nxt, n_rays, cd, w, w * h, key)
+        p, acc = wf.bounce(p, acc, cov, g, 16)
+    live = int(p.alive.sum())
+    p_full, _ = wf.refill(p, nxt, n_rays, cd, w, w * h, key)
+    check(bool(p_full.alive.all()), "W1: the mid-run pool is full after its refill")
+    hold_closest_hit(trace, "wavefront pool, mid-run, all live", p_full.origin,
+                     p_full.direction, p_full.time, cov)
+    p_late, nxt_late, acc_late = p, nxt, acc.clone()
+    while int(nxt_late) < n_rays:
+        p_late, nxt_late = wf.refill(p_late, nxt_late, n_rays, cd, w, w * h, key)
+        p_late, acc_late = wf.bounce(p_late, acc_late, cov, g, 16)
+    dead = int((~p_late.alive).sum())
+    check(0 < dead < pool, "W1: the late pool holds live and dead slots")
+    hold_closest_hit(trace, f"wavefront pool, queue drained, {dead} dead slots",
+                     p_late.origin, p_late.direction, p_late.time, cov)
+
+    render(cover, bench_cam, gen(0), settings)  # warm
+    secs = {"wavefront": [], "megakernel (front)": []}
+    for k in range(4):  # in turns
+        for name, fn in (("wavefront", lambda: wf.render_wavefront_image(  # noqa: B023
+                cover, bench_cam, gen(10 + k), settings)),  # noqa: B023
+                         ("megakernel (front)", lambda: render(cover, bench_cam,  # noqa: B023
+                                                               gen(10 + k), settings))):
+            secs[name].append(synced_s(fn)[1])
+    med = {k: statistics.median(v[1:]) for k, v in secs.items()}
+    (_, plain_iters), plain_s = synced_s(lambda: plain_hit_wavefront(
+        wf, cov, cd, gen(10), w, h, 4, 16, pool))
+    print(f"W1 bench shape (400x225, 4 spp, depth 16; in turns, median of 3 warm frames): "
+          f"wavefront {med['wavefront']:.4f} s = {n_rays / med['wavefront'] / 1e6:.3f} Mrays/s "
+          f"(pool {pool}), render (front megakernel) "
+          f"{med['megakernel (front)']:.4f} s = {n_rays / med['megakernel (front)'] / 1e6:.3f} "
+          f"Mrays/s, ratio {med['wavefront'] / med['megakernel (front)']:.2f}; the wavefront "
+          f"loop with the plain closest_hit (comparison only, once, {plain_iters} iterations) "
+          f"{plain_s:.4f} s = {n_rays / plain_s / 1e6:.3f} Mrays/s; on {card}")
+
+    contrib = torch.rand((pool, 3), device=dev)
+    tab = trace.sphere_table(cov)
+    refill_ms = cuda_ms(lambda: wf.refill(p, nxt, n_rays, cd, w, w * h, key), 20)
+    bounce_ms = cuda_ms(lambda: wf.bounce(p_full, acc.clone(), cov, g, 16), 20)
+    acc_ms = cuda_ms(lambda: wf.accumulate(acc, p_full.pixel, contrib), 20)
+    k4_ms = cuda_ms(lambda: trace.closest_hit_fused(p_full.origin, p_full.direction,
+                                                    p_full.time, tab), 20)
+    print(f"W1 one iteration at the bench shape (pool {pool}, {live} live before the refill): "
+          f"refill {refill_ms:.4f} ms, bounce {bounce_ms:.4f} ms (K4 {k4_ms:.4f} ms, the "
+          f"accumulation {acc_ms:.4f} ms), by CUDA events; {time.perf_counter() - t_phase:.1f} s; "
+          f"on {card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3617,6 +3970,14 @@ def main() -> int:
 
     # ---- 20. S1: the session's interactive loop ----
     session_loop(mk, card)
+
+    # ---- 21. P1: the sharded paths on one card (a 1x1 NCCL mesh) ----
+    sharded_launches = sharded_one_card(mk, card)
+
+    # ---- 22. W1: the wavefront (K4 once an iteration) ----
+    wf_launches = wavefront_phase(mk, trace, card, m_k)
+    print(f"launches by path (this slice): {json.dumps(sharded_launches)}; wavefront "
+          f"closest_hit {wf_launches}")
     kernels.extend(probe_entries)
     print(f"bounds at {ops_rate():.5g} instructions/s, the larger of the measured "
           f"{RATE['ops']:.5g} FFMA instructions/s and the data sheet's {PEAK_FP32 / 2:.4g} (its "

@@ -22,8 +22,12 @@ closest hit from the fused kernel), and the reverse-mode train step
 through it (`grad.make_train_step`). Large scenes: past the card's
 shared memory `render` takes the front with its spheres in global memory,
 `bvh=` the BVH-walking kernel (`render_pass`, `make_fast_train_step`), and
-the brute scan stages its table in chunks. Utilities: `utils.checkpoint`
-(resumable renders, training state), `utils.profiling`, `utils.cache`.
+the brute scan stages its table in chunks. Sharding: `parallel/`
+(`make_mesh`, `render_sharded`, the sharded train steps) on
+torch.distributed. The wavefront renderer: `wavefront.py` (a dense ray
+pool refilled by stream compaction, `--wavefront` on the CLI). Utilities:
+`utils.checkpoint` (resumable renders, training state),
+`utils.profiling`, `utils.cache`.
 """
 
 from raytracingproject_tpu_torch.camera import Camera

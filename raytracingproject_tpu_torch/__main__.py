@@ -3,11 +3,13 @@ the reference's src/main.cpp:11-71).
 
 Renders the RTWeekend cover scene with the reference camera (400x225,
 30 spp, depth 50, vfov 20, lookfrom (13,2,3), defocus 0.6, focus 10)
-through the megakernel with front culling, and writes P3 PPM to stdout
+through the megakernel with front culling (or, with --wavefront, the
+stream-compaction renderer of wavefront.py), and writes P3 PPM to stdout
 (or --output) with progress on stderr.
 
     python -m raytracingproject_tpu_torch > image.ppm
     python -m raytracingproject_tpu_torch --scene three --spp 64 -o out.ppm
+    python -m raytracingproject_tpu_torch --wavefront -o out.ppm
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ from raytracingproject_tpu_torch.camera import Camera
 from raytracingproject_tpu_torch.color import to_u8
 from raytracingproject_tpu_torch.config import RenderSettings
 from raytracingproject_tpu_torch.ops.cuda.megakernel import LAUNCHES
+from raytracingproject_tpu_torch.ops.cuda.trace import LAUNCHES as TRACE_LAUNCHES
 from raytracingproject_tpu_torch.render import render
 from raytracingproject_tpu_torch.scene import (
     make_cover_scene, make_minimal_scene, make_three_sphere_scene,
 )
 from raytracingproject_tpu_torch.utils.ppm import encode_ppm
+from raytracingproject_tpu_torch.wavefront import render_wavefront_image
 
 SCENES = {
     "cover": make_cover_scene,
@@ -46,14 +50,12 @@ def main(argv=None) -> int:
     ap.add_argument("--use-bvh", action=argparse.BooleanOptionalAction, default=True,
                     help="front-culled closest hit (default); --no-use-bvh scans every sphere")
     ap.add_argument("--wavefront", action="store_true",
-                    help="stream-compaction renderer (not ported yet, ROADMAP P8: wavefront.py)")
+                    help="stream-compaction renderer (wavefront.py: a dense ray pool, the fused "
+                         "closest hit K4 on the card); --use-bvh does not apply to it")
     ap.add_argument("--device", default=None,
                     help="cuda or cpu (default: cuda; without a card it raises, so ask for cpu)")
     ap.add_argument("--output", "-o", default="-", help="output path ('-' = stdout)")
     args = ap.parse_args(argv)
-    if args.wavefront:
-        ap.error("--wavefront is not ported to the PyTorch package yet "
-                 "(ROADMAP P8: wavefront.py)")
 
     cover = args.scene == "cover"
     camera = Camera(
@@ -75,14 +77,18 @@ def main(argv=None) -> int:
     print(f"Rendering {args.scene} {camera.image_width}x{camera.image_height} "
           f"spp={args.spp} depth={args.depth} on {device}", file=sys.stderr, flush=True)
     t0 = time.perf_counter()
-    img = to_u8(render(scene, camera, generator, settings))
+    if args.wavefront:
+        img = to_u8(render_wavefront_image(scene, camera, generator, settings))
+        launches = f"closest_hit={TRACE_LAUNCHES['closest_hit']}"
+    else:
+        img = to_u8(render(scene, camera, generator, settings))
+        launches = f"brute={LAUNCHES['brute_chunked']} front={LAUNCHES['front']}"
     data = encode_ppm(img.cpu().numpy())
     elapsed = time.perf_counter() - t0
     rays = camera.image_width * camera.image_height * args.spp
     print("Done.", file=sys.stderr)
     print(f"{rays} rays in {elapsed:.2f}s = {rays / elapsed / 1e6:.2f} Mrays/s "
-          f"(kernel launches: brute={LAUNCHES['brute_chunked']} front={LAUNCHES['front']})",
-          file=sys.stderr)
+          f"(kernel launches: {launches})", file=sys.stderr)
     if args.output == "-":
         sys.stdout.write(data)
     else:

@@ -127,10 +127,10 @@ def rays_from_uniforms(
         cam.center[None, :] + dx * cam.defocus_disk_u[None, :]
         + dy * cam.defocus_disk_v[None, :]
     )
-    if float(cam.defocus_angle) > 0.0:
-        origin = defocus_origin
-    else:
-        origin = cam.center[None, :].expand_as(defocus_origin)
+    # a select on the device, not a host read of the angle: the wavefront
+    # makes rays every iteration
+    origin = torch.where(cam.defocus_angle > 0.0, defocus_origin,
+                         cam.center[None, :].expand_as(defocus_origin))
     direction = pixel_sample - origin
     return origin.contiguous(), direction, time
 

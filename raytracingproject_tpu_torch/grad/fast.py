@@ -243,6 +243,18 @@ def make_fast_radiance_twophase(scene: Scene, max_depth: int, cut: int = 4,
     return radiance_fn
 
 
+def refuse_trainable_geometry(trainable: tuple[str, ...] | None) -> None:
+    """Raise if any of GEOMETRY_FIELDS trains: a front or a BVH is built
+    over fixed geometry, and its boxes would go stale."""
+    geo = set(GEOMETRY_FIELDS if trainable is None else trainable) & set(GEOMETRY_FIELDS)
+    if geo:
+        raise ValueError(
+            f"bvh/front snapshot FIXED geometry but {sorted(geo)} are trainable; train "
+            "materials only, train geometry with make_fast_geometry_train_step("
+            "refresher=FrontRefresher(...)), or pass bvh=None and front=None (the brute "
+            "recording forward)")
+
+
 def make_fast_train_step(
     scene: Scene,
     camera,
@@ -298,13 +310,7 @@ def make_fast_train_step(
         raise ValueError("two_phase runs K6, which has no BVH walk: pass front= (a "
                          "FrontTables) or neither")
     if bvh is not None or front is not None:
-        geo = set(GEOMETRY_FIELDS if trainable is None else trainable) & set(GEOMETRY_FIELDS)
-        if geo:
-            raise ValueError(
-                f"bvh/front snapshot FIXED geometry but {sorted(geo)} are trainable; train "
-                "materials only, train geometry with make_fast_geometry_train_step("
-                "refresher=FrontRefresher(...)), or pass bvh=None and front=None (the brute "
-                "recording forward)")
+        refuse_trainable_geometry(trainable)
     mask = trainable_mask(trainable)
     device = resolve_device(device)
     scene = scene.to(device)

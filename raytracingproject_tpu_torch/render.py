@@ -46,6 +46,14 @@ SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
 
 
+@lru_cache(maxsize=None)
+def _sky_ends(dtype: torch.dtype, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sky gradient's two ends on `device`, made once: a tensor made
+    from host values every call is a synchronous copy to the card."""
+    return (torch.tensor(SKY_WHITE, dtype=dtype, device=device),
+            torch.tensor(SKY_BLUE, dtype=dtype, device=device))
+
+
 def sky_color(direction: torch.Tensor, sky_tex: torch.Tensor | None = None) -> torch.Tensor:
     """Background radiance of a miss ray. Default: the reference's
     gradient (src/camera_cpu.h:23-25), lerp(white, (0.5, 0.7, 1.0)) by
@@ -57,8 +65,7 @@ def sky_color(direction: torch.Tensor, sky_tex: torch.Tensor | None = None) -> t
     unit = normalize(direction, eps=1e-12)
     if sky_tex is None:
         a = 0.5 * (unit[..., 1] + 1.0)
-        white = torch.tensor(SKY_WHITE, dtype=direction.dtype, device=direction.device)
-        blue = torch.tensor(SKY_BLUE, dtype=direction.dtype, device=direction.device)
+        white, blue = _sky_ends(direction.dtype, direction.device)
         return (1.0 - a)[..., None] * white + a[..., None] * blue
 
     sky_tex = sky_tex.to(direction.device)

@@ -210,6 +210,14 @@ def make_three_sphere_scene(dtype=torch.float32, device="cpu") -> Scene:
     return b.build(dtype, device)
 
 
+def make_ground_scene(dtype=torch.float32, device="cpu") -> Scene:
+    """The reference unit test's world: only the r=1000 ground sphere
+    (tests/tests.cpp:26-29)."""
+    b = SceneBuilder()
+    b.add_lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
+    return b.build(dtype, device)
+
+
 def make_minimal_scene(dtype=torch.float32, device="cpu") -> Scene:
     """One lambertian sphere + ground."""
     b = SceneBuilder()

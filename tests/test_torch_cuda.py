@@ -1052,3 +1052,66 @@ def test_front_kernels_on_the_largest_front(cuda_device, kind):
     torch.cuda.synchronize()
     assert mk.LAUNCHES[kind] == before + 1
     assert _all_equal(got, want)
+
+
+def test_wavefront_on_the_card_runs_k4_and_is_reproducible(cuda_device):
+    """The wavefront's closest hit on the card is K4, once an iteration,
+    and two runs from one seed give the same image bit for bit (the
+    per-pixel sums in slot order, no atomics)."""
+    from raytracingproject_tpu_torch.ops.cuda import trace
+    from raytracingproject_tpu_torch.wavefront import render_wavefront_image
+
+    cam = Camera(**dict(COVER, image_width=64, samples_per_pixel=4))
+    settings = RenderSettings(device=cuda_device)
+    before = trace.LAUNCHES["closest_hit"]
+    stats = {}
+    a = render_wavefront_image(make_cover_scene(0), cam,
+                               torch.Generator(device=cuda_device).manual_seed(3), settings,
+                               stats=stats)
+    assert trace.LAUNCHES["closest_hit"] - before == stats["iterations"] > 0
+    b = render_wavefront_image(make_cover_scene(0), cam,
+                               torch.Generator(device=cuda_device).manual_seed(3), settings)
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def test_sharded_paths_on_one_card(cuda_device):
+    """A 1x1 NCCL mesh (make_mesh() starts a world of one): render_sharded
+    with the megakernel is `_render_flat` of the whole image bit for bit,
+    and the sharded fast step equals make_fast_train_step on the shard's
+    derived generator (loss within 1e-5 relative, gradients within 1e-5
+    of the largest)."""
+    import torch.distributed as dist
+
+    from raytracingproject_tpu_torch.grad import make_fast_train_step
+    from raytracingproject_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from raytracingproject_tpu_torch.parallel.shard import (
+        _pixel_grid, _render_flat, draw_base, render_sharded, shard_generator,
+    )
+
+    mesh = make_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+        cam = Camera(**dict(COVER, image_width=64, samples_per_pixel=2))
+        scene = make_cover_scene(0)
+        gen = lambda: torch.Generator(device=cuda_device).manual_seed(5)  # noqa: E731
+        before = mk.LAUNCHES["brute_chunked"]
+        img = render_sharded(scene, cam, gen(), mesh, use_megakernel=True)
+        assert mk.LAUNCHES["brute_chunked"] == before + 2
+        w, h = cam.image_size()
+        i, j = _pixel_grid(w, h, 1)
+        want = _render_flat(scene.to(cuda_device), cam.derive(torch.float32, cuda_device),
+                            i.to(cuda_device), j.to(cuda_device),
+                            shard_generator(draw_base(gen()), 0, 0, cuda_device),
+                            max_depth=cam.max_depth, spp_local=2, use_megakernel=True)
+        assert torch.equal(img, want.reshape(h, w, 3) / 2)
+        target = torch.full((h, w, 3), 0.3, device=cuda_device)
+        sp, so, sstep = make_sharded_train_step(scene, cam, mesh, spp=2, use_megakernel=True)
+        up, uo, ustep = make_fast_train_step(scene, cam, spp=2)
+        _, _, sloss, sg = sstep(sp, so, gen(), target)
+        _, _, uloss, ug = ustep(up, uo, shard_generator(draw_base(gen()), 0, 0, cuda_device),
+                                target)
+        assert abs(float(sloss) - float(uloss)) <= 1e-5 * float(uloss)
+        scale = max(float(g.abs().max()) for g in ug)
+        assert max(float((a - b).abs().max()) for a, b in zip(sg, ug)) <= 1e-5 * scale
+    finally:
+        dist.destroy_process_group()

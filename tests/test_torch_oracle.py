@@ -20,7 +20,7 @@ from raytracingproject_tpu_torch import bvh as pbvh, camera as pcamera, scene as
 from raytracingproject_tpu_torch.config import RenderSettings
 from raytracingproject_tpu_torch.ops.intersect import closest_hit
 from raytracingproject_tpu_torch.render import ray_color, render, render_pass, sky_color
-from oracle import render_np
+from oracle import render_np, scene_to_numpy, trace_np
 from test_torch_materials import jax_scatter_draws
 from test_torch_megakernel import COVER_CAM, THREE_CAM, _port_scene, _rays
 
@@ -105,6 +105,29 @@ def test_oracle_render_matches_numpy_oracle(name, spp, depth, mean_tol, q99_tol)
     diff = np.abs(img - ref)
     print(name, diff.mean(), np.quantile(diff, 0.99))
     assert diff.mean() < mean_tol and np.quantile(diff, 0.99) < q99_tol
+
+
+def test_golden_pixel_ground_scene():
+    """tests/test_render.py's golden-pixel expectation on the port: the
+    centre pixel of the ground-sphere world (`make_ground_scene`, the
+    reference unit test's) under the cover camera, 4,096 samples at depth
+    50 through `ray_color`, against the float64 oracle's expectation on
+    the same rays (atol 0.02), and within 0.12 of the reference's
+    single-sample golden (0.253, 0.3518, 0.5)."""
+    scene = pscene.make_ground_scene()
+    cam = pcamera.Camera(aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=30,
+                         max_depth=50, vfov=20.0, lookfrom=(13.0, 2.0, 3.0),
+                         lookat=(0.0, 0.0, 0.0), defocus_angle=0.6, focus_dist=10.0)
+    n = 4096
+    gen = torch.Generator().manual_seed(42)
+    i = torch.full((n,), 200, dtype=torch.int32)
+    j = torch.full((n,), 112, dtype=torch.int32)
+    origin, direction, time = pcamera.generate_rays(cam.derive(), i, j, gen)
+    mean = ray_color(scene, origin, direction, time, gen, max_depth=50).numpy().mean(axis=0)
+    ref = trace_np(scene_to_numpy(scene), origin.double().numpy(), direction.double().numpy(),
+                   time.double().numpy(), np.random.default_rng(99), 50).mean(axis=0)
+    np.testing.assert_allclose(mean, ref, atol=0.02)
+    assert np.all(np.abs(mean - np.array([0.253, 0.3518, 0.5])) < 0.12), mean
 
 
 def test_render_pass_oracle_branch_layout_and_determinism():

@@ -40,6 +40,7 @@ def _assert_scene_equal(js, ps):
     ("make_cover_scene_reference", {"arg_order": "lr"}),
     ("make_three_sphere_scene", {}),
     ("make_minimal_scene", {}),
+    ("make_ground_scene", {}),
     ("make_random_scene", {"n": 150, "seed": 3}),
 ])
 def test_scene_makers_equal(name, args):
