@@ -70,7 +70,9 @@ through its kernels:
 
 - the probes, right after the build: each probe kernel of csrc/probes.cu
   (tools/'s FMA peak, mixed closest-hit peak, kfront and kexp) bit-equal
-  to its plain version, then their own main path, what
+  to its plain version, the nine closest-hit probes' registers and blocks
+  per SM, the SASS instructions a pair of the mixed peak and of kfront's
+  two probes, then their own main path, what
   `python -m raytracingproject_tpu_torch.probes.roofline` (and `.kfront`,
   `.kexp`, on the cover scene and on make_random_scene(2000, seed=3))
   runs: the card's FFMA rate and mixed sphere-test peak, which every
@@ -126,11 +128,10 @@ rays, the latter also at the bench shape alone) and the train steps, and
 works out each kernel's bound from the tests this run's rays need (counted
 in the plain versions), the FFMA rate it measured (one counted operation
 is one instruction under -fmad=false) and the data sheet's memory rate,
-and for the probes' full closest hits their mixed share (sphere tests a
-second over the measured mixed peak; K4 and every megakernel take roots
-only where a discriminant is positive, so they have none). Any failed
-check raises and the script exits
-non-zero. Without a CUDA device it exits 1 and prints no result.
+and each closest hit's mixed share (sphere tests a second over the
+measured mixed peak; every kernel, the mixed peak included, takes roots
+only where a discriminant is positive). Any failed check raises and the
+script exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
 The second-to-last line of stdout is a JSON object with one entry per
 kernel; the last is {"ok": true, "device": {...}}.
@@ -202,15 +203,6 @@ CHUNKED_KINDS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1), (1, 0, 1
 # each without and with K3's options
 FRONT_KINDS = tuple((rec, miss, seg, opt) for opt in (0, 2) for seg in (0, 1)
                     for rec, miss in ((0, 0), (0, 1), (1, 0)))
-
-
-def roots_only(name: str) -> bool:
-    """Does this kernel's closest hit compute roots only where a
-    discriminant is positive? Then the mixed peak, which measures full
-    tests, is not the same work, and it gets no mixed share: K4 and every
-    megakernel (the brute scan, K3, K5, K6, K7, K8) since K3's redesign;
-    the probes keep the full tests they measure."""
-    return name == "closest_hit" or name.startswith("megakernel_")
 
 
 def launch_key(label: str) -> str:
@@ -464,29 +456,46 @@ def megakernel_bound(counts: dict, n_rays: int, depth: int, tab_bytes: int,
     return bound(ops, nbytes)
 
 
-def sass_instructions_per_pair(library: Path) -> float | None:
-    """Instructions of K4's sphere loop per ray-sphere pair, read from
-    `cuobjdump -sass`: the shortest backward-branch loop that holds the
+def sass_instructions_per_pair(library: Path, function: str = "") -> dict | None:
+    """Instructions of a sphere loop per ray-sphere pair, read from
+    `cuobjdump -sass` of `library` (of the functions whose mangled name
+    holds `function`): the shortest backward-branch loop that holds the
     square root's MUFU.RSQ, over the number of them in it (the compiler
-    may unroll). None where cuobjdump is missing or the loop is not found;
-    the figure is printed beside the bound and used nowhere."""
+    may unroll): {"static": its whole body a pair, "no_roots": the body
+    less what the forward branches around a MUFU.RSQ skip, the path of a
+    pair whose discriminant is not positive}. None where cuobjdump is
+    missing or the loop is not found; the figures are printed beside the
+    bound and used nowhere."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).is_file():
         return None
-    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True)
-    code = [(int(m.group(1), 16), m.group(2)) for m in
-            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", out.stdout)]
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True).stdout
     best = None
-    for k, (addr, text) in enumerate(code):
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
-        if m is None or int(m.group(1), 16) >= addr:
+    for func in out.split("Function : ")[1:]:
+        if function not in func.split("\n", 1)[0]:
             continue
-        body = [t for a, t in code[:k + 1] if a >= int(m.group(1), 16)]
-        roots = sum("MUFU.RSQ" in t for t in body)
-        if roots and (best is None or len(body) / roots < best):
-            best = len(body) / roots
+        code = [(int(m.group(1), 16), m.group(2)) for m in
+                re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", func)]
+        for k, (addr, text) in enumerate(code):
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if m is None or int(m.group(1), 16) >= addr:
+                continue
+            top = int(m.group(1), 16)
+            body = [(a, t) for a, t in code[:k + 1] if a >= top]
+            roots = sum("MUFU.RSQ" in t for _, t in body)
+            if not roots or (best is not None and len(body) / roots >= best["static"]):
+                continue
+            skipped = set()
+            for a, t in body:  # forward branches within the body over a square root
+                f = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+                if f is None or not a < int(f.group(1), 16) <= addr:
+                    continue
+                span = {x for x, _ in body if a < x < int(f.group(1), 16)}
+                if any("MUFU.RSQ" in u for x, u in body if x in span):
+                    skipped.update(span)
+            best = {"static": len(body) / roots, "no_roots": (len(body) - len(skipped)) / roots}
     return best
 
 
@@ -612,8 +621,9 @@ def closest_hit_against_twin(trace, card: str) -> tuple[float, float, float, tup
     if per_pair is None:
         print("closest_hit SASS: instructions per pair not measured")
     else:
-        print(f"closest_hit SASS: {per_pair:.1f} static instructions per pair in the sphere loop "
-              "(the roots' branch included, which most warps skip)")
+        print(f"closest_hit SASS: {per_pair['static']:.1f} static instructions per pair in the "
+              f"sphere loop (the roots' branch included, which most warps skip), "
+              f"{per_pair['no_roots']:.1f} on the path that skips the roots")
     return err, ms, plain_ms, (b_ms, b_by), pairs
 
 
@@ -2601,14 +2611,43 @@ def ffma_loop(library: Path) -> tuple[int, int] | None:
     return best
 
 
-def probe_kernels(card: str) -> list[dict]:
+def probe_occupancy(all_regs: dict, fronts: dict) -> None:
+    """The nine closest-hit probe instantiations' registers, spill stores
+    and stack frame (`-Xptxas -v`, `all_regs`) and blocks per SM as their
+    launches get them (`probes.blocks_per_sm`): a probe_hit_kernel's shared
+    memory does not depend on the table, the front probe's on its front
+    (`fronts`: label -> (n_cols, n_front), the cover scene's and 2,000
+    spheres' at each F)."""
+    from raytracingproject_tpu_torch import probes
+    from raytracingproject_tpu_torch.ops.cuda import build
+
+    outs = ("OUT_T", "OUT_KEXP", "OUT_SUM")
+    for key, (v, u, o) in probes.HIT_ARGS.items():
+        r = build.named(all_regs, f"probe_hit_kernelILi{v}ELi{u}ELi{o}E")
+        print(f"  probe_hit_kernel<{('WIDE', 'SLIM')[v]}, {u}, {outs[o]}> ({key}): {r[0]} "
+              f"registers, {r[1]} B spill stores, {r[2]} B stack frame, "
+              f"{probes.blocks_per_sm(key)} blocks of {probes.PTPB} threads per SM (on the cover "
+              "scene and 2,000 spheres alike)")
+    r = build.named(all_regs, "probe_front_kernelILi8E")
+    per = []
+    for label, (n_cols, n_front) in fronts.items():
+        per.append(f"{label} ({n_cols} columns) "
+                   f"{probes.blocks_per_sm('kfront_front', n_cols, n_front)}")
+    print(f"  probe_front_kernel<8> (kfront_front): {r[0]} registers, {r[1]} B spill stores, "
+          f"{r[2]} B stack frame; blocks of {probes.PTPB} threads per SM: {', '.join(per)}")
+
+
+def probe_kernels(card: str, all_regs: dict) -> list[dict]:
     """Phase 1b, the probes (csrc/probes.cu): each probe kernel against its
-    plain version at the shapes its measurement gives it (bit-equal), then
-    the probes' main path as `python -m raytracingproject_tpu_torch.probes.*`
-    drives it: the FFMA rate and the mixed peak (`roofline.measure`), kfront
-    and kexp on the cover scene and on make_random_scene(2000, seed=3) at
-    the 400x225 primary rays, with the probes' launches counted. Sets RATE
-    (every later bound reads it) and returns the probes' `kernels` entries."""
+    plain version at the shapes its measurement gives it (bit-equal), the
+    closest-hit probes' registers and blocks per SM (`probe_occupancy`) and
+    the SASS instructions a pair of the mixed peak, kfront's brute and
+    front probes, then the probes' main path
+    as `python -m raytracingproject_tpu_torch.probes.*` drives it: the FFMA
+    rate and the mixed peak (`roofline.measure`), kfront and kexp on the
+    cover scene and on make_random_scene(2000, seed=3) at the 400x225
+    primary rays, with the probes' launches counted. Sets RATE (every later
+    bound reads it) and returns the probes' `kernels` entries."""
     import torch
 
     from raytracingproject_tpu_torch import probes
@@ -2646,6 +2685,7 @@ def probe_kernels(card: str) -> list[dict]:
          lambda: roofline.mixed_hits_plain(tab, ox), f"{n} rays, {tab.shape[1]} spheres")
     scenes = {"cover": kfront.probe_scene(None), "2000": kfront.probe_scene(2000)}
     rays = kfront.primary_rays(dev)
+    fronts = {}
     for name, sc in scenes.items():
         sph = mk.scene_table(sc).to(dev)
         for v in kexp.VARIANTS:
@@ -2656,8 +2696,18 @@ def probe_kernels(card: str) -> list[dict]:
              lambda: kfront.run_brute_plain(rays, sphb), name)  # noqa: B023
         for f in kfront.FRONTS:
             tabs = [t_.to(dev) for t_ in kfront.pack_front_tables(sc, max_nodes=f)]
+            fronts[f"{name} F={f}"] = (tabs[0].shape[1], tabs[1].shape[1])
             hold("kfront_front", lambda: kfront.run_front(rays, *tabs),  # noqa: B023
                  lambda: kfront.run_front_plain(rays, *tabs), f"{name}, F={f}")  # noqa: B023
+    probe_occupancy(all_regs, fronts)
+    for key, fn in (*((k, "probe_hit_kernelILi{}ELi{}ELi{}E".format(*probes.HIT_ARGS[k]))
+                      for k in ("mixed", "kfront_brute")),
+                    ("kfront_front", "probe_front_kernelILi8E")):
+        per_pair = sass_instructions_per_pair(build.library("probes"), fn)
+        print(f"{key} probe SASS: " + ("instructions per pair not measured" if per_pair is None
+                                       else f"{per_pair['static']:.1f} static instructions per "
+                                       f"pair in the sphere loop, {per_pair['no_roots']:.1f} on "
+                                       "the path that skips the roots"))
 
     # ---- the probes' main path ----
     probes.reset_launches()
@@ -2673,10 +2723,11 @@ def probe_kernels(card: str) -> list[dict]:
     print(f"measured peaks on {card}: {peaks['ffma_per_s']:.5g} FFMA instructions/s "
           f"= {peaks['fp32_flops_per_s'] / 1e12:.4g} TFLOP/s float32 (data sheet "
           f"{PEAK_FP32 / 1e12:.4g} TFLOP/s); mixed {peaks['mixed_pairs_per_s']:.5g} sphere tests/s"
-          f" ({peaks['mixed_ops_over_ffma']:.3f} of the FFMA rate at {roofline.OPS_PER_PAIR} "
-          "operations a full "
-          "test); bounds below use the larger of the measured FFMA rate and the data sheet's "
-          f"{PEAK_FP32 / 2:.4g}")
+          f" ({peaks['mixed_ops_over_ffma']:.3f} of the FFMA rate at the operations its bound "
+          f"charges: {roofline.OPS_PAIR_DISC} a pair and {roofline.OPS_PAIR_ROOTS} more for each "
+          f"of a pass's {peaks['mixed_roots']:.0f} of "
+          f"{peaks['mixed_rays'] * peaks['mixed_spheres']} with a positive discriminant); bounds below use the larger of the measured FFMA rate "
+          f"and the data sheet's {PEAK_FP32 / 2:.4g}")
     for name, r in kf.items():
         print(f"kfront on {name} ({r['spheres']} spheres, {r['rays']} primary rays): brute "
               f"{r['brute_ms']:.4f} ms = {r['rays'] / r['brute_ms'] / 1e3:.2f} Mrays/s; "
@@ -2704,8 +2755,7 @@ def probe_kernels(card: str) -> list[dict]:
 
     entry("fma", peaks["fma_ms"], None,
           bound(n * roofline.FMAS_PER_ELEMENT, 8 * n))
-    n_pad = peaks["mixed_spheres"]
-    mixed_roots = roofline.positive_discriminants(tab, roofline.mixed_rays(ox)[:7])
+    n_pad, mixed_roots = peaks["mixed_spheres"], peaks["mixed_roots"]
     entry("mixed", peaks["mixed_ms"], n * n_pad,
           bound(roofline.test_ops(n * n_pad, mixed_roots), 8 * n + 4 * tab.numel()))
     # kfront and kexp from the 2,000-sphere scene: tens of waves of work,
@@ -2720,7 +2770,7 @@ def probe_kernels(card: str) -> list[dict]:
                 32 * r + 64 * f24["columns"]))
     for v in kexp.VARIANTS:
         entry(f"kexp_{v}", kx["2000"][v]["ms"], r * n_sph, bound(brute_ops, 32 * r + 64 * n_sph))
-    print(f"pairs with a positive discriminant: mixed probe {mixed_roots} of {n * n_pad}; "
+    print(f"pairs with a positive discriminant: mixed probe {mixed_roots:.0f} of {n * n_pad}; "
           f"primary rays on 2,000 spheres {big['brute_roots']} of {r * n_sph}, of the F=24 "
           f"front's live columns {f24['roots']} of {f24['pairs']}")
     return entries
@@ -3758,7 +3808,7 @@ def main() -> int:
           f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads (one ray each) per SM")
 
     # ---- 1b. the probes: the card's measured peaks, which every bound below reads ----
-    probe_entries = probe_kernels(card)
+    probe_entries = probe_kernels(card, all_regs)
 
     # ---- 2. the generator: kernel against ops/rng.py, bit for bit ----
     ray = torch.arange(N_CMP, dtype=torch.int64, device=dev)
@@ -3983,14 +4033,12 @@ def main() -> int:
           f"{RATE['ops']:.5g} FFMA instructions/s and the data sheet's {PEAK_FP32 / 2:.4g} (its "
           f"{PEAK_FP32:.3g} operations/s count an FMA as two); mixed share: the closest hit's "
           f"sphere tests a second over the measured mixed peak, {RATE['pairs']:.5g}/s (the "
-          f"mixed probe defines it, so it has none; it measures full tests, so the kernels that "
-          f"take roots only where a discriminant is positive have none either: "
-          f"{', '.join(k['name'] for k in kernels if roots_only(k['name']))}); on {card}")
+          f"mixed probe defines it, so it has none; like every kernel here it takes roots only "
+          f"where a discriminant is positive); on {card}")
     for k in kernels:
         pairs = k.pop("pairs", None)
         mixed = (f", mixed share {pairs / k['ms'] * 1e3 / RATE['pairs']:.4f}"
-                 if pairs and k["name"] != "probe_mixed" and not roots_only(k["name"])
-                 else ", mixed share —" if roots_only(k["name"]) else "")
+                 if pairs and k["name"] != "probe_mixed" else "")
         print(f"  {k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']}, share {k['bound_ms'] / k['ms']:.4f}{mixed}; launches "
               f"{k['launches']}")

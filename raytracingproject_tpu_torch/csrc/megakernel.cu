@@ -25,7 +25,7 @@
 //   48 KB the entry point raises the kernel's dynamic shared-memory limit
 //   (up to the card's 227 KB: about 3,000 spheres).
 // - Culling is per ray, not per warp: ORing each box's slab bits over the
-//   warp (`live_bits`, the TPU's tile-wide `any` of _pack_any_bits) would
+//   warp (a vote, the TPU's tile-wide `any` of _pack_any_bits) would
 //   make every lane test every column of every subtree some lane enters,
 //   which after a scatter is several times each ray's own columns.
 // - Each bounce the warp ballots its L live lanes and gives each live ray a
@@ -41,12 +41,13 @@
 //   chunks' subtree boxes on the ray's own masks, dealt over its lanes,
 //   each chunk clamped by the group's best t so far; the columns of the
 //   chunk's live subtrees in ascending order, dealt over the lanes, with
-//   sphere_test's arithmetic but the square root and roots only where the
-//   discriminant is positive, each lane carrying (t, column) with a strict
-//   `<`; then (t, column) reduced lexicographically with shuffles. Per-ray
-//   culling with that reduction is exactly the plain version's function
-//   (each ray's columns masked by its own slab tests, the first minimum in
-//   column order), ties included (tests/test_torch_front_warp_groups.py).
+//   sphere_test_roots (the reference quadratic, the square root and roots
+//   only where the discriminant is positive), each lane carrying (t,
+//   column) with a strict `<`; then (t, column) reduced lexicographically
+//   with shuffles. Per-ray culling with that reduction is exactly the
+//   plain version's function (each ray's columns masked by its own slab
+//   tests, the first minimum in column order), ties included
+//   (tests/test_torch_front_warp_groups.py).
 // - The owner lane takes its group's winner with one full-warp shuffle and
 //   reads the winner's row once from the staged table.
 // - The bounce loop runs while any lane of the warp is alive
@@ -104,9 +105,9 @@
 //     empty (`__syncthreads_count`);
 //   * each live ray gets G = the largest power of two <= 256 / L of the
 //     block's threads (L live rays): lane g of its group tests columns
-//     g, g + G, ... of every chunk in ascending order with sphere_test's
-//     arithmetic and strict `<`, the square root and roots only where the
-//     discriminant is positive (0.3% of pairs), carrying (t, column)
+//     g, g + G, ... of every chunk in ascending order with
+//     sphere_test_roots and strict `<`, the square root and roots only where
+//     the discriminant is positive (0.3% of pairs), carrying (t, column)
 //     alone; neighbouring lanes read neighbouring columns (no bank
 //     conflicts), and a ray's tests are spread over G threads, not 1;
 //   * the groups reduce (t, column) lexicographically, least t and on
@@ -116,7 +117,7 @@
 //     result equals the whole-table scan and the plain version's first
 //     minimum bit for bit, ties included;
 //   * the ray's own thread reads its winner's row from global memory
-//     (the moving centre recomputed as sphere_test computes it) and shades
+//     (the moving centre recomputed as sphere_test_roots computes it) and shades
 //     as every other mode does;
 //   * only the 7 rows the test reads (centre, velocity, radius) are staged,
 //     1,024 columns a chunk, into two buffers: cp.async fills chunk k+1
@@ -244,8 +245,8 @@
 //     masks, not the warp's union; between a word's `repack` chunks the
 //     group's best t re-slabs the next chunk's boxes;
 //   * the group scans the live subtrees' columns of each chunk in ascending
-//     order, dealt over its lanes, with sphere_test's arithmetic but the
-//     roots only where the discriminant is positive, carrying (t, column),
+//     order, dealt over its lanes, with sphere_test_roots (the roots only
+//     where the discriminant is positive), carrying (t, column),
 //     and reduces (t, column) lexicographically with shuffles: per-ray
 //     culling with that reduction is exactly the plain version's function
 //     (each ray's columns masked by its own slab tests, the first minimum
@@ -275,8 +276,9 @@
 //   reflectance with the exponent 3 instead of 5, for the
 //   per-material-region test to catch. The brute scan (CHUNKED) only.
 //
-// The closest hit's carry, sphere_test and the slab test with its warp vote
-// live in common.cuh, shared with the probe kernels (probes.cu).
+// The closest hit's carries, the ray and the slab test live in common.cuh,
+// shared with the probe kernels (probes.cu); the sphere test,
+// sphere_test_roots, and its global-memory kinds are below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -425,7 +427,7 @@ struct FrontSmem {
 };
 
 // ---- CHUNKED: the brute scan, its table staged in chunks ----
-constexpr int SCAN_ROWS = ROW_RAD + 1;  // rows sphere_test reads: centre, velocity, radius
+constexpr int SCAN_ROWS = ROW_RAD + 1;  // rows the sphere test reads: centre, velocity, radius
 constexpr int RAY_WORDS = 9;            // a live ray in the list: o, d, tm, a, inv_a
 
 // CHUNKED's shared memory: two chunk buffers of the scanned rows
@@ -500,7 +502,7 @@ __device__ __forceinline__ void take_less(ColumnHit& b, float ot, int oc) {
 // The roots of a sphere test whose discriminant is positive, into a
 // ColumnHit carry (column `col`): the square root, both roots, the interval
 // tests and the update, which a pair with disc <= 0 never reaches, so a
-// test that skips them where disc <= 0 keeps sphere_test's result.
+// test that skips them where disc <= 0 keeps a full test's result.
 __device__ __forceinline__ void roots_update(float half_b, float disc, const Ray& r, float t_min,
                                              int col, ColumnHit& h) {
   const float sq = sqrtf(disc);
@@ -514,7 +516,10 @@ __device__ __forceinline__ void roots_update(float half_b, float disc, const Ray
   }
 }
 
-// sphere_test's arithmetic with a ColumnHit carry (column idx0 + s), the
+// The sphere test of the megakernels: the reference quadratic
+// (_sphere_test_ld: src/sphere.h:30-57, exact, open interval (t_min, best
+// t), the moving centre lerped to the ray's time) for column s of a
+// row-major [16, n] table, with a ColumnHit carry (column idx0 + s), the
 // roots only where the discriminant is positive (roots_update).
 __device__ __forceinline__ void sphere_test_roots(const float* __restrict__ S, int n, int s,
                                                   const Ray& r, float t_min, ColumnHit& h,
@@ -590,7 +595,7 @@ __device__ __forceinline__ void closest_hit_chunked(const ChunkSmem& C, const Pa
     ColumnHit win{C.win_t[live.slot * parts], C.win_c[live.slot * parts]};
     for (int u = 1; u < parts; ++u)
       take_less(win, C.win_t[live.slot * parts + u], C.win_c[live.slot * parts + u]);
-    if (win.bt < __int_as_float(0x7f800000)) {  // sphere_test's winner fields
+    if (win.bt < __int_as_float(0x7f800000)) {  // the winner's fields
       const float* S = p.sph;
       const int n = p.n_cols, s = win.col;
       h.bt = win.bt;
@@ -648,7 +653,7 @@ __device__ __forceinline__ float group_min(float t, const Group& q) {
 
 // "The group's ray enters box base + k" bits for k < cnt (cnt <= 32), the
 // boxes dealt over the lanes (lane g tests k = g, g + G, ...): the ray's own
-// mask, where live_bits gives the warp's union.
+// mask, where a warp vote gives the warp's union.
 __device__ __forceinline__ unsigned group_bits(const float* B, int n, int base, int cnt,
                                                const Ray& r, const InvDir& inv, float t_min,
                                                float far, const Group& q) {
@@ -808,7 +813,7 @@ __device__ __forceinline__ ColumnHit grouped_closest_hit(const FrontSmem& T, con
   return win;
 }
 
-// sphere_test's winner fields from the staged front table, read once after
+// The winner's fields from the staged front table, read once after
 // the scan by the ray's own thread: the centre moved to the ray's time as
 // the test computes it, the material as stored. Nothing for a miss (t = inf).
 template <bool RECORD>
@@ -912,7 +917,7 @@ __device__ __forceinline__ void closest_hit_front_warp(const FrontSmem& T, const
 
 // ---- K7: the same groups over the global-memory front ----
 
-// sphere_test's quadratic for sphere s of the sphere-major table in global
+// sphere_test_roots' quadratic for sphere s of the sphere-major table in global
 // memory ([n, 16] floats, one 64-byte record a sphere), from the record's
 // test half (centre, velocity, radius: its first 32 bytes): its
 // discriminant, and half_b.

@@ -94,6 +94,8 @@ LIBRARIES = {
         "rtp_probe_hit": ([_I, _I, _I, _P, _I, *[_P] * 7, _P, _I, _P], _I),
         # sph, n_cols, ff, fi, n_front, 7 ray planes, out, n_rays, stream
         "rtp_probe_front": ([_P, _I, _P, _P, _I, *[_P] * 7, _P, _I, _P], _I),
+        # variant, unroll, out, n_cols, n_front -> blocks per SM
+        "rtp_probe_blocks_per_sm": ([_I, _I, _I, _I, _I, _P], _I),
     },
 }
 
@@ -172,7 +174,7 @@ def kernel_registers(log: str) -> dict:
     return out
 
 
-def named(regs: dict, name: str) -> tuple[int, int]:
+def named(regs: dict, name: str) -> tuple[int, int, int]:
     """The entry of `kernel_registers` whose mangled name holds `name`."""
     return next(v for k, v in regs.items() if isinstance(k, str) and name in k)
 

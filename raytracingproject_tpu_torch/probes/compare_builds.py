@@ -5,11 +5,12 @@ so that versions are compared under one card, one power limit and one
 host.
 
     python -m raytracingproject_tpu_torch.probes.compare_builds [--frames] [--scans] [--bvh] \
-        [--front] NAME=DIR ...
+        [--front] [--probes] NAME=DIR ...
 
 Each DIR holds the CUDA sources of one version (closest_hit.cu,
-megakernel.cu and common.cuh, as raytracingproject_tpu_torch/csrc does;
-for the parent commit, unpack that directory of it with `git archive`).
+megakernel.cu, probes.cu and common.cuh, as raytracingproject_tpu_torch/csrc
+does; for the parent commit, unpack that directory of it with `git
+archive`).
 Each is built with the package's nvcc flags into a directory of its own
 (one nvcc a source, all started together) and bound with the package's
 ctypes signatures; the wrappers then launch whichever version is loaded.
@@ -63,9 +64,18 @@ Every version is checked bit-equal to the plain versions, then timed:
   the cover bench shape, K7 and K8 on the 50,000-sphere pass; each
   version's result bit-equal to the first version's and, where the plain
   version is given, to it. A case a version fails to launch ends the
-  comparison. A version whose library still has
-  the whole-table brute entry points (`rtp_trace_brute`, ...) runs them
-  where the table fits shared memory, as its own wrapper did.
+  comparison;
+- with --probes, the probe kernels of probes.cu (`probe_cases`): the
+  mixed peak on its full-wave synthetic rays; kfront's brute probe and
+  its front probe at F = 24 and 48, and kexp's six variants, on the
+  cover camera's primary rays over the cover scene and
+  `make_random_scene(2000, seed=3)`; each bit-equal to its plain version
+  and to the first version's result, timed by the profiler's device
+  time (`device_ms`). --probes alone builds probes.cu alone and leaves
+  out K4 and the front segments.
+A version whose library still has the whole-table brute entry points
+(`rtp_trace_brute`, ...) runs them where the table fits shared memory, as
+its own wrapper did.
 
 Prints the card, each version's registers (nvcc -Xptxas -v), one line per
 version and turn, and a last JSON line with every time. Needs a card.
@@ -87,6 +97,7 @@ import torch
 from raytracingproject_tpu_torch.ops.cuda import build
 
 SOURCES = ("closest_hit", "megakernel")
+PROBE_SOURCE = "probes"
 KINDS = ("plain", "miss", "record")
 # The whole-table brute scan's entry points of the sources before every
 # brute scan took the chunked kernel, and the chunked entry each stands for
@@ -183,13 +194,14 @@ class OwnRoute:
         return call
 
 
-def build_version(name: str, src: Path) -> list[tuple[str, Path, subprocess.Popen]]:
-    """Start nvcc on each of SOURCES in `src`, into build/versions/<name>/."""
+def build_version(name: str, src: Path,
+                  sources=SOURCES) -> list[tuple[str, Path, subprocess.Popen]]:
+    """Start nvcc on each of `sources` in `src`, into build/versions/<name>/."""
     out = build.BUILD_DIR / "versions" / name
     out.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
     jobs = []
-    for s in SOURCES:
+    for s in sources:
         lib = out / f"lib{s}.so"
         proc = subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-o", str(lib), str(src / f"{s}.cu")],
                                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
@@ -217,6 +229,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of the kernels fn() launches, summed by the
+    profiler (CUPTI): the probes on the cover scene run for less than their
+    wrappers' host time, so events around a run of calls would time the
+    host's pace, with the card idle between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages())
+    return us / reps / 1e3
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -385,6 +414,39 @@ def front_cases(dev) -> dict:
     return cases
 
 
+def probe_cases(dev) -> dict:
+    """--probes: case name -> (the probe call, its plain version), over the
+    eight probe_hit_kernel instantiations and probe_front_kernel (see the
+    module docstring); the rays are padded to whole blocks here, outside
+    the timed calls, as the probes' measurements pad theirs."""
+    from raytracingproject_tpu_torch import probes
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
+    from raytracingproject_tpu_torch.probes import kexp, kfront, roofline
+
+    tab = roofline.mixed_table(488).to(dev)
+    ox = torch.linspace(10.0, 14.0, roofline.full_waves(dev), device=dev)
+    cases = {"mixed peak": (lambda: roofline.mixed_hits(tab, ox),
+                            lambda: roofline.mixed_hits_plain(tab, ox))}
+    rays = probes.padded(kfront.primary_rays(dev))
+    for name in (None, 2000):
+        sc = kfront.probe_scene(name)
+        tag = "cover" if name is None else f"{name:,} spheres"
+        sphb = mk.scene_table(reorder_scene(sc, build_bvh(sc, leaf_size=8))).to(dev)
+        cases[f"kfront brute {tag}"] = (lambda sphb=sphb: kfront.run_brute(rays, sphb),
+                                        lambda sphb=sphb: kfront.run_brute_plain(rays, sphb))
+        for f in kfront.FRONTS:
+            tabs = [t.to(dev) for t in kfront.pack_front_tables(sc, max_nodes=f)]
+            cases[f"kfront front F={f} {tag}"] = (
+                lambda tabs=tabs: kfront.run_front(rays, *tabs),
+                lambda tabs=tabs: kfront.run_front_plain(rays, *tabs))
+        sph = mk.scene_table(sc).to(dev)
+        for v in kexp.VARIANTS:
+            cases[f"kexp {v} {tag}"] = (lambda sph=sph, v=v: kexp.run(rays, sph, v),
+                                        lambda sph=sph, v=v: kexp.run_plain(rays, sph, v))
+    return cases
+
+
 def bvh_cases(dev) -> dict:
     """--bvh: case name -> (the kernel call, None), over K8's three
     instantiations (see the module docstring); chip_smoke.py holds them
@@ -502,8 +564,11 @@ def main(argv=None) -> int:
     from raytracingproject_tpu_torch.scene import make_cover_scene
 
     argv = sys.argv[1:] if argv is None else argv
-    flags = ("--frames", "--scans", "--bvh", "--front")
-    frames, scans, bvh, k3 = (f in argv for f in flags)
+    flags = ("--frames", "--scans", "--bvh", "--front", "--probes")
+    frames, scans, bvh, k3, probe = (f in argv for f in flags)
+    probes_only = probe and not (frames or scans or bvh or k3)
+    sources = ((PROBE_SOURCE,) if probes_only
+               else SOURCES + ((PROBE_SOURCE,) if probe else ()))
     versions = dict(a.split("=", 1) for a in argv if a not in flags)
     if not versions or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -513,7 +578,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    jobs = {name: build_version(name, Path(src)) for name, src in versions.items()}
+    jobs = {name: build_version(name, Path(src), sources) for name, src in versions.items()}
     libs, regs = {}, {}
     for name, js in jobs.items():
         log = ""
@@ -523,11 +588,13 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"nvcc failed on {name}/{source}.cu:\n{err}")
             log += err
         libs[name] = {s: bind(p, s) for s, p, _ in js}
-        libs[name]["megakernel"] = OwnRoute(libs[name]["megakernel"])
         r = build.kernel_registers(log)
-        regs[name] = {"closest_hit_kernel": build.named(r, "closest_hit_kernel"),
-                      **{f"trace_kernel{list(k)}": v for k, v in r.items()
-                         if isinstance(k, tuple)}}
+        regs[name] = {k: v for k, v in r.items() if isinstance(k, str) and "probe_" in k}
+        if "megakernel" in libs[name]:
+            libs[name]["megakernel"] = OwnRoute(libs[name]["megakernel"])
+            regs[name].update({"closest_hit_kernel": build.named(r, "closest_hit_kernel"),
+                               **{f"trace_kernel{list(k)}": v for k, v in r.items()
+                                  if isinstance(k, tuple)}})
     print(f"built {len(versions)} versions in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, r in regs.items():
         print(f"{name}: (registers, spill store bytes) {r}", flush=True)
@@ -539,7 +606,7 @@ def main(argv=None) -> int:
     use(next(iter(versions)))
     scene, (o, d, t), (o2, d2) = cover_pass(dev)
     tab = trace.sphere_table(scene)
-    k4_sets = {"primary": (o, d, t), "after one scatter": (o2, d2, t)}
+    k4_sets = {} if probes_only else {"primary": (o, d, t), "after one scatter": (o2, d2, t)}
     k4_want = {k: trace.closest_hit_fused_twin(*r, tab) for k, r in k4_sets.items()}
 
     cover_cpu = make_cover_scene(0)
@@ -552,7 +619,7 @@ def main(argv=None) -> int:
     rays1 = _slot_rays(ref_cam.derive(torch.float32, dev), w, h, 1,
                        torch.Generator(device=dev).manual_seed(31), None)
     seg_in, seg_want = {}, {}
-    for kind in KINDS:
+    for kind in () if probes_only else KINDS:
         kw = dict(front=front, record_miss=kind == "miss", record=kind == "record")
         st, slot = dt.initial_state(*rays1, kind == "miss")
         first = mk.segment_twin(st, slot, fscene, 41, 0, 4, **kw)
@@ -574,15 +641,17 @@ def main(argv=None) -> int:
         for k, r in k4_sets.items():
             if not same(trace.closest_hit_fused(*r, tab), k4_want[k]):
                 raise RuntimeError(f"{name}: K4 differs from its plain version ({k})")
-        for kind in KINDS:
+        for kind in seg_in:
             for (st, slot, b0, n, kw), want in zip(seg_in[kind], seg_want[kind]):
                 if not same(mk.segment_call(st, slot, fscene, 41, b0, n, **kw), want):
                     raise RuntimeError(f"{name}: front segment {kind} [{b0}, {b0 + n}) "
                                        "differs from its plain version")
-    print("every version bit-equal to the plain versions (K4 on both ray sets, the three front "
-          "segments on both segments)", flush=True)
+    if not probes_only:
+        print("every version bit-equal to the plain versions (K4 on both ray sets, the three "
+              "front segments on both segments)", flush=True)
+    probe_work = probe_cases(dev) if probe else {}
     cases = {**(scan_cases(dev) if scans else {}), **(bvh_cases(dev) if bvh else {}),
-             **(front_cases(dev) if k3 else {})}
+             **(front_cases(dev) if k3 else {}), **probe_work}
     if cases:
         first = next(iter(versions))
         use(first)
@@ -633,12 +702,13 @@ def main(argv=None) -> int:
             r = {}
             for k, rays in k4_sets.items():
                 r[f"K4 {k}"] = cuda_ms(lambda: trace.closest_hit_fused(*rays, tab), 50)  # noqa: B023
-            for kind in KINDS:
+            for kind in seg_in:
                 for (st, slot, b0, n, kw) in seg_in[kind]:
                     r[f"segment {kind} [{b0}, {b0 + n})"] = cuda_ms(
                         lambda: mk.segment_call(st, slot, fscene, 41, b0, n, **kw), 20)  # noqa: B023
             for k, (fn, _) in cases.items():
-                r[k] = cuda_ms(fn, 5 if "50,000" in k else 30 if "cover pass" in k else 10)
+                r[k] = (device_ms(fn, 100) if k in probe_work else
+                        cuda_ms(fn, 5 if "50,000" in k else 30 if "cover pass" in k else 10))
             if frames:
                 for k, fn in frame_cases.items():
                     r[f"frame {k} (s)"] = wall_s(fn, 1 if k.startswith(("oracle", "K7", "K8"))

@@ -5,11 +5,17 @@ Intersection-only probes (no shading, no random numbers) on the cover
 camera's primary rays, one kernel template (csrc/probes.cu
 probe_hit_kernel) in six variants:
 
-  full      the megakernels' hit carry: 13 table loads and 11 values
-            carried a sphere (sphere_test), unrolled x1
+  full      the full hit carry (11 values: t, the winner's centre,
+            radius, material, albedo, fuzz, ior), updated in the loop from
+            a second pair of staged planes, unrolled x1
   full_u4   the same, unrolled x4; full_u8 x8
-  slim      best t and winner index alone: 7 loads, 2 values carried
+  slim      best t and winner index alone (the chunked brute scan's
+            carry), the test's two planes staged alone
   slim_u4   unrolled x4; slim_u8 x8
+
+Every variant reads a sphere's test fields as two 16-byte broadcasts from
+256-sphere chunks staged by cp.async, and takes the roots only where the
+discriminant is positive.
 
 Each writes where(bt < inf, bt, 0) + c * 1e-7, c being the second value
 of its carry: the winner's centre x (full) or its index (slim), 0 on a
@@ -65,7 +71,7 @@ def run(rays, sph: torch.Tensor, variant: str) -> torch.Tensor:
     """The kexp probe `variant` (VARIANTS) on `rays` (ox, oy, oz, dx, dy,
     dz, tm; [R] float32 each) over the (16, n) table `sph`. CPU tensors run
     the plain version, CUDA tensors the kernel."""
-    slim, unroll = parse(variant)
+    parse(variant)
     if rays[0].device.type == "cpu":
         return run_plain(rays, sph, variant)
     n, r = sph.shape[1], rays[0].shape[0]
@@ -73,7 +79,8 @@ def run(rays, sph: torch.Tensor, variant: str) -> torch.Tensor:
     _require(sph, "sph", (N_ROWS, n), torch.float32, planes[0].device)
     r_pad = planes[0].shape[0]
     out = torch.empty(r_pad, dtype=torch.float32, device=sph.device)
-    probes.call(f"kexp_{variant}", "rtp_probe_hit", int(slim), unroll, 1, sph.data_ptr(), n,
+    key = f"kexp_{variant}"
+    probes.call(key, "rtp_probe_hit", *probes.HIT_ARGS[key], sph.data_ptr(), n,
                 *(x.data_ptr() for x in planes), out.data_ptr(), r_pad,
                 probes.stream(sph.device))
     return out[:r]

@@ -3,12 +3,14 @@ one (tools/kfront.py of the JAX package).
 
 The front probe (csrc/probes.cu probe_front_kernel) cuts the BVH into F
 subtrees, each owning a contiguous sphere range padded to a multiple of 8
-by repeating its last sphere (a no-op under the strict `<` update); a warp
-slab-tests every subtree box of a word of 24 against its rays, ORs the
-hits over its 32 lanes, and scans the spheres of the live subtrees in
-order. There is no stage 1 (every word is tested) and no best-t clamp, as
-in the TPU probe. The brute probe scans every sphere, unrolled x8. Both
-write the best t, or 0 on a miss.
+by repeating its last sphere (a no-op under the strict `<` update); each
+ray slab-tests every subtree box of a word of 24 and scans the spheres of
+its own live subtrees in order (the TPU probe, and this port's first,
+ORed the word's hits over the warp). There is no stage 1 (every word is
+tested) and no best-t clamp, as in the TPU probe. The brute probe scans
+every sphere, unrolled x8. Both write the best t, or 0 on a miss.
+`warp_schedule` counts the front probe's warp steps and its shared-memory
+wavefronts.
 
     python -m raytracingproject_tpu_torch.probes.kfront [n_spheres]
 
@@ -101,8 +103,7 @@ def _chunked(fn, rays, n_cols: int) -> torch.Tensor:
 
 def live_columns(rays, sph: torch.Tensor, ff: torch.Tensor, fi: torch.Tensor) -> torch.Tensor:
     """[R, Np] bool: the columns of subtrees whose box the ray enters
-    within (t_min, inf), the spheres the front probe tests for it (its
-    warp tests the union of its lanes' columns)."""
+    within (t_min, inf), the spheres the front probe tests for it."""
     owner = column_owner(fi, sph.shape[1]).to(sph.device)
     ox, oy, oz, dx, dy, dz, _ = rays
     return subtree_slab_mask(ff, ox, oy, oz, dx, dy, dz, T_MIN)[:, owner]
@@ -127,6 +128,59 @@ def run_brute_plain(rays, sph: torch.Tensor):
         return torch.where(bt < np.inf, bt, 0.0)
 
     return _chunked(part, rays, sph.shape[1])
+
+
+def warp_schedule(rays, sph: torch.Tensor, ff: torch.Tensor, fi: torch.Tensor,
+                  chunk: int = 8192) -> dict:
+    """The front probe's work per warp of 32 neighbouring rays (ray r in
+    lane r % 32), counted from the rays' own live columns (`live_columns`)
+    word by word, as the kernel's flat loop takes them (a step tests UNROLL
+    columns; a lane scans its own list and idles past its end):
+
+    - "pairs": the lanes' own live columns, the pairs the bound charges;
+    - "steps": warp steps, the longest own list of each (warp, word), so
+      pairs / (steps * UNROLL * 32) of the lanes' slots do work;
+    - "union_steps": the steps of the warp-vote design, the union of the
+      warp's lists (every lane scans every column any lane needs);
+    - "loads", "waves": the warp's float4 loads of one test plane (one a
+      column position: 2 planes make twice both) and the shared-memory
+      wavefronts they take: lanes reading one column share a broadcast,
+      and column c of a float4 plane lies on bank group c % 8, so a load
+      takes as many wavefronts as the most distinct columns of one
+      residue (1 for a broadcast or for 8 neighbouring columns).
+
+    A count of the inputs, on any device; `rays` is padded to whole warps
+    with copies of ray 0, as the kernel's blocks are."""
+    n_cols = sph.shape[1]
+    word = column_owner(fi, n_cols).numpy() // WORD
+    rays = [torch.cat([x, x[:1].expand(-(-x.shape[0] // 32) * 32 - x.shape[0])]) for x in rays]
+    out = {"pairs": 0, "steps": 0, "union_steps": 0, "loads": 0, "waves": 0}
+    chunk = chunk // 32 * 32
+    for r0 in range(0, rays[0].shape[0], chunk):
+        live = live_columns([x[r0:r0 + chunk] for x in rays], sph, ff, fi).cpu().numpy()
+        for w in np.unique(word):
+            m = live[:, word == w].reshape(-1, 32, int((word == w).sum()))  # [warps, 32, cols]
+            lens = m.sum(axis=2)
+            out["pairs"] += int(lens.sum())
+            out["steps"] += int(lens.max(axis=1).sum()) // UNROLL
+            out["union_steps"] += int(m.any(axis=1).sum()) // UNROLL
+            n_max = int(lens.max())
+            if n_max == 0:
+                continue
+            # each lane's i-th live column (or -1): [warps, 32, n_max]
+            cols = np.where(m, np.arange(m.shape[2]), m.shape[2])
+            cols = np.sort(cols, axis=2)[:, :, :n_max]
+            cols = np.where(cols < m.shape[2], cols, -1)
+            issued = (cols >= 0).any(axis=1)  # [warps, n_max]: the warp loads position i
+            waves = np.zeros(issued.shape, np.int64)
+            for q in range(8):
+                v = np.sort(np.where((cols >= 0) & (cols % 8 == q), cols, -1), axis=1)
+                distinct = (v[:, :1] >= 0).astype(np.int64)[:, 0] + \
+                    ((v[:, 1:] != v[:, :-1]) & (v[:, 1:] >= 0)).sum(axis=1)
+                waves = np.maximum(waves, distinct)
+            out["loads"] += int(issued.sum())
+            out["waves"] += int(waves.sum())
+    return out
 
 
 def run_front(rays, sph: torch.Tensor, ff: torch.Tensor, fi: torch.Tensor) -> torch.Tensor:
@@ -160,10 +214,28 @@ def run_brute(rays, sph: torch.Tensor) -> torch.Tensor:
     _require(sph, "sph", (N_ROWS, n), torch.float32, planes[0].device)
     r_pad = planes[0].shape[0]
     out = torch.empty(r_pad, dtype=torch.float32, device=sph.device)
-    probes.call("kfront_brute", "rtp_probe_hit", 0, 8, 0, sph.data_ptr(), n,
-                *(x.data_ptr() for x in planes), out.data_ptr(), r_pad,
+    probes.call("kfront_brute", "rtp_probe_hit", *probes.HIT_ARGS["kfront_brute"],
+                sph.data_ptr(), n, *(x.data_ptr() for x in planes), out.data_ptr(), r_pad,
                 probes.stream(sph.device))
     return out[:r]
+
+
+def diverging_rays(ff: torch.Tensor, fi: torch.Tensor, n: int, seed: int = 0):
+    """`n` rays (the seven planes, on the CPU) from the cover camera's eye
+    whose warps diverge: even lanes aim at random points of the front's
+    densest subtree's box (`ff`, `fi` of `pack_front_tables`), odd lanes
+    nearly straight up, which misses every box of a scene below the eye
+    (the cover scene's, make_random_scene's). The tests hold the front
+    probe on them."""
+    g = torch.Generator().manual_seed(seed)
+    k = int(torch.argmax(fi[1]))
+    lo, hi = ff[0:3, k].cpu(), ff[3:6, k].cpu()
+    eye = torch.tensor(COVER_CAMERA["lookfrom"], dtype=torch.float32)
+    d = lo + torch.rand((n, 3), generator=g) * (hi - lo) - eye
+    up = torch.rand((n, 3), generator=g) * 0.02 - 0.01
+    up[:, 1] = 1.0
+    d = torch.where((torch.arange(n) % 2 == 1)[:, None], up, d)
+    return probes.ray_planes(eye.expand(n, 3), d, torch.rand(n, generator=g))
 
 
 def primary_rays(device, seed: int = 0, generator=None):

@@ -3,7 +3,8 @@ memory), K7 (the global-memory front) and K8 (the BVH walk) have to
 compute on a pass, counted in their plain versions' operations: a count,
 not a measurement, so it runs on any device.
 
-    python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--front] [--hbm] [--bvh]
+    python -m raytracingproject_tpu_torch.probes.pair_counts [device] [--front] [--hbm] [--bvh] \
+        [--kfront]
 
 prints one JSON line: for the cover camera's 400x225 primary rays (one a
 pixel, the oracle's pass) and for the same rays after one scatter, over
@@ -22,7 +23,13 @@ over `make_random_scene(3000, seed=3)`'s (the largest the shared memory
 holds), each as `render` builds it at the bench shape, at bounce 0 and
 after one scatter: the warp union's work against each ray's own, the
 kernel's own work (its clamps included), and the warp steps of the union,
-of one lane a ray and of the warp-level lane groups. Default device: cpu.
+of one lane a ray and of the warp-level lane groups. With `--kfront`,
+`kfront.warp_schedule` for kfront's front probe on the cover camera's
+primary rays (its own measurement's rays, drawn on `device`) over the
+cover scene's and `make_random_scene(2000, seed=3)`'s fronts at F = 24
+and 48: the warp steps of the rays' own lists and of the warp's union,
+and the shared-memory wavefronts of the staged table's loads. Default
+device: cpu.
 
 `ordered_walk` is the ordered walk itself in plain PyTorch, which
 tests/test_torch_bvh_groups.py holds against the plain version;
@@ -542,8 +549,8 @@ def front_counts(front: mk.FrontTables, o: torch.Tensor, d: torch.Tensor,
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    hbm, bvh, front = "--hbm" in argv, "--bvh" in argv, "--front" in argv
-    argv = [a for a in argv if a not in ("--hbm", "--bvh", "--front")]
+    hbm, bvh, front, kf = (f in argv for f in ("--hbm", "--bvh", "--front", "--kfront"))
+    argv = [a for a in argv if a not in ("--hbm", "--bvh", "--front", "--kfront")]
     device = argv[0] if argv else "cpu"
     scene, (o, d, t), (o2, d2) = cover_pass(device)
     tab = trace.sphere_table(scene)
@@ -582,6 +589,20 @@ def main(argv=None) -> None:
                         "warp_roots_share": c["warp_roots"] / max(c["warp_pairs"], 1),
                         "own_roots_share": c["own_roots"] / max(c["own_pairs"], 1)}
         line["K7, 50,000 spheres"] = {"subtrees": front.ff.shape[1], **k7}
+    if kf:
+        from raytracingproject_tpu_torch.probes import kfront
+
+        rays = kfront.primary_rays(device)
+        for n in (None, 2000):
+            sc = kfront.probe_scene(n)
+            for f in kfront.FRONTS:
+                tabs = [x.to(device) for x in kfront.pack_front_tables(sc, max_nodes=f)]
+                c = kfront.warp_schedule(rays, *tabs)
+                line[f"kfront front F={f}, {'cover' if n is None else f'{n:,} spheres'}"] = {
+                    "columns": tabs[0].shape[1], **c,
+                    "union_over_steps": c["union_steps"] / max(c["steps"], 1),
+                    "lane_efficiency": c["pairs"] / max(c["steps"] * kfront.UNROLL * 32, 1),
+                    "waves_per_load": c["waves"] / max(c["loads"], 1)}
     print(json.dumps(line), flush=True)
 
 

@@ -4,16 +4,19 @@ FFMA rate and the sphere-test rate of the brute closest hit.
 - `fma_peak`: FFMA instructions a second of `fma_chains` (csrc/probes.cu
   fma_kernel: eight independent chains of explicit FMAs a thread). One
   FFMA is two floating-point operations; the port's kernels are built
-  with -fmad=false, so each operation they are charged (OPS_PER_PAIR,
-  OPS_PER_BOX) is one instruction: their operations bound is read at
+  with -fmad=false, so each operation they are charged (`test_ops`) is
+  one instruction: their operations bound is read at
   this rate, or at the data sheet's (SPEC_FP32_FLOPS / 2) where that is
   higher.
 - `mixed_peak`: lane-sphere tests a second of the brute closest hit in
-  isolation (`mixed_hits`: the megakernels' own sphere_test over a random
-  488-sphere table, every carry of the hit summed into the output so that
-  none of its selects is dropped): the ceiling for the intersection's own
-  mix of instructions, against which a closest hit's pairs a second give
-  its "mixed share".
+  isolation (`mixed_hits`: the reference quadratic with the roots only
+  where the discriminant is positive, as every kernel of the port takes
+  them, over a random 488-sphere table, every carry of the hit summed into
+  the output so that none of its selects is dropped): the ceiling for the
+  intersection's own mix of instructions, against which a closest hit's
+  pairs a second give its "mixed share". Its operations a second
+  (`measure`'s `mixed_ops_per_s`) are `test_ops` of its pairs and of
+  those whose discriminant is positive, the count its bound charges.
 
     python -m raytracingproject_tpu_torch.probes.roofline
 
@@ -23,6 +26,7 @@ prints one JSON line with both peaks and the card's nvidia-smi line.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 
 import numpy as np
@@ -44,8 +48,8 @@ from raytracingproject_tpu_torch.probes.measure import marginal_ms
 # selects 5, the strict-< best 3 (compare, select t, select idx): 15 more
 # (OPS_PAIR_ROOTS). A pair whose discriminant is not positive never uses
 # its roots, so a bound charges 25 for it and 40 for the others
-# (`test_ops`). A full test, as the mixed peak runs it, is 40
-# (OPS_PER_PAIR). A ray against a box,
+# (`test_ops`); every kernel of the port, the probes included, computes
+# the roots only there. A ray against a box,
 # `subtree_slab_mask`: 6 an axis (2 sub, 2 mul, min, max) = 18, the y axis
 # folded in 2, the z axis with its t_min clamp 3, the final compare 1: 24
 # (the reciprocals of the direction are per ray, not per box). The rest of
@@ -54,7 +58,6 @@ from raytracingproject_tpu_torch.probes.measure import marginal_ms
 # a kernel's share of it is if anything understated.
 OPS_PAIR_DISC = 25
 OPS_PAIR_ROOTS = 15
-OPS_PER_PAIR = OPS_PAIR_DISC + OPS_PAIR_ROOTS
 OPS_PER_BOX = 24
 
 
@@ -195,8 +198,8 @@ def mixed_hits(tab: torch.Tensor, ox: torch.Tensor) -> torch.Tensor:
     r_pad = probes.blocks(r)
     ox = _pad_rays(ox, r_pad)
     out = torch.empty_like(ox)
-    probes.call("mixed", "rtp_probe_hit", 0, 8, 2, tab.data_ptr(), n, ox.data_ptr(),
-                *([None] * 6), out.data_ptr(), r_pad, probes.stream(ox.device))
+    probes.call("mixed", "rtp_probe_hit", *probes.HIT_ARGS["mixed"], tab.data_ptr(), n,
+                ox.data_ptr(), *([None] * 6), out.data_ptr(), r_pad, probes.stream(ox.device))
     return out[:r]
 
 
@@ -221,7 +224,9 @@ def fma_peak(device="cuda") -> dict:
 
 def mixed_peak(n_spheres: int = 488, device="cuda") -> dict:
     """The measured sphere-test rate of the brute closest hit, every carry
-    consumed: {"pairs_per_s", "ms" (one pass), "rays", "spheres" (padded)}."""
+    consumed: {"pairs_per_s", "roots_per_s" (of those pairs, the ones whose
+    discriminant is positive), "ms" (one pass), "rays", "spheres" (padded),
+    "roots" (a pass's, the mean over the timed passes' ray sets)}."""
     dev = probes.require_card(device)
     tab = mixed_table(n_spheres).to(dev)
     r = full_waves(dev)
@@ -229,7 +234,10 @@ def mixed_peak(n_spheres: int = 488, device="cuda") -> dict:
     pool = [base * (0.99 + 0.02 * k / 16) for k in range(16)]
     ms = marginal_ms(lambda s: mixed_hits(tab, pool[s % 16]), k1=8, k2=24, reps=5)
     n = tab.shape[1]
-    return {"pairs_per_s": r * n / ms * 1e3, "ms": ms, "rays": r, "spheres": n}
+    roots = statistics.mean(positive_discriminants(tab, mixed_rays(x)[:7], chunk=1 << 16)
+                            for x in pool)
+    return {"pairs_per_s": r * n / ms * 1e3, "roots_per_s": roots / ms * 1e3, "ms": ms,
+            "rays": r, "spheres": n, "roots": roots}
 
 
 def card_line() -> str:
@@ -240,16 +248,19 @@ def card_line() -> str:
 
 
 def measure(device="cuda") -> dict:
-    """Both peaks, with the card they were measured on."""
+    """Both peaks, with the card they were measured on. The mixed peak's
+    operations a second are those a bound charges for its tests
+    (`test_ops` of its pairs and roots), read against the FFMA rate."""
     dev = probes.require_card(device)
     fma, mixed = fma_peak(dev), mixed_peak(device=dev)
+    ops = test_ops(mixed["pairs_per_s"], mixed["roots_per_s"])
     return {
         "card": card_line(), "ffma_per_s": fma["ffma_per_s"],
         "fp32_flops_per_s": fma["flops_per_s"], "spec_fp32_flops_per_s": SPEC_FP32_FLOPS,
         "fma_ms": fma["ms"], "mixed_pairs_per_s": mixed["pairs_per_s"],
-        "mixed_ops_per_s": mixed["pairs_per_s"] * OPS_PER_PAIR,
-        "mixed_ops_over_ffma": mixed["pairs_per_s"] * OPS_PER_PAIR / fma["ffma_per_s"],
+        "mixed_ops_per_s": ops, "mixed_ops_over_ffma": ops / fma["ffma_per_s"],
         "mixed_ms": mixed["ms"], "mixed_spheres": mixed["spheres"],
+        "mixed_roots": mixed["roots"], "mixed_rays": mixed["rays"],
     }
 
 

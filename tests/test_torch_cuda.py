@@ -856,7 +856,8 @@ def test_fma_and_mixed_probes_match_their_plain_versions(cuda_device):
 def test_closest_hit_probes_match_their_plain_versions(cuda_device, n_spheres):
     """kexp's six variants, kfront's brute and front probes, bit-equal to
     their plain versions on the 400x225 primary rays (cover scene, and
-    2,000 random spheres: shared memory past 48 KB)."""
+    2,000 random spheres: eight staged chunks, the front's table past
+    48 KB)."""
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
     from raytracingproject_tpu_torch.probes import kexp, kfront
 
@@ -873,6 +874,80 @@ def test_closest_hit_probes_match_their_plain_versions(cuda_device, n_spheres):
         front = kfront.run_front(rays, *tabs)
         assert torch.equal(front, kfront.run_front_plain(rays, *tabs))
         assert torch.equal(front, brute)
+
+
+def _hold_hit_probes(device, sph, what):
+    """The eight probe_hit_kernel instantiations on the table `sph` (16,
+    n), each bit-equal to its plain version: kexp's six and kfront's brute
+    on the cover camera's primary rays, the mixed peak on its synthetic
+    rays."""
+    from raytracingproject_tpu_torch.probes import kexp, kfront, roofline
+
+    rays = kfront.primary_rays(device)
+    sph = sph.contiguous().to(device)
+    for v in kexp.VARIANTS:
+        assert torch.equal(kexp.run(rays, sph, v), kexp.run_plain(rays, sph, v)), (what, v)
+    assert torch.equal(kfront.run_brute(rays, sph), kfront.run_brute_plain(rays, sph)), what
+    ox = torch.linspace(-14.0, 14.0, 20000, device=device)
+    assert torch.equal(roofline.mixed_hits(sph, ox), roofline.mixed_hits_plain(sph, ox)), what
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 2000],
+                         ids=["1", "CHUNK-1", "CHUNK", "CHUNK+1", "2000"])
+def test_hit_probes_at_the_chunk_edges(cuda_device, n):
+    """probe_hit_kernel stages the table CHUNK (256, held to the source by
+    test_torch_probes.py) spheres at a time: every instantiation bit-equal
+    to its plain version on the first n columns of make_random_scene(2000,
+    seed=3)'s table, at and around the edge of a chunk."""
+    from raytracingproject_tpu_torch.probes import kfront
+
+    sph = mk.scene_table(kfront.probe_scene(2000))[:, :n]
+    _hold_hit_probes(cuda_device, sph, f"n = {n}")
+
+
+@pytest.mark.parametrize("pairing", ["neighbours", "a chunk apart"])
+def test_hit_probes_keep_the_first_of_exact_ties(cuda_device, pairing):
+    """Every sphere twice, so every hit is an exact tie: beside itself, or
+    300 columns on (in another chunk). The strict `<` scan keeps the first
+    column, which kexp's slim variants write."""
+    from raytracingproject_tpu_torch.probes import kfront
+
+    base = mk.scene_table(kfront.probe_scene(2000))[:, :300]
+    sph = (base.repeat_interleave(2, dim=1) if pairing == "neighbours"
+           else torch.cat([base, base], dim=1))
+    _hold_hit_probes(cuda_device, sph, pairing)
+
+
+def test_front_probe_on_diverging_warps(cuda_device):
+    """The front probe culls per ray: on warps whose even lanes aim into
+    the densest subtree and whose odd lanes miss every box, it is bit-equal
+    to its plain version and to the brute probe, every missing ray 0."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.probes import kfront
+
+    scene = kfront.probe_scene(2000)
+    for f in kfront.FRONTS:
+        sph, ff, fi = kfront.pack_front_tables(scene, max_nodes=f)
+        rays = [x.to(cuda_device) for x in kfront.diverging_rays(ff, fi, 4096)]
+        tabs = [t.to(cuda_device) for t in (sph, ff, fi)]
+        got = kfront.run_front(rays, *tabs)
+        assert torch.equal(got, kfront.run_front_plain(rays, *tabs)), f
+        sphb = mk.scene_table(reorder_scene(scene, build_bvh(scene, leaf_size=8))).to(cuda_device)
+        assert torch.equal(got, kfront.run_brute(rays, sphb)), f
+        assert (got[1::2] == 0).all() and (got[0::2] > 0).any()
+
+
+def test_probe_occupancy_does_not_collapse_on_2000_spheres(cuda_device):
+    """Shared memory no longer holds the whole [16, n] table: every
+    closest-hit probe gets at least two blocks of an SM on
+    make_random_scene(2000, seed=3) (its first port got one)."""
+    from raytracingproject_tpu_torch import probes
+    from raytracingproject_tpu_torch.probes import kfront
+
+    for key in probes.HIT_ARGS:
+        assert probes.blocks_per_sm(key) >= 2, key
+    sph, ff, _ = kfront.pack_front_tables(kfront.probe_scene(2000), max_nodes=24)
+    assert probes.blocks_per_sm("kfront_front", sph.shape[1], ff.shape[1]) >= 2
 
 
 # ---- K3's options and K1's planted fault ----

@@ -291,3 +291,82 @@ def test_probe_launch_counts_start_at_zero():
     assert set(probes.LAUNCHES) == {"fma", "mixed", "kfront_front", "kfront_brute",
                                     *(f"kexp_{v}" for v in kexp.VARIANTS)}
     assert not any(probes.LAUNCHES.values())
+
+
+def test_probe_constants_match_the_cuda_source():
+    """The wrappers' constants are the kernels': rays a block (padding),
+    the staged chunk (the tests' edges) and the eight probe_hit_kernel
+    instantiations rtp_probe_hit dispatches to."""
+    import re
+    from pathlib import Path
+
+    src = (Path(probes.__file__).parents[1] / "csrc" / "probes.cu").read_text()
+    assert re.search(rf"constexpr int PTPB = {probes.PTPB};", src)
+    assert re.search(rf"constexpr int CHUNK = {probes.CHUNK};", src)
+    body = src[src.index("HitKernel hit_kernel("):]
+    body = body[:body.index("return nullptr;")]
+    names = {"WIDE": 0, "SLIM": 1, "OUT_T": 0, "OUT_KEXP": 1, "OUT_SUM": 2}
+    found = {(names[v], int(u), names[o]) for v, u, o in
+             re.findall(r"probe_hit_kernel<(\w+), (\d), (\w+)>", body)}
+    assert found == set(probes.HIT_ARGS.values()) and len(found) == 8
+
+
+def _schedule_lane_by_lane(rays, sph, ff, fi):
+    """`kfront.warp_schedule` counted one warp, word and column position at
+    a time, from each lane's own list."""
+    n = rays[0].shape[0]
+    rays = [torch.cat([x, x[:1].expand(-(-n // 32) * 32 - n)]) for x in rays]
+    live = kfront.live_columns(rays, sph, ff, fi).numpy()
+    word = kfront.column_owner(fi, sph.shape[1]).numpy() // 24
+    out = {"pairs": 0, "steps": 0, "union_steps": 0, "loads": 0, "waves": 0}
+    for w0 in range(0, live.shape[0], 32):
+        for wd in np.unique(word):
+            lists = [np.nonzero(live[w0 + lane] & (word == wd))[0] for lane in range(32)]
+            longest = max(len(x) for x in lists)
+            out["pairs"] += sum(len(x) for x in lists)
+            out["steps"] += longest // 8
+            out["union_steps"] += len(set().union(*(set(x) for x in lists))) // 8
+            for i in range(longest):
+                cols = {int(x[i]) for x in lists if i < len(x)}
+                out["loads"] += 1
+                out["waves"] += max(sum(c % 8 == q for c in cols) for q in range(8))
+    return out
+
+
+@pytest.mark.parametrize("case", ["cover F=24", "cover F=48", "diverging, 2,000 spheres"])
+def test_warp_schedule_counts_each_lanes_own_list(case):
+    """The front probe's pairs, warp steps, union steps and shared-memory
+    wavefronts (`warp_schedule`, vectorised) equal a lane-by-lane count, on
+    200 cover primary rays (padded to 7 warps) and on rays whose warps
+    diverge (`diverging_rays`: lanes into the densest subtree beside lanes
+    that miss every box), where the own lists are shorter than the
+    union."""
+    if case.startswith("cover"):
+        _, ps = _cover_pair()
+        tabs = kfront.pack_front_tables(ps, max_nodes=int(case[-2:]))
+        flat, _ = _cover_rays(n=256, seed=9)
+        rays = [torch.from_numpy(x[:200]) for x in flat]
+    else:
+        tabs = kfront.pack_front_tables(kfront.probe_scene(2000), max_nodes=24)
+        rays = kfront.diverging_rays(tabs[1], tabs[2], 96)
+    got = kfront.warp_schedule(rays, *tabs, chunk=64)
+    assert got == _schedule_lane_by_lane(rays, *tabs)
+    assert got["steps"] <= got["union_steps"] and got["loads"] <= got["waves"]
+    if case.startswith("diverging"):
+        assert got["steps"] < got["union_steps"]
+
+
+def test_front_plain_on_diverging_warps_matches_the_brute_scan():
+    """On warps whose lanes enter different subtrees (rays into the densest
+    subtree beside rays that miss every box), the front probe's plain
+    version finds the brute probe's t on every ray, and the missing rays
+    write 0."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+
+    scene = kfront.probe_scene(2000)
+    sph, ff, fi = kfront.pack_front_tables(scene, max_nodes=24)
+    rays = kfront.diverging_rays(ff, fi, 256)
+    front = kfront.run_front(rays, sph, ff, fi)
+    brute = kfront.run_brute(rays, scene_table(reorder_scene(scene, build_bvh(scene, 8))))
+    assert torch.equal(front, brute)
+    assert (front[1::2] == 0).all() and (front[0::2] > 0).any()
