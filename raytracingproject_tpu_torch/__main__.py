@@ -5,30 +5,33 @@ Renders the RTWeekend cover scene with the reference camera (400x225,
 30 spp, depth 50, vfov 20, lookfrom (13,2,3), defocus 0.6, focus 10)
 through the megakernel with front culling (or, with --wavefront, the
 stream-compaction renderer of wavefront.py), and writes P3 PPM to stdout
-(or --output) with progress on stderr.
+(or --output) with progress, rays a second and the program's counters
+(kernel launches among them) on stderr. With --trace DIR the render runs
+under the profiler and DIR/trace.json holds its Chrome trace, the
+program's `rtp.*` spans included.
 
     python -m raytracingproject_tpu_torch > image.ppm
     python -m raytracingproject_tpu_torch --scene three --spp 64 -o out.ppm
     python -m raytracingproject_tpu_torch --wavefront -o out.ppm
+    python -m raytracingproject_tpu_torch --trace prof -o out.ppm
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
-import time
 
 import torch
 
 from raytracingproject_tpu_torch.camera import Camera
 from raytracingproject_tpu_torch.color import to_u8
 from raytracingproject_tpu_torch.config import RenderSettings
-from raytracingproject_tpu_torch.ops.cuda.megakernel import LAUNCHES
-from raytracingproject_tpu_torch.ops.cuda.trace import LAUNCHES as TRACE_LAUNCHES
 from raytracingproject_tpu_torch.render import render
 from raytracingproject_tpu_torch.scene import (
     make_cover_scene, make_minimal_scene, make_three_sphere_scene,
 )
+from raytracingproject_tpu_torch.utils import profiling
 from raytracingproject_tpu_torch.utils.ppm import encode_ppm
 from raytracingproject_tpu_torch.wavefront import render_wavefront_image
 
@@ -55,6 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda or cpu (default: cuda; without a card it raises, so ask for cpu)")
     ap.add_argument("--output", "-o", default="-", help="output path ('-' = stdout)")
+    ap.add_argument("--trace", metavar="DIR", default=None,
+                    help="profile the render and write its Chrome trace to DIR/trace.json")
     args = ap.parse_args(argv)
 
     cover = args.scene == "cover"
@@ -76,19 +81,19 @@ def main(argv=None) -> int:
 
     print(f"Rendering {args.scene} {camera.image_width}x{camera.image_height} "
           f"spp={args.spp} depth={args.depth} on {device}", file=sys.stderr, flush=True)
-    t0 = time.perf_counter()
-    if args.wavefront:
-        img = to_u8(render_wavefront_image(scene, camera, generator, settings))
-        launches = f"closest_hit={TRACE_LAUNCHES['closest_hit']}"
-    else:
-        img = to_u8(render(scene, camera, generator, settings))
-        launches = f"brute={LAUNCHES['brute_chunked']} front={LAUNCHES['front']}"
-    data = encode_ppm(img.cpu().numpy())
-    elapsed = time.perf_counter() - t0
+    renderer = render_wavefront_image if args.wavefront else render
     rays = camera.image_width * camera.image_height * args.spp
+    meter = profiling.RaysPerSecond()
+    traced = profiling.trace(args.trace) if args.trace else contextlib.nullcontext()
+    with traced:
+        meter.start()
+        img = renderer(scene, camera, generator, settings)
+        meter.stop(rays)
+    data = encode_ppm(to_u8(img).cpu().numpy())
+    counts = " ".join(f"{k}={v}" for k, v in profiling.counters().items() if v)
     print("Done.", file=sys.stderr)
-    print(f"{rays} rays in {elapsed:.2f}s = {rays / elapsed / 1e6:.2f} Mrays/s "
-          f"(kernel launches: {launches})", file=sys.stderr)
+    print(f"{rays} rays in {meter.total_seconds:.2f}s = {meter.average / 1e6:.2f} Mrays/s "
+          f"({counts})", file=sys.stderr)
     if args.output == "-":
         sys.stdout.write(data)
     else:

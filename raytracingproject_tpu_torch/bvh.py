@@ -27,6 +27,7 @@ import torch
 from raytracingproject_tpu_torch.config import T_MAX, T_MIN
 from raytracingproject_tpu_torch.ops.intersect import HitRecord, dot3, hit_geometry
 from raytracingproject_tpu_torch.scene import Scene
+from raytracingproject_tpu_torch.utils.profiling import sync
 
 LEAF_SIZE = 4
 SENTINEL = -1  # miss link of the root's escape: traversal done
@@ -45,7 +46,8 @@ class FlatBVH(NamedTuple):
 
 
 def _host(x: torch.Tensor, dtype) -> np.ndarray:
-    return np.ascontiguousarray(x.detach().cpu().numpy(), dtype)
+    with sync("rtp.sync.table"):
+        return np.ascontiguousarray(x.detach().cpu().numpy(), dtype)
 
 
 def sphere_bounds(scene: Scene) -> tuple[np.ndarray, np.ndarray]:

@@ -49,6 +49,7 @@ from raytracingproject_tpu_torch.ops.cuda.megakernel import (
     FrontRefresher, FrontTables, bvh_tables, front_with_params, trace_record,
 )
 from raytracingproject_tpu_torch.scene import Scene
+from raytracingproject_tpu_torch.utils.profiling import span, sync
 
 GEOMETRY_FIELDS = ("center0", "center_delta", "radius")
 
@@ -71,10 +72,11 @@ class _FastRadiance(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg: _Config, front: FrontTables | None, origin, direction, time,
                 seed: int, *leaves):
-        scene = apply_params(cfg.scene, SceneParams(*leaves))
-        front = None if front is None else front_with_params(front, scene)
-        rad, res = cfg.tracer(origin, direction, time, scene, seed, cfg.max_depth,
-                              front=front, zero_draws=cfg.zero_draws, bvh=cfg.bvh)
+        with span("rtp.fit.record"):
+            scene = apply_params(cfg.scene, SceneParams(*leaves))
+            front = None if front is None else front_with_params(front, scene)
+            rad, res = cfg.tracer(origin, direction, time, scene, seed, cfg.max_depth,
+                                  front=front, zero_draws=cfg.zero_draws, bvh=cfg.bvh)
         ctx.save_for_backward(origin, direction, time, *leaves)
         ctx.cfg = cfg
         ctx.res = res
@@ -82,13 +84,14 @@ class _FastRadiance(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        origin, direction, time, *leaves = ctx.saved_tensors
-        cfg = ctx.cfg
-        grads = _replay_grads(
-            lambda params: replay_radiance(params, cfg.scene, origin, direction, time, ctx.res,
-                                           n_groups=cfg.replay_groups,
-                                           skip_dead=cfg.replay_skip_dead),
-            leaves, ctx.needs_input_grad[6:], g)
+        with span("rtp.fit.replay"):
+            origin, direction, time, *leaves = ctx.saved_tensors
+            cfg = ctx.cfg
+            grads = _replay_grads(
+                lambda params: replay_radiance(params, cfg.scene, origin, direction, time,
+                                               ctx.res, n_groups=cfg.replay_groups,
+                                               skip_dead=cfg.replay_skip_dead),
+                leaves, ctx.needs_input_grad[6:], g)
         return (None, None, None, None, None, None, *grads)
 
 
@@ -348,16 +351,20 @@ def _make_step(scene: Scene, camera, spp: int, mask: SceneParams, device: torch.
     j_idx = (pix // width).to(torch.int32)
 
     def step(params: SceneParams, opt_state, gen: torch.Generator | None, target, *extra):
-        gen = generator if gen is None else gen
-        o, d, t = rays_from_uniforms(
-            cam, i_idx, j_idx, *camera_uniforms(pix.shape[0], gen, device, dtype))
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device))
-        rad = radiance_fn(params, o, d, t, seed, *extra)
-        img = rad.reshape(spp, height, width, 3).mean(dim=0)
-        loss = torch.mean((img - target.to(device)) ** 2)
-        grads = SceneParams(*torch.autograd.grad(loss, list(params)))
-        apply_updates(opt_state, params, grads, mask)
-        return params, opt_state, loss.detach(), grads
+        with span("rtp.fit.step"):
+            gen = generator if gen is None else gen
+            o, d, t = rays_from_uniforms(
+                cam, i_idx, j_idx, *camera_uniforms(pix.shape[0], gen, device, dtype))
+            drawn = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device)
+            with sync("rtp.sync.seed"):
+                seed = int(drawn)
+            rad = radiance_fn(params, o, d, t, seed, *extra)
+            img = rad.reshape(spp, height, width, 3).mean(dim=0)
+            loss = torch.mean((img - target.to(device)) ** 2)
+            grads = SceneParams(*torch.autograd.grad(loss, list(params)))
+            with span("rtp.fit.adam"):
+                apply_updates(opt_state, params, grads, mask)
+            return params, opt_state, loss.detach(), grads
 
     return step
 

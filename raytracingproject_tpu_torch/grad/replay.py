@@ -42,6 +42,7 @@ from raytracingproject_tpu_torch.ops.intersect import closest_hit
 from raytracingproject_tpu_torch.ops.vecmath import dot, refract
 from raytracingproject_tpu_torch.render import sky_color
 from raytracingproject_tpu_torch.scene import Scene
+from raytracingproject_tpu_torch.utils.profiling import sync
 
 
 class PathResiduals(NamedTuple):
@@ -239,8 +240,10 @@ def _live_depth(idx: torch.Tensor) -> int:
     """Bounces up to and including the last one at which any ray is not
     DEAD (one host read). Later bounces change nothing: a DEAD row leaves
     every carried value as it is."""
-    live = torch.nonzero((idx != DEAD).any(dim=1))
-    return int(live[-1]) + 1 if live.numel() else 0
+    rows = (idx != DEAD).any(dim=1)
+    with sync("rtp.sync.live_depth"):
+        live = torch.nonzero(rows)
+        return int(live[-1]) + 1 if live.numel() else 0
 
 
 def _replay(step, origin, direction, time, idx, ndir, refl, skip_dead: bool):

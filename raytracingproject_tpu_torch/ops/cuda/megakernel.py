@@ -31,6 +31,7 @@ import torch
 from raytracingproject_tpu_torch.config import DIELECTRIC, LAMBERTIAN, METAL, T_MIN
 from raytracingproject_tpu_torch.ops.rng import ball_radius, bounce_uniforms, unit_vector
 from raytracingproject_tpu_torch.scene import Scene
+from raytracingproject_tpu_torch.utils.profiling import sync
 
 # Rays per CUDA block (TPB in csrc/megakernel.cu). The TPU kernel's
 # 1024-ray (8, 128) tile is TPU layout; here a block is 8 warps of 32 rays,
@@ -241,7 +242,9 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
         max_nodes = default_front_nodes(scene.num_spheres)
     max_nodes = ((max_nodes + WORD - 1) // WORD) * WORD
     fr = bvh_front(bvh, max_nodes=max_nodes, order_point=order_point)
-    sph = scene_table(scene).cpu().numpy()
+    table = scene_table(scene)
+    with sync("rtp.sync.table"):
+        sph = table.cpu().numpy()
 
     cols, remap_cols = [], []
     new_start = np.zeros_like(fr.start)
@@ -534,7 +537,9 @@ def front_tables_hbm(scene: Scene, bvh, max_nodes: int | None = None, order_poin
     fr = bvh_front(bvh, max_nodes=max_nodes, max_count=BLOCK, order_point=order_point)
     f_real = fr.start.shape[0]
     f_pad = ((f_real + WORD - 1) // WORD) * WORD
-    sph = scene_table(scene).cpu().numpy()
+    table = scene_table(scene)
+    with sync("rtp.sync.table"):
+        sph = table.cpu().numpy()
 
     blocks = np.zeros((N_ROWS, f_pad * BLOCK), np.float32)
     remap = np.zeros(f_pad * BLOCK, np.int32)

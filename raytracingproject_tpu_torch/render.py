@@ -41,6 +41,7 @@ from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE, trace_paths
 from raytracingproject_tpu_torch.ops.intersect import closest_hit
 from raytracingproject_tpu_torch.ops.vecmath import normalize
 from raytracingproject_tpu_torch.scene import Scene
+from raytracingproject_tpu_torch.utils.profiling import count, span, sync
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
@@ -221,12 +222,15 @@ def _slot_rays(cam: CameraDerived, width: int, height: int, spp_chunk: int,
     """Camera rays of every slot in `_block_order`."""
     dev = cam.pixel00_loc.device
     slot_pix, _ = _block_order(width, height, spp_chunk, TILE)
-    pix = torch.from_numpy(slot_pix).to(dev, torch.int64)
-    i = (pix % width).to(torch.int32)
-    j = (pix // width).to(torch.int32)
-    if ray_uniforms is None:
-        ray_uniforms = camera_uniforms(pix.shape[0], generator, dev, cam.pixel00_loc.dtype)
-    return rays_from_uniforms(cam, i, j, *ray_uniforms)
+    with span("rtp.pass.rays"):
+        count("upload_bytes", slot_pix.nbytes)
+        with sync("rtp.upload.slot_order"):
+            pix = torch.from_numpy(slot_pix).to(dev, torch.int64)
+        i = (pix % width).to(torch.int32)
+        j = (pix // width).to(torch.int32)
+        if ray_uniforms is None:
+            ray_uniforms = camera_uniforms(pix.shape[0], generator, dev, cam.pixel00_loc.dtype)
+        return rays_from_uniforms(cam, i, j, *ray_uniforms)
 
 
 def render_pass(
@@ -296,37 +300,45 @@ def render_pass(
     if use_pallas:
         raise ValueError("use_pallas selects the oracle path's fused closest hit (K4); the "
                          "megakernel has its own. Set use_megakernel=False with it")
-    origin, direction, time = _slot_rays(cam, width, height, spp_chunk, generator,
-                                         ray_uniforms)
-    if seed is None:
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=generator.device))
-    record_miss = sky_tex is not None
-    kw = dict(front=front, zero_draws=zero_draws, record_miss=record_miss)
-    if depth_segment and max_depth > depth_segment and bvh is None:
-        out = trace_paths_segmented(origin, direction, time, scene, seed, max_depth,
-                                    seg_len=depth_segment, **kw)
-    elif two_phase and max_depth > two_phase and bvh is None:
-        out = trace_paths_twophase(origin, direction, time, scene, seed, max_depth,
-                                   cuts=(two_phase,), **kw)
-    else:
-        out = tracer(origin, direction, time, scene, seed, max_depth, bvh=bvh, **kw)
-    if record_miss:
-        rad, mdir, mthr = out
-        rad = rad + mthr * sky_color(mdir, sky_tex)
-    else:
-        rad = out
-    if raw_slots:
-        return rad
-    return blocks_to_image(rad, width, height, spp_chunk)
+    count("passes")
+    with span("rtp.pass"):
+        origin, direction, time = _slot_rays(cam, width, height, spp_chunk, generator,
+                                             ray_uniforms)
+        if seed is None:
+            drawn = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                  device=generator.device)
+            with sync("rtp.sync.seed"):
+                seed = int(drawn)
+        record_miss = sky_tex is not None
+        kw = dict(front=front, zero_draws=zero_draws, record_miss=record_miss)
+        with span("rtp.pass.trace"):
+            if depth_segment and max_depth > depth_segment and bvh is None:
+                out = trace_paths_segmented(origin, direction, time, scene, seed, max_depth,
+                                            seg_len=depth_segment, **kw)
+            elif two_phase and max_depth > two_phase and bvh is None:
+                out = trace_paths_twophase(origin, direction, time, scene, seed, max_depth,
+                                           cuts=(two_phase,), **kw)
+            else:
+                out = tracer(origin, direction, time, scene, seed, max_depth, bvh=bvh, **kw)
+        if record_miss:
+            rad, mdir, mthr = out
+            rad = rad + mthr * sky_color(mdir, sky_tex)
+        else:
+            rad = out
+        if raw_slots:
+            return rad
+        return blocks_to_image(rad, width, height, spp_chunk)
 
 
 def blocks_to_image(slot_rad: torch.Tensor, width: int, height: int,
                     spp_chunk: int) -> torch.Tensor:
     """Slot-space radiance sum [R_pad, 3] -> row-major image sum [H, W, 3]."""
     _, gather = _block_order(width, height, spp_chunk, TILE)
-    g = torch.from_numpy(gather).to(slot_rad.device, torch.int64)
-    return slot_rad[g].sum(dim=0).reshape(height, width, 3)
+    with span("rtp.pass.image"):
+        count("upload_bytes", gather.nbytes)
+        with sync("rtp.upload.gather"):
+            g = torch.from_numpy(gather).to(slot_rad.device, torch.int64)
+        return slot_rad[g].sum(dim=0).reshape(height, width, 3)
 
 
 def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
@@ -341,22 +353,28 @@ def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
     from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
 
     device = settings.resolved_device()
-    scene = scene.to(device)
-    if not settings.use_bvh:
-        return scene, None
-    leaf = max(settings.bvh_leaf_size, 8)  # front subtrees amortise culling
-    bvh = build_bvh(scene, leaf_size=leaf)
-    scene = reorder_scene(scene, bvh)
-    op = tuple(float(x) for x in camera.lookfrom)
-    rp = 2 if camera.max_depth <= 24 else 1
-    # the depth tail's front segment keeps its live list beside the tables
-    tail = settings.two_phase or settings.depth_segment
-    budget = mk.SMEM_BUDGET_BYTES - (mk.SEGMENT_LIST_BYTES if tail else 0)
-    try:
-        front = mk.front_tables(scene, bvh, order_point=op, repack=rp, smem_budget=budget)
-    except mk.FrontOverBudget:
-        front = mk.front_tables_hbm(scene, bvh)
-    return scene, front
+    with span("rtp.prepare_scene"):
+        scene = scene.to(device)
+        if not settings.use_bvh:
+            return scene, None
+        leaf = max(settings.bvh_leaf_size, 8)  # front subtrees amortise culling
+        with span("rtp.prep.bvh"):
+            bvh = build_bvh(scene, leaf_size=leaf)
+        with span("rtp.prep.reorder"):
+            scene = reorder_scene(scene, bvh)
+        op = tuple(float(x) for x in camera.lookfrom)
+        rp = 2 if camera.max_depth <= 24 else 1
+        # the depth tail's front segment keeps its live list beside the tables
+        tail = settings.two_phase or settings.depth_segment
+        budget = mk.SMEM_BUDGET_BYTES - (mk.SEGMENT_LIST_BYTES if tail else 0)
+        try:
+            with span("rtp.prep.front"):
+                front = mk.front_tables(scene, bvh, order_point=op, repack=rp,
+                                        smem_budget=budget)
+        except mk.FrontOverBudget:
+            with span("rtp.prep.front_hbm"):
+                front = mk.front_tables_hbm(scene, bvh)
+        return scene, front
 
 
 def prepare_oracle_scene(scene: Scene, settings: RenderSettings):
@@ -398,45 +416,47 @@ def render(
     loop and accumulator (float64 for finite-difference checks). The
     megakernel computes and returns float32 whatever `dtype` says, as the
     JAX package's megakernel does (its config.py, `use_megakernel`)."""
-    settings = settings or RenderSettings()
-    use_megakernel = settings.use_megakernel
-    device = settings.resolved_device()
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    width, height = camera.image_size()
-    dtype = torch.float32 if use_megakernel else settings.dtype
-    cam = camera.derive(dtype, device)
-    spp = camera.samples_per_pixel
-    bvh = front = None
-    if use_megakernel:
-        scene, front = prepare_scene(scene, camera, settings)
-    else:
-        scene, bvh = prepare_oracle_scene(scene, settings)
-    if sky_texture is not None:
-        sky_texture = torch.as_tensor(sky_texture, dtype=torch.float32, device=device)
-
-    spp_chunk = max(1, min(spp, settings.rays_per_batch // max(width * height, 1)))
-    acc = torch.zeros((height, width, 3), dtype=dtype, device=device)
-    slot_acc = None
-    done = 0
-    while done < spp:
-        chunk = min(spp_chunk, spp - done)
-        raw = use_megakernel and chunk == spp_chunk
-        out = render_pass(
-            scene, cam, generator, width=width, height=height,
-            max_depth=camera.max_depth, spp_chunk=chunk, bvh=bvh, front=front,
-            early_exit=True, use_pallas=settings.use_pallas, use_megakernel=use_megakernel,
-            depth_segment=settings.depth_segment or 0, two_phase=settings.two_phase or 0,
-            sky_tex=sky_texture, raw_slots=raw, tracer=tracer,
-        )
-        if raw:
-            slot_acc = out if slot_acc is None else slot_acc + out
+    count("frames")
+    with span("rtp.render"):
+        settings = settings or RenderSettings()
+        use_megakernel = settings.use_megakernel
+        device = settings.resolved_device()
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        width, height = camera.image_size()
+        dtype = torch.float32 if use_megakernel else settings.dtype
+        cam = camera.derive(dtype, device)
+        spp = camera.samples_per_pixel
+        bvh = front = None
+        if use_megakernel:
+            scene, front = prepare_scene(scene, camera, settings)
         else:
-            acc = acc + out
-        done += chunk
-    if slot_acc is not None:
-        acc = acc + blocks_to_image(slot_acc, width, height, spp_chunk)
-    return acc / spp
+            scene, bvh = prepare_oracle_scene(scene, settings)
+        if sky_texture is not None:
+            sky_texture = torch.as_tensor(sky_texture, dtype=torch.float32, device=device)
+
+        spp_chunk = max(1, min(spp, settings.rays_per_batch // max(width * height, 1)))
+        acc = torch.zeros((height, width, 3), dtype=dtype, device=device)
+        slot_acc = None
+        done = 0
+        while done < spp:
+            chunk = min(spp_chunk, spp - done)
+            raw = use_megakernel and chunk == spp_chunk
+            out = render_pass(
+                scene, cam, generator, width=width, height=height,
+                max_depth=camera.max_depth, spp_chunk=chunk, bvh=bvh, front=front,
+                early_exit=True, use_pallas=settings.use_pallas, use_megakernel=use_megakernel,
+                depth_segment=settings.depth_segment or 0, two_phase=settings.two_phase or 0,
+                sky_tex=sky_texture, raw_slots=raw, tracer=tracer,
+            )
+            if raw:
+                slot_acc = out if slot_acc is None else slot_acc + out
+            else:
+                acc = acc + out
+            done += chunk
+        if slot_acc is not None:
+            acc = acc + blocks_to_image(slot_acc, width, height, spp_chunk)
+        return acc / spp
 
 
 def render_image(

@@ -3,8 +3,14 @@ raytracingproject_tpu/utils/profiling.py).
 
 The reference's perf tooling is an FPS overlay and a device memory dump.
 Here:
+- `span`: a named range on the profiler's clock, opened at each layer
+  boundary of the program (`rtp.*`), and nothing while no profiler
+  records; `sync` is the span of a host wait for the device, counted;
+- `COUNTS` / `count` / `counters`: always-on integer counters (frames,
+  passes, host syncs, bytes uploaded) beside the kernel launches;
 - `trace`: a torch.profiler capture of the host and, with a card, the
-  device around a block, optionally written as a Chrome trace;
+  device around a block, optionally written as a Chrome trace (the
+  spans included);
 - `RaysPerSecond`: a rays-a-second meter that waits for the card before
   it reads the clock;
 - `device_memory_stats`: each card's allocator statistics.
@@ -18,6 +24,59 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+# Counters of the program's work, added to where the work happens; never
+# a host read of a device value. `host_syncs` counts `sync` spans and
+# `upload_bytes` the host arrays copied to the device.
+COUNTS = {"frames": 0, "passes": 0, "host_syncs": 0, "upload_bytes": 0}
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: while a torch.profiler session records, a range
+    `name` in its trace, on the clock of the device's kernels and copies,
+    nested in the ranges open on the thread; otherwise one shared null
+    context (one flag read: no object built, no device synchronised).
+
+    The range is not a user annotation (`record_function` makes one), so
+    the profiler copies none of it onto the device's timeline, where it
+    would count as device work."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    COUNTS[name] += n
+
+
+def sync(name: str):
+    """The span `name` of a host wait for the device, counted in
+    `host_syncs`: a read of a device value, or a blocking copy from
+    pageable host memory (torch's copy with non_blocking=False waits for
+    the stream's queued work before it returns)."""
+    COUNTS["host_syncs"] += 1
+    return span(name)
+
+
+def reset_counters() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def counters() -> dict:
+    """`COUNTS` and the kernel launches (`launches.<key>`, from
+    ops.cuda.megakernel.LAUNCHES and ops.cuda.trace.LAUNCHES), in one new
+    dict."""
+    from raytracingproject_tpu_torch.ops.cuda import megakernel, trace as closest_hit
+
+    out = dict(COUNTS)
+    for launches in (megakernel.LAUNCHES, closest_hit.LAUNCHES):
+        out.update({f"launches.{k}": v for k, v in launches.items()})
+    return out
 
 
 @contextlib.contextmanager
