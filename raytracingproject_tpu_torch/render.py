@@ -6,7 +6,10 @@ ops.cuda.megakernel.trace_paths. Rays are fed in compact screen blocks
 or K7 when the front's tables pass the shared-memory budget, or the brute
 K2 without the BVH; `render_pass(bvh=)` takes the BVH walk K8),
 accumulated in slot space over sample chunks and unpermuted once per
-frame (`blocks_to_image`). `RenderSettings.two_phase` and
+frame (`blocks_to_image`). The block order lives on the device: its pixel
+columns, rows and gather are uploaded once per shape and device
+(`_slot_ij`, `_slot_gather`) and every later pass reuses them, so no pass
+waits in a copy from the host. `RenderSettings.two_phase` and
 `depth_segment` cut the trace into depth segments of K6 with the live
 rays packed between them (ops/cuda/depth_tail.py); a sky texture makes
 the kernel record each ray's miss, and the texture is looked up here.
@@ -217,19 +220,49 @@ def _block_order(width: int, height: int, spp: int = 1, tile: int = TILE):
     return slot_pix.astype(np.int32), gather.astype(np.int32)
 
 
+def _device_key(device) -> torch.device:
+    """`device` with its index, so that `cuda` and `cuda:0` are one key of
+    the block order's device caches."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@lru_cache(maxsize=8)
+def _slot_ij(width: int, height: int, spp: int, tile: int,
+             device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(i, j): the pixel column and row of each slot of `_block_order`,
+    int32 [R_pad] on `device` (a `_device_key`). The slot order is uploaded
+    on a miss alone, by a blocking copy, so the tensors are whole before
+    any stream reads them; every later pass of the shape reuses them."""
+    slot_pix, _ = _block_order(width, height, spp, tile)
+    count("upload_bytes", slot_pix.nbytes)
+    with sync("rtp.upload.slot_order"):
+        pix = torch.from_numpy(slot_pix).to(device)
+    return pix % width, pix // width
+
+
+@lru_cache(maxsize=8)
+def _slot_gather(width: int, height: int, spp: int, tile: int,
+                 device: torch.device) -> torch.Tensor:
+    """`_block_order`'s gather, int64 [spp, H*W] on `device` (a
+    `_device_key`), uploaded on a miss alone, as `_slot_ij`'s slot order."""
+    _, gather = _block_order(width, height, spp, tile)
+    count("upload_bytes", gather.nbytes)
+    with sync("rtp.upload.gather"):
+        return torch.from_numpy(gather).to(device, torch.int64)
+
+
 def _slot_rays(cam: CameraDerived, width: int, height: int, spp_chunk: int,
                generator: torch.Generator | None, ray_uniforms):
-    """Camera rays of every slot in `_block_order`."""
+    """Camera rays of every slot in `_block_order`, from the slots' pixels
+    kept on the rays' device (`_slot_ij`)."""
     dev = cam.pixel00_loc.device
-    slot_pix, _ = _block_order(width, height, spp_chunk, TILE)
     with span("rtp.pass.rays"):
-        count("upload_bytes", slot_pix.nbytes)
-        with sync("rtp.upload.slot_order"):
-            pix = torch.from_numpy(slot_pix).to(dev, torch.int64)
-        i = (pix % width).to(torch.int32)
-        j = (pix // width).to(torch.int32)
+        i, j = _slot_ij(width, height, spp_chunk, TILE, _device_key(dev))
         if ray_uniforms is None:
-            ray_uniforms = camera_uniforms(pix.shape[0], generator, dev, cam.pixel00_loc.dtype)
+            ray_uniforms = camera_uniforms(i.shape[0], generator, dev, cam.pixel00_loc.dtype)
         return rays_from_uniforms(cam, i, j, *ray_uniforms)
 
 
@@ -332,12 +365,10 @@ def render_pass(
 
 def blocks_to_image(slot_rad: torch.Tensor, width: int, height: int,
                     spp_chunk: int) -> torch.Tensor:
-    """Slot-space radiance sum [R_pad, 3] -> row-major image sum [H, W, 3]."""
-    _, gather = _block_order(width, height, spp_chunk, TILE)
+    """Slot-space radiance sum [R_pad, 3] -> row-major image sum [H, W, 3],
+    by the gather kept on the radiance's device (`_slot_gather`)."""
     with span("rtp.pass.image"):
-        count("upload_bytes", gather.nbytes)
-        with sync("rtp.upload.gather"):
-            g = torch.from_numpy(gather).to(slot_rad.device, torch.int64)
+        g = _slot_gather(width, height, spp_chunk, TILE, _device_key(slot_rad.device))
         return slot_rad[g].sum(dim=0).reshape(height, width, 3)
 
 

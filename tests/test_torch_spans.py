@@ -3,7 +3,8 @@
 the profiler a render and a fast train step give the tree of `rtp.*`
 ranges the benchmark reads, none of them a user annotation; the counters
 count passes, host waits and uploaded bytes; a refused front shows in the
-trace; the CLI's --trace writes the spans. CPU only; imports nothing of the JAX package."""
+trace; the CLI's --trace writes the spans; the block order uploads on a
+cold render alone. CPU only; imports nothing of the JAX package."""
 
 import json
 from pathlib import Path
@@ -15,7 +16,7 @@ import raytracingproject_tpu_torch as rt
 from raytracingproject_tpu_torch.__main__ import main as cli_main
 from raytracingproject_tpu_torch.grad import make_fast_train_step
 from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE
-from raytracingproject_tpu_torch.render import _block_order, prepare_scene
+from raytracingproject_tpu_torch.render import _block_order, _slot_gather, _slot_ij, prepare_scene
 from raytracingproject_tpu_torch.scene import make_random_scene
 from raytracingproject_tpu_torch.utils import profiling
 
@@ -44,6 +45,16 @@ def _fresh_counters():
 
 def cover():
     return rt.make_cover_scene(0)
+
+
+def cold_block_order():
+    """Empty the block order's device caches: the next render uploads it."""
+    _slot_ij.cache_clear()
+    _slot_gather.cache_clear()
+
+
+def render_cover():
+    return rt.render(cover(), CAM, torch.Generator().manual_seed(1), SETTINGS)
 
 
 def profiled(fn):
@@ -81,16 +92,22 @@ def test_span_off_builds_nothing(monkeypatch):
 
 
 def test_render_spans_nest_by_layer():
-    """A render under the profiler: rtp.render holds rtp.prepare_scene,
+    """A cold render under the profiler: rtp.render holds rtp.prepare_scene,
     which holds the BVH build and the front build; one rtp.pass and one
-    seed read a pass, each pass holding its rays, trace and upload; and no
-    range is a user annotation (the profiler would copy one onto the
+    seed read a pass, each pass holding its rays and trace; the block
+    order's one upload in the first pass's rays, the gather's in the image;
+    and no range is a user annotation (the profiler would copy one onto the
     device's timeline)."""
-    ev = profiled(lambda: rt.render(cover(), CAM, torch.Generator().manual_seed(1), SETTINGS))
+    cold_block_order()
+    ev = profiled(render_cover)
     n = names(ev)
     assert n.count("rtp.render") == 1 and n.count("rtp.prepare_scene") == 1
     assert n.count("rtp.pass") == PASSES and n.count("rtp.sync.seed") == PASSES
-    assert n.count("rtp.pass.trace") == PASSES and n.count("rtp.upload.slot_order") == PASSES
+    assert n.count("rtp.pass.trace") == PASSES and n.count("rtp.upload.slot_order") == 1
+    assert n.count("rtp.upload.gather") == 1
+    first_rays = min((s, e) for name, s, e, _ in ev if name == "rtp.pass.rays")
+    (upload,) = [(s, e) for name, s, e, _ in ev if name == "rtp.upload.slot_order"]
+    assert first_rays[0] <= upload[0] and upload[1] <= first_rays[1]
     assert "rtp.prep.front_hbm" not in n  # the cover's front fits shared memory
     for outer, inner in [("rtp.render", "rtp.prepare_scene"), ("rtp.prepare_scene", "rtp.prep.bvh"),
                          ("rtp.prepare_scene", "rtp.prep.reorder"),
@@ -101,6 +118,22 @@ def test_render_spans_nest_by_layer():
                          ("rtp.prepare_scene", "rtp.sync.table")]:
         assert inside(ev, outer, inner), (outer, inner)
     assert not any(ua for *_, ua in ev)
+
+
+def test_warm_render_uploads_nothing():
+    """A second render of the same shape reuses the block order on the
+    device: no rtp.upload.* span, and every host wait is a seed or table
+    read."""
+    cold_block_order()
+    render_cover()
+    profiling.reset_counters()
+    ev = profiled(render_cover)
+    n = names(ev)
+    assert n.count("rtp.pass") == PASSES and n.count("rtp.pass.image") == 1
+    assert not [name for name in n if name.startswith("rtp.upload.")]
+    assert profiling.COUNTS["upload_bytes"] == 0
+    assert profiling.COUNTS["host_syncs"] == n.count("rtp.sync.seed") + n.count(
+        "rtp.sync.table") >= PASSES + 1
 
 
 def test_fit_step_spans_nest():
@@ -127,21 +160,37 @@ def test_fit_step_spans_nest():
 
 
 def test_counts_of_a_render():
-    """One render counts its frame, its passes, a host wait for each seed
-    read, table read and blocking upload, and the bytes of the host arrays
-    it uploaded: the slot order each pass and the gather once."""
-    rt.render(cover(), CAM, torch.Generator().manual_seed(1), SETTINGS)
+    """One cold render counts its frame, its passes, a host wait for each
+    seed read, table read and blocking upload, and the bytes of the host
+    arrays it uploaded: the slot order and the gather, once each."""
+    cold_block_order()
+    render_cover()
     c = profiling.counters()
     slot_pix, gather = _block_order(32, 18, 4, TILE)
     assert c["frames"] == 1 and c["passes"] == PASSES
-    assert c["upload_bytes"] == PASSES * slot_pix.nbytes + gather.nbytes
-    # seeds, uploads (PASSES + 1) and at least one table read
-    assert c["host_syncs"] >= 2 * PASSES + 2
+    assert c["upload_bytes"] == slot_pix.nbytes + gather.nbytes
+    # seeds, the two uploads and at least one table read
+    assert c["host_syncs"] >= PASSES + 3
     assert set(profiling.COUNTS) == {"frames", "passes", "host_syncs", "upload_bytes"}
     # the plain versions launch no kernel
     assert c["launches.front"] == 0 and "launches.closest_hit" in c
     profiling.reset_counters()
     assert not any(profiling.COUNTS.values())
+
+
+def test_counts_of_a_warm_render():
+    """A warm render of the same shape uploads no byte and waits on the
+    host for its seeds and table reads alone: the cold render's count less
+    its two uploads."""
+    cold_block_order()
+    render_cover()
+    cold = profiling.counters()
+    profiling.reset_counters()
+    render_cover()
+    c = profiling.counters()
+    assert c["frames"] == 1 and c["passes"] == PASSES
+    assert c["upload_bytes"] == 0
+    assert c["host_syncs"] == cold["host_syncs"] - 2 >= PASSES + 1
 
 
 def test_front_over_budget_counts_one_refusal():
