@@ -48,6 +48,7 @@ class Cell:
     params: dict
     limits: dict
     chips: int
+    cores: list | None = None  # each rank's cores, rank 0's first (run.py pins rank 0)
 
 
 class Bench:
@@ -163,6 +164,8 @@ class Run:
     window_s: float | None = None
     trace: "Trace | None" = None
     spans: dict = dataclasses.field(default_factory=dict)
+    rank_spans: list = dataclasses.field(default_factory=list)  # each rank's, in a multi-card cell
+    memory_peak_bytes: int = 0  # the fullest card's, read after the window (0 on the CPU)
 
 
 @dataclasses.dataclass
@@ -330,13 +333,16 @@ def _profiled(job, acts, units: int, seconds: float, with_stack: bool = False) -
 
 
 def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool, device: str,
-             t0: float, log=print) -> dict:
+             t0: float, log=print, cores=None) -> dict:
     """One run of cell `name`: set-up, the window, the output check; the
     result line as a dict. `t0` is the process's start on the host
-    clock."""
+    clock; `cores`, each rank's cores (run.py's plan), reach the traffic
+    kind on the cell. A job over several ranks (portbench/ranks.py) may
+    give each rank's peak of device bytes (`peaks()`) and spans
+    (`rank_spans()`) once released."""
     import torch
 
-    cell = bench.cell(name)
+    cell = dataclasses.replace(bench.cell(name), cores=cores)
     traffic = bench.module("traffic", cell.kind)
     job = traffic.prepare(bench, cell, seed, device)
     guard(bench.dirs)
@@ -364,6 +370,11 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool, de
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     attempted = job.count
     job.release()
+    if hasattr(job, "peaks"):  # the fullest card
+        peak = max([peak, *job.peaks()])
+    run.memory_peak_bytes = int(peak)
+    if hasattr(job, "rank_spans"):
+        run.rank_spans = job.rank_spans()
     checks = job.check()
     correct = all(math.isfinite(v) and v <= lim for v, lim in checks.values())
     section = "per_layer" if trace else "end_to_end"

@@ -29,12 +29,13 @@ def manifest() -> dict:
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-def add_cell(tmp: Path, m: dict, name: str, config: str, spec: dict, like: str) -> None:
-    """Add cell `name` to manifest `m` as a file under `tmp`, reporting the
-    metrics that cell `like` reports."""
+def add_cell(tmp: Path, m: dict, name: str, config: str, spec: dict, like: str,
+             chips: int = 1) -> None:
+    """Add cell `name` on `chips` chips to manifest `m` as a file under
+    `tmp`, reporting the metrics that cell `like` reports."""
     (tmp / "workloads").mkdir(parents=True, exist_ok=True)
     (tmp / "workloads" / f"{name}.json").write_text(json.dumps(spec))
-    m["workloads"].append({"name": name, "config": config, "traffic": name, "chips": 1,
+    m["workloads"].append({"name": name, "config": config, "traffic": name, "chips": chips,
                            "why": "a throwaway cell of the tests"})
     for sec in ("end_to_end", "per_layer"):
         for e in m[sec]:

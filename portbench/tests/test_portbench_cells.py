@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.harness import HERE, Bench, run_cell
+from portbench.harness import HERE, Bench, Run, run_cell
 from portbench.tests.conftest import TINY_FRAME, add_cell, manifest
 
 SEED = 2**31 + 977  # beyond 32 signed bits: seeds may be
@@ -48,9 +48,17 @@ def test_traced_run_reads_its_layer_metrics(tiny, cell):
     out = run_cell(tiny, cell, SEED, 5.0, True, "cpu", time.perf_counter(), log=quiet)
     assert out["correct"] is True
     # on the CPU no device metric has anything to read; the host ones do
-    expected = {"tiny.frame": {"prep_ms.frame"}, "tiny.fit": {"replay_ms.fit"}}[cell]
+    expected = {"tiny.frame": {"prep_ms.frame"}, "tiny.fit": {"replay_ms.fit", "step_ms.fit"}}[cell]
     assert set(out["metrics"]) == expected
     assert out["device"]["window_s"] > 0 and out["breakdown"]["idle_gaps"]
+
+
+@pytest.mark.parametrize("peak,gb", [(0, None), (3_010_962_432, 3.010962432)])
+def test_memory_peak_reads_the_fullest_card(peak, gb):
+    """The run's peak in 10**9 bytes, every digit kept; nothing where no
+    peak was read (a CPU run)."""
+    read = Bench(manifest()).module("metrics", "memory_peak_gb").read
+    assert read(Run(setup_s=1.0, memory_peak_bytes=peak)) == gb
 
 
 @pytest.mark.parametrize("config", ["cover488", "random50k"])

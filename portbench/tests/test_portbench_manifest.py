@@ -43,7 +43,23 @@ def test_names_units_and_entries():
         assert set(e) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
     pairs = [(w["config"], w["traffic"]) for w in m["workloads"]]
     assert len(set(pairs)) == len(pairs)
-    assert all(w["chips"] == 1 for w in m["workloads"])
+    assert four_card_rule(m["workloads"])
+
+
+def four_card_rule(workloads) -> bool:
+    """Each cell asks for 1 or 4 chips, and at most a quarter of the cells,
+    rounded down, for 4 (one always may)."""
+    fours = sum(1 for w in workloads if w["chips"] == 4)
+    return all(w["chips"] in (1, 4) for w in workloads) and fours <= max(1, len(workloads) // 4)
+
+
+@pytest.mark.parametrize("chips,ok", [([1, 1, 1, 1], True), ([4, 1, 1, 1], True),
+                                      ([4, 4, 1, 1], False), ([4], True), ([2, 1, 1, 1], False),
+                                      ([4, 4] + [1] * 6, True), ([4, 4, 4] + [1] * 6, False)])
+def test_four_card_rule(chips, ok):
+    """One four-chip cell among four passes, a second does not; eight cells
+    take two."""
+    assert four_card_rule([{"chips": c} for c in chips]) is ok
 
 
 def test_every_cell_reports_setup_another_end_to_end_and_a_layer():

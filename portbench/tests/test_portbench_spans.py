@@ -36,7 +36,6 @@ EXPECTED = {  # ms a unit; the share in per cent
     "front_span_ms.frame": 17 / 2,
     "pass_idle_ms.frame": (10 + 30 + 3) / 2,  # [30, 40], [60, 90], [95, 98]
     "sync_span_ms.frame": (6 + 3 + 1) / 2,    # the reads and the uploads
-    "upload_span_ms.frame": (3 + 1) / 2,
     "replay_share.fit": 100 * (21 + 5) / 40,  # [41, 62], [75, 80] of [40, 80]
 }
 
