@@ -24,6 +24,19 @@ not ported.
 Known estimator properties (as in the JAX package): the fuzz gradient at
 fuzz == 0 is taken as 0, and discrete events (Schlick branch, metal
 absorption) carry no score-function term.
+
+One divergence from the JAX package (`_finite_cotangent`): at every
+bounce the backward zeroes the elements of each ray's cotangent of its
+gathered sphere attributes that are not finite. A path caught between
+two surfaces near their contact (a small metal sphere and the ground,
+a dozen bounces and more) has a replay derivative that grows tenfold
+every bounce or two back from its end, past float32's range: the
+cotangent of the carried direction turns +inf and -inf, their sum NaN,
+and the NaN reaches the fuzz and ior of every sphere the path touched
+before. Both replays do this (float64 gives such a path's fuzz and ior
+1e39 to 1e54). Every gradient reaches the parameters through the
+gathered attributes, so the parameters' gradients stay finite; a finite
+cotangent passes bit-unchanged.
 """
 
 from __future__ import annotations
@@ -133,6 +146,41 @@ def _dot_xyz(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return x + y + z
 
 
+def _finite_cotangent(x: torch.Tensor) -> None:
+    """Have the backward zero the elements of `x`'s gradient that are not
+    finite (a ray's, at one bounce); the finite ones pass bit-unchanged."""
+    if x.requires_grad:
+        x.register_hook(lambda g: torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0))
+
+
+def _unit_dir(d: torch.Tensor) -> torch.Tensor:
+    """Grad-safe unit direction in the plain reference's order of operations
+    (`d * (1 / sqrt(max(d . d, 1e-24)))`, two roundings; not the card's
+    rsqrt, which is off by up to 2 ulp: a long specular chain multiplies a
+    difference in the carried direction into the gradient). The clamp
+    sends the zero-length branch's gradient to the constant."""
+    return d * (1.0 / torch.sqrt(torch.clamp_min(dot(d, d), 1e-24)))[:, None]
+
+
+class _UnitDir(torch.autograd.Function):
+    """`_unit_dir`, keeping only `d` for the backward (the replay keeps it
+    anyway): the backward works the chain out again and differentiates
+    it, so values and gradients are the chain's own, bit for bit, and no
+    [R] tensor of it is held per bounce until the backward."""
+
+    @staticmethod
+    def forward(ctx, d):
+        ctx.save_for_backward(d)
+        return _unit_dir(d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        with torch.enable_grad():
+            d = d.detach().requires_grad_()
+            return torch.autograd.grad(_unit_dir(d), d, g)[0]
+
+
 def _make_live_step(table: torch.Tensor):
     """One differentiable replay bounce: carry (o, d, thr, L), residual row
     r = (idx, ndir, refl). The quadratic re-solve is src/sphere.h:30-57 on
@@ -154,6 +202,7 @@ def _make_live_step(table: torch.Tensor):
         i = torch.clamp_min(idx, 0).long()
 
         attrs = table.index_select(0, i)
+        _finite_cotangent(attrs)
         c0 = attrs[:, 0:3]
         cd = attrs[:, 3:6]
         rad = attrs[:, 6]
@@ -194,9 +243,7 @@ def _make_live_step(table: torch.Tensor):
         att = torch.where((mat == DIELECTRIC)[:, None], 1.0, alb)
         thr = torch.where(hit[:, None], thr * att, thr)
 
-        # grad-safe unit direction: the clamp sends the zero-length branch's
-        # gradient to the constant
-        ud = d * torch.rsqrt(torch.clamp_min(dot(d, d), 1e-24))[:, None]
+        ud = _UnitDir.apply(d)
         # lambertian: recorded dir = n + u, u parameter-independent
         u_const = ndir - nrm.detach()
         lam_dir = nrm + u_const

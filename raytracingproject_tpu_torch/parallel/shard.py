@@ -25,6 +25,13 @@ caller's generator (the same on every rank when the callers seed alike)
 keys a Philox block at the rank's two mesh coordinates, so a shard's
 stream is a pure function of the caller's seed and its place in the mesh
 (JAX folds the key with the ray index, then the sample index).
+
+Spans (utils/profiling.py) of a sharded train step: `rtp.shard.step`
+holds `rtp.shard.forward` (the shard's radiance), `rtp.shard.reduce.image`
+(the image's and the loss's all-reduces), `rtp.shard.backward` (the
+shard's backward: the path replay on the fast path), `rtp.shard.reduce.grad`
+(the gradients' all-reduces) and `rtp.fit.adam`; every collective counts in
+`collectives` and `collective_bytes`.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from raytracingproject_tpu_torch.ops.rng import MASK32, philox4x32_10
 from raytracingproject_tpu_torch.parallel.mesh import mesh_device
 from raytracingproject_tpu_torch.render import ray_color
 from raytracingproject_tpu_torch.scene import Scene
+from raytracingproject_tpu_torch.utils.profiling import count, span, sync
 
 
 def _pad_to_multiple(n: int, m: int) -> int:
@@ -80,7 +88,22 @@ def _pad_target(target: torch.Tensor, total: int) -> torch.Tensor:
 def draw_base(generator: torch.Generator) -> int:
     """One draw of the caller's generator: the base every rank derives
     its shard's generator from."""
-    return int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    drawn = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+    with sync("rtp.sync.base"):
+        return int(drawn)
+
+
+def _all_reduce(tensor: torch.Tensor, group) -> None:
+    """`dist.all_reduce` (a sum, in place), counted."""
+    _count_collective(tensor)
+    dist.all_reduce(tensor, group=group)
+
+
+def _count_collective(tensor: torch.Tensor) -> None:
+    """One collective over this rank's `tensor`, in `collectives` and
+    `collective_bytes`."""
+    count("collectives")
+    count("collective_bytes", tensor.numel() * tensor.element_size())
 
 
 def shard_generator(base: int, ray_id: int, s_id: int, device) -> torch.Generator:
@@ -175,8 +198,9 @@ def render_sharded(
     g = shard_generator(draw_base(generator), ray_id, s_id, device)
     acc = _render_flat(scene, cam, i, j, g, max_depth=camera.max_depth,
                        spp_local=spp // n_samples, use_megakernel=use_megakernel, front=front)
-    dist.all_reduce(acc, group=mesh.get_group("samples"))
+    _all_reduce(acc, mesh.get_group("samples"))
     parts = [torch.empty_like(acc) for _ in range(n_rays)]
+    _count_collective(acc)
     dist.all_gather(parts, acc, group=mesh.get_group("rays"))
     return torch.cat(parts)[: width * height].reshape(height, width, 3) / spp
 
@@ -207,7 +231,9 @@ def _fast_shard(radiance_fn: Callable, cam: CameraDerived) -> Callable:
     a 1x1 mesh's step is that step's on the shard's generator."""
     def shard(params: SceneParams, g, i, j, spp_local: int):
         o, d, t = _sample_rays(cam, g, i, j, spp_local)
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=g, device=g.device))
+        drawn = torch.randint(0, 2**31 - 1, (1,), generator=g, device=g.device)
+        with sync("rtp.sync.seed"):
+            seed = int(drawn)
         return radiance_fn(params, o, d, t, seed).reshape(spp_local, i.shape[0], 3).sum(dim=0)
 
     return shard
@@ -254,24 +280,30 @@ def _sharded_step(camera, mesh, spp: int, mask: SceneParams,
         generator = torch.Generator(device=device).manual_seed(0)
 
     def step(params: SceneParams, opt_state, gen: torch.Generator | None, target, *extra):
-        gen = generator if gen is None else gen
-        g = shard_generator(draw_base(gen), ray_id, s_id, device)
-        acc = shard(params, g, i, j, spp_local, *extra)
-        img = acc.detach().clone()
-        dist.all_reduce(img, group=samples)
-        resid = img / spp - _pad_target(target.to(device, acc.dtype), total)[lo:hi]
-        sq = torch.sum(resid * resid)
-        dist.all_reduce(sq, group=rays)
-        got = torch.autograd.grad(acc, list(params), 2.0 * resid / (spp * npix * 3),
-                                  allow_unused=True)
-        flat = torch.cat([(torch.zeros_like(p) if gp is None else gp).reshape(-1)
-                          for p, gp in zip(params, got)])
-        dist.all_reduce(flat, group=samples)
-        dist.all_reduce(flat, group=rays)
-        grads = SceneParams(*(x.view_as(p) for x, p in
-                              zip(flat.split([p.numel() for p in params]), params)))
-        apply_updates(opt_state, params, grads, mask)
-        return params, opt_state, sq / (npix * 3), grads
+        with span("rtp.shard.step"):
+            gen = generator if gen is None else gen
+            g = shard_generator(draw_base(gen), ray_id, s_id, device)
+            with span("rtp.shard.forward"):
+                acc = shard(params, g, i, j, spp_local, *extra)
+            with span("rtp.shard.reduce.image"):
+                img = acc.detach().clone()
+                _all_reduce(img, samples)
+                resid = img / spp - _pad_target(target.to(device, acc.dtype), total)[lo:hi]
+                sq = torch.sum(resid * resid)
+                _all_reduce(sq, rays)
+            with span("rtp.shard.backward"):
+                got = torch.autograd.grad(acc, list(params), 2.0 * resid / (spp * npix * 3),
+                                          allow_unused=True)
+            with span("rtp.shard.reduce.grad"):
+                flat = torch.cat([(torch.zeros_like(p) if gp is None else gp).reshape(-1)
+                                  for p, gp in zip(params, got)])
+                _all_reduce(flat, samples)
+                _all_reduce(flat, rays)
+            grads = SceneParams(*(x.view_as(p) for x, p in
+                                  zip(flat.split([p.numel() for p in params]), params)))
+            with span("rtp.fit.adam"):
+                apply_updates(opt_state, params, grads, mask)
+            return params, opt_state, sq / (npix * 3), grads
 
     return step
 

@@ -7,7 +7,8 @@ Here:
   boundary of the program (`rtp.*`), and nothing while no profiler
   records; `sync` is the span of a host wait for the device, counted;
 - `COUNTS` / `count` / `counters`: always-on integer counters (frames,
-  passes, host syncs, bytes uploaded) beside the kernel launches;
+  passes, host syncs, bytes uploaded, collectives and the bytes they
+  reduce or gather) beside the kernel launches;
 - `trace`: a torch.profiler capture of the host and, with a card, the
   device around a block, optionally written as a Chrome trace (the
   spans included);
@@ -28,9 +29,12 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _autograd_profiler
 
 # Counters of the program's work, added to where the work happens; never
-# a host read of a device value. `host_syncs` counts `sync` spans and
-# `upload_bytes` the host arrays copied to the device.
-COUNTS = {"frames": 0, "passes": 0, "host_syncs": 0, "upload_bytes": 0}
+# a host read of a device value. `host_syncs` counts `sync` spans,
+# `upload_bytes` the host arrays copied to the device, `collectives` the
+# torch.distributed calls of parallel/ and `collective_bytes` the bytes of
+# this rank's tensor in each.
+COUNTS = {"frames": 0, "passes": 0, "host_syncs": 0, "upload_bytes": 0, "collectives": 0,
+          "collective_bytes": 0}
 
 _OFF = contextlib.nullcontext()
 

@@ -11,11 +11,13 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.distributed as dist
 
 import raytracingproject_tpu_torch as rt
 from raytracingproject_tpu_torch.__main__ import main as cli_main
 from raytracingproject_tpu_torch.grad import make_fast_train_step
 from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE
+from raytracingproject_tpu_torch.parallel import make_mesh, make_sharded_train_step, render_sharded
 from raytracingproject_tpu_torch.render import _block_order, _slot_gather, _slot_ij, prepare_scene
 from raytracingproject_tpu_torch.scene import make_random_scene
 from raytracingproject_tpu_torch.utils import profiling
@@ -159,6 +161,58 @@ def test_fit_step_spans_nest():
         "rtp.sync.live_depth") >= 2
 
 
+@pytest.fixture
+def world_of_one():
+    """This process's own gloo world of one (make_mesh starts it), taken
+    down after the test."""
+    yield make_mesh("cpu")
+    dist.destroy_process_group()
+
+
+def ball_fit():
+    cam = rt.Camera(aspect_ratio=1.0, image_width=12, samples_per_pixel=2, max_depth=3, vfov=50.0,
+                    lookfrom=(0, 0, 2), lookat=(0, 0, 0))
+    ball = rt.SceneBuilder().add_metal((0, 0, 0), 0.7, (0.6, 0.5, 0.4), 0.2).build()
+    return ball, cam, torch.full((12, 12, 3), 0.5)
+
+
+@pytest.mark.parametrize("two_phase", [None, 2])
+def test_sharded_step_spans_and_collectives(world_of_one, two_phase):
+    """A sharded fast step under the profiler: rtp.shard.step holds the
+    base read, the forward (with its seed read), the image's reduce, the
+    backward, the gradients' reduce and Adam, none a user annotation; its
+    four all-reduces count with this rank's bytes: the image, the loss,
+    and the flat gradient over each mesh axis."""
+    ball, cam, target = ball_fit()
+    params, opt, step = make_sharded_train_step(ball, cam, world_of_one, spp=2,
+                                                use_megakernel=True, two_phase=two_phase,
+                                                trainable=("albedo", "fuzz"))
+    profiling.reset_counters()
+    ev = profiled(lambda: step(params, opt, None, target))
+    n = names(ev)
+    assert n.count("rtp.shard.step") == 1
+    for inner in ("rtp.sync.base", "rtp.shard.forward", "rtp.shard.reduce.image",
+                  "rtp.shard.backward", "rtp.shard.reduce.grad", "rtp.fit.adam"):
+        assert n.count(inner) == 1 and inside(ev, "rtp.shard.step", inner), inner
+    assert inside(ev, "rtp.shard.forward", "rtp.sync.seed")
+    assert not any(ua for *_, ua in ev)
+    flat = sum(p.numel() for p in params) * 4
+    assert profiling.COUNTS["collectives"] == 4
+    assert profiling.COUNTS["collective_bytes"] == 12 * 12 * 3 * 4 + 4 + 2 * flat
+    assert profiling.COUNTS["host_syncs"] == sum(x.startswith("rtp.sync.") for x in n)
+
+
+def test_sharded_render_counts_its_collectives(world_of_one):
+    """render_sharded's sample all-reduce and ray all-gather: two
+    collectives over this rank's radiance sum, and no step span."""
+    ball, cam, _ = ball_fit()
+    ev = profiled(lambda: render_sharded(ball, cam, torch.Generator().manual_seed(2),
+                                         world_of_one, use_megakernel=True))
+    assert profiling.COUNTS["collectives"] == 2
+    assert profiling.COUNTS["collective_bytes"] == 2 * 12 * 12 * 3 * 4
+    assert "rtp.shard.step" not in names(ev) and "rtp.sync.base" in names(ev)
+
+
 def test_counts_of_a_render():
     """One cold render counts its frame, its passes, a host wait for each
     seed read, table read and blocking upload, and the bytes of the host
@@ -171,7 +225,9 @@ def test_counts_of_a_render():
     assert c["upload_bytes"] == slot_pix.nbytes + gather.nbytes
     # seeds, the two uploads and at least one table read
     assert c["host_syncs"] >= PASSES + 3
-    assert set(profiling.COUNTS) == {"frames", "passes", "host_syncs", "upload_bytes"}
+    assert set(profiling.COUNTS) == {"frames", "passes", "host_syncs", "upload_bytes",
+                                     "collectives", "collective_bytes"}
+    assert c["collectives"] == c["collective_bytes"] == 0  # a render on one device
     # the plain versions launch no kernel
     assert c["launches.front"] == 0 and "launches.closest_hit" in c
     profiling.reset_counters()
