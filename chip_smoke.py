@@ -32,7 +32,8 @@ through its kernels:
 
 - large scenes: `render` with `RenderSettings(use_bvh=True)` on
   `make_random_scene(50000, seed=3)` at 400x225, 30 spp, depth 50, whose
-  tables pass the shared-memory budget, on the global-memory front (K7);
+  tables pass the shared-memory budget, on the BVH walk (K8), against the
+  same pass loop on the global-memory front (K7);
   `make_fast_train_step(bvh=...)` on the same scene at 2 spp, depth 50, on
   the BVH-walking recording kernel (K5 bvh); the BVH walk (K8) through
   `render_pass(bvh=)`; and the brute scan (`use_bvh=False` on 5,000
@@ -1650,17 +1651,18 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     del deep
 
     # ---- L5. the main path at full width ----
-    def k8_render(scene_cpu, cam):
-        """`render`'s pass loop with render_pass(bvh=): the image through K8."""
+    def k7_render(scene_cpu, cam):
+        """`render`'s pass loop with render_pass(front=) over the global-memory
+        front of the same tree: the image through K7."""
         tr = build_bvh(scene_cpu, leaf_size=8)
         sc = reorder_scene(scene_cpu, tr).to(dev)
-        tb = mk.bvh_tables(tr, dev)
+        hb = mk.front_tables_hbm(sc, tr)
         gen = torch.Generator(device=dev).manual_seed(0)
         derived = cam.derive(torch.float32, dev)
         acc = None
         for _ in range(cam.samples_per_pixel):
             out = render_pass(sc, derived, gen, width=w, height=h, max_depth=cam.max_depth,
-                              spp_chunk=1, bvh=tb, raw_slots=True)
+                              spp_chunk=1, front=hb, raw_slots=True)
             acc = out if acc is None else acc + out
         return blocks_to_image(acc, w, h, 1) / cam.samples_per_pixel
 
@@ -1670,31 +1672,32 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
     print(f"large-scene main path: render(use_bvh=True) on {N_LARGE} spheres at 400x225, 30 spp, "
           f"depth 50: kernel launches {launches}; {frame_s:.4f} s, scene preparation included, "
           f"on {card}")
-    check(launches["front_hbm"] == 30 and launches["front"] == 0,
-          "K7 ran once a pass of the large-scene frame")
+    check(launches["bvh"] == 30 and launches["front_hbm"] == 0 and launches["front"] == 0,
+          "K8 ran once a pass of the large-scene frame")
     check(img.is_cuda and tuple(img.shape) == (225, 400, 3) and torch.isfinite(img).all().item(),
           "large-scene image on the card, finite, 225x400x3")
     mk.reset_launches()
-    img8, frame8_s = synced_s(lambda: k8_render(big_cpu, ref_cam))
-    launches["bvh"] = mk.LAUNCHES["bvh"]
-    print(f"image means ({N_LARGE} spheres, 30 spp, depth 50): K7 render {img.mean().item():.5f}, "
-          f"K8 passes {img8.mean().item():.5f} ({launches['bvh']} launches, {frame8_s:.4f} s)")
-    check(launches["bvh"] == 30, "K8 ran once a pass")
-    check(abs(img.mean().item() - img8.mean().item()) <= 0.05 * img8.mean().item(),
-          "K7 render mean within 5% of the K8 render's")
+    img7, frame7_s = synced_s(lambda: k7_render(big_cpu, ref_cam))
+    launches["front_hbm"] = mk.LAUNCHES["front_hbm"]
+    print(f"image means ({N_LARGE} spheres, 30 spp, depth 50): K8 render {img.mean().item():.5f}, "
+          f"K7 passes {img7.mean().item():.5f} ({launches['front_hbm']} launches, "
+          f"{frame7_s:.4f} s)")
+    check(launches["front_hbm"] == 30, "K7 ran once a pass")
+    check(abs(img.mean().item() - img7.mean().item()) <= 0.05 * img7.mean().item(),
+          "K8 render mean within 5% of the K7 render's")
     frames = {}
     for n in (5000, 16000, N_LARGE):
         sc = big_cpu if n == N_LARGE else make_random_scene(n, seed=3)
         mk.reset_launches()
         a, frames[n] = synced_s(
             lambda: render(sc, bench_cam, settings=RenderSettings(use_bvh=True)))  # noqa: B023
-        check(mk.LAUNCHES["front_hbm"] == 4, f"{n} spheres: K7 ran once a pass at the bench shape")
-        b = k8_render(sc, bench_cam)
+        check(mk.LAUNCHES["bvh"] == 4, f"{n} spheres: K8 ran once a pass at the bench shape")
+        b = k7_render(sc, bench_cam)
         check(torch.isfinite(a).all().item(), f"{n} spheres: image finite")
         check(abs(a.mean().item() - b.mean().item()) <= 0.05 * b.mean().item(),
-              f"{n} spheres: K7 render mean within 5% of the K8 render's")
+              f"{n} spheres: K8 render mean within 5% of the K7 render's")
         print(f"render(use_bvh=True), {n} spheres, bench shape (4 spp, depth 16): "
-              f"{frames[n]:.4f} s, mean {a.mean().item():.5f} (K8 {b.mean().item():.5f})")
+              f"{frames[n]:.4f} s, mean {a.mean().item():.5f} (K7 {b.mean().item():.5f})")
     mk.reset_launches()
     a = render(make_random_scene(5000, seed=3), bench_cam, settings=RenderSettings(use_bvh=False))
     launches["brute_chunked"] = mk.LAUNCHES["brute_chunked"]
@@ -1868,8 +1871,8 @@ def large_scenes(mk, trace, card: str) -> list[dict]:
             "max_abs_err": max_err[key], "ms": ms[name], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "pairs": counts["pairs"],
         })
-    print(f"seconds per frame (K7, {N_LARGE} spheres, 400x225, 30 spp, depth 50) {frame_s:.4f} s; "
-          f"through K8 {frame8_s:.4f} s; bench-shape frames " +
+    print(f"seconds per frame (render: K8, {N_LARGE} spheres, 400x225, 30 spp, depth 50) "
+          f"{frame_s:.4f} s; through K7 passes {frame7_s:.4f} s; bench-shape frames " +
           ", ".join(f"{n} spheres {s:.4f} s" for n, s in frames.items()) +
           f"; train step (K5 bvh) {step_s:.4f} s; 5,000-sphere geometry step (chunked) "
           f"{geo_step_s:.4f} s; on {card}")
@@ -2415,9 +2418,26 @@ def depth_tail(mk, card: str) -> list[dict]:
                                   "two_phase, depth_segment: skipped)", k8_sky_frame,
                                   {"bvh_miss": 4})
     bench_frames["50000 sky two-phase"] = run(
-        f"bench shape, {N_LARGE} spheres (K7), two_phase=4, sky texture: the monolithic fallback",
+        f"bench shape, {N_LARGE} spheres (K8), two_phase=4, sky texture: the monolithic fallback",
         frame(bench_cam, sc=big_cpu, sky=tex, use_bvh=True, two_phase=4),
-        {"front_hbm_miss": p_bench})
+        {"bvh_miss": p_bench})
+
+    def k7_sky_frame():
+        """The pass loop through render_pass(front=, sky_tex=, two_phase=4) on
+        the global-memory front: K7 has no segment kernel, so each pass is
+        one monolithic K7 with record_miss."""
+        sc = reorder_scene(big_cpu, big_tree).to(dev)
+        hb = mk.front_tables_hbm(sc, big_tree)
+        derived = bench_cam.derive(torch.float32, dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        acc = sum(render_pass(sc, derived, g, width=w, height=h, max_depth=16, spp_chunk=1,
+                              front=hb, sky_tex=tex_dev, two_phase=4, raw_slots=True)
+                  for _ in range(4))
+        return blocks_to_image(acc, w, h, 1) / 4
+
+    bench_frames["50000 K7 sky two-phase"] = run(
+        f"bench shape, {N_LARGE} spheres, render_pass(front=<K7's front>), two_phase=4, sky "
+        "texture: the monolithic fallback", k7_sky_frame, {"front_hbm_miss": 4})
     for a, b in (("brute two-phase sky", "brute sky"),
                  ("5000 chunked two-phase", "5000 chunked"),
                  ("5000 chunked two-phase sky", "5000 chunked sky")):

@@ -176,6 +176,13 @@ class FrontOverBudget(ValueError):
     (`front_tables`, `FrontRefresher`)."""
 
 
+def front_bytes_floor(n_spheres: int) -> int:
+    """A lower bound on the shared memory of any front over `n_spheres`
+    spheres: the padded table alone holds every sphere's N_ROWS words
+    (padding adds columns, the box and range tables add bytes)."""
+    return 4 * N_ROWS * n_spheres
+
+
 def default_front_nodes(n_spheres: int) -> int:
     """Front size: ~26 spheres per subtree, in WORD multiples, at most
     24^3 subtrees."""
@@ -230,9 +237,17 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     degenerate 1e30 columns at its end as the JAX package pads them; the
     kernel stages them in shared memory too); it pairs with fewer, bigger
     subtrees (a small `max_nodes`). `word_earlyout` re-tests a live word's
-    union box against the best t. See FrontTables."""
+    union box against the best t. See FrontTables.
+
+    A scene whose `front_bytes_floor` already passes `smem_budget` is
+    refused before anything is built."""
     from raytracingproject_tpu_torch.bvh import bvh_front
 
+    floor = front_bytes_floor(scene.num_spheres)
+    if smem_budget is not None and floor > smem_budget:
+        raise FrontOverBudget(
+            f"front tables of {scene.num_spheres} spheres need at least {floor} B of shared "
+            f"memory (> {smem_budget} budget)")
     if repack is None:
         repack = DEFAULT_REPACK
     if repack <= 0 or WORD % repack:
@@ -292,8 +307,7 @@ def front_tables(scene: Scene, bvh, max_nodes: int | None = None, order_point=No
     if smem_budget is not None and smem_bytes > smem_budget:
         raise FrontOverBudget(
             f"front tables need {smem_bytes} B of shared memory (> {smem_budget} "
-            f"budget): {sph_pad.shape[1]} padded spheres x {N_ROWS} rows. Scenes this "
-            "large take the global-memory front (front_tables_hbm, K7).")
+            f"budget): {sph_pad.shape[1]} padded spheres x {N_ROWS} rows")
     t = torch.from_numpy
     return FrontTables(
         sph=t(sph_pad).to(device), ff=t(ff).to(device), fi=t(fi).to(device),
@@ -593,6 +607,10 @@ def front_tables_hbm(scene: Scene, bvh, max_nodes: int | None = None, order_poin
 BVH_STACK = 32
 
 
+class BVHRefused(ValueError):
+    """A tree the BVH kernel (K8) cannot walk (`bvh_tables`)."""
+
+
 @dataclasses.dataclass
 class BVHTables:
     """A FlatBVH prepared for the BVH-walking kernel (K8) on one device.
@@ -633,26 +651,35 @@ _BUILT: list = []
 _BUILT_KEPT = 4
 
 
+def _versions(tensors) -> tuple | None:
+    """The tensors' version counters, or None when one has none (a tensor
+    made under torch.inference_mode): such tensors are never cached."""
+    if any(x.is_inference() for x in tensors):
+        return None
+    return tuple(x._version for x in tensors)
+
+
 def bvh_tables(bvh, device) -> BVHTables:
     """`bvh` (a FlatBVH over a leaf-ordered scene, or BVHTables) on
     `device`, with the kernel's node records (see BVHTables), built on the
     host from the tree as it is, once for each tree of the last few passed.
-    Raises ValueError for a leaf of more than 255 spheres, a scene of 2^23
-    spheres or more, or a tree deeper than the kernel's stack
-    (BVH_STACK)."""
+    Raises BVHRefused (a ValueError) for a leaf of more than 255 spheres,
+    a scene of 2^23 spheres or more, or a tree deeper than the kernel's
+    stack (BVH_STACK)."""
     device = torch.device(device)
     if isinstance(bvh, BVHTables):
         have = bvh.nodes.device
         if have.type == device.type and device.index in (None, have.index):
             return bvh
         bvh = bvh.flat
-    versions = tuple(x._version for x in bvh)
+    versions = _versions(bvh)
     for tree, vers, dev, tables in _BUILT:
         if dev == device and vers == versions and all(a is b for a, b in zip(tree, bvh)):
             return tables
     tables = _build_bvh_tables(bvh, device)
-    _BUILT.append((tuple(bvh), versions, device, tables))
-    del _BUILT[:-_BUILT_KEPT]
+    if versions is not None:
+        _BUILT.append((tuple(bvh), versions, device, tables))
+        del _BUILT[:-_BUILT_KEPT]
     return tables
 
 
@@ -663,11 +690,11 @@ def _build_bvh_tables(bvh, device: torch.device) -> BVHTables:
     start = bvh.leaf_start.cpu().numpy().astype(np.int64)
     miss = bvh.miss_link.cpu().numpy().astype(np.int64)
     if int(count.max()) > 255 or int(start.max()) >= 1 << 23:
-        raise ValueError("the BVH kernel packs a leaf as (start << 8) | count: it takes leaves "
+        raise BVHRefused("the BVH kernel packs a leaf as (start << 8) | count: it takes leaves "
                          "of at most 255 spheres and scenes below 2^23 spheres")
     depth = _tree_depth(count, miss)
     if depth > BVH_STACK:
-        raise ValueError(f"a BVH of depth {depth}: the kernel's traversal stack holds "
+        raise BVHRefused(f"a BVH of depth {depth}: the kernel's traversal stack holds "
                          f"{BVH_STACK} entries (build it with bigger leaves)")
     inner = np.flatnonzero(count == 0)
     record = np.zeros(count.shape[0], np.int64)
@@ -1352,6 +1379,28 @@ def _front_opts(front: FrontTables, sub_block: bool) -> bool:
     return bool(front.word_earlyout or (sub_block and front.ksub))
 
 
+# The sphere-major table the BVH kernel read last, with its scene's tensors
+# and their version counters: a caller that passes the same scene on every
+# pass (`render`'s passes over `prepare_scene`'s scene) has it built once,
+# and a scene changed in place, or another scene, is built again.
+_MAJOR: list = []
+
+
+def _sphere_major(scene: Scene, dev) -> torch.Tensor:
+    """(N, 16) float32 sphere-major table of `scene` for K8 and K5 bvh."""
+    fields = tuple(getattr(scene, f.name) for f in dataclasses.fields(scene))
+    versions = _versions(fields)
+    for kept, vers, tab in _MAJOR:
+        if vers == versions and all(a is b for a, b in zip(kept, fields)):
+            return tab
+    with torch.no_grad():
+        tab = scene_table(scene).t().contiguous()
+    _require(tab, "sphere table", (scene.num_spheres, N_ROWS), torch.float32, dev)
+    if versions is not None:
+        _MAJOR[:] = [(fields, versions, tab)]
+    return tab
+
+
 def _brute_scan(scene: Scene, dev) -> torch.Tensor:
     """The sphere table the brute scan's kernel (chunked, any size) takes."""
     tab = scene_table(scene)
@@ -1425,8 +1474,7 @@ def _launch(origin, direction, time, scene, seed, max_depth, t_min, front, zero_
         err = fn(*rays, *_front_args(front, sub_block), *tail)
     elif bvh is not None:
         tables = bvh_tables(bvh, dev)
-        tab = scene_table(scene).t().contiguous()  # sphere-major
-        _require(tab, "sphere table", (scene.num_spheres, N_ROWS), torch.float32, dev)
+        tab = _sphere_major(scene, dev)
         fn, key = (lib.rtp_record_bvh, "record_bvh") if record else (lib.rtp_trace_bvh, "bvh")
         err = fn(*rays, p(tab), tab.shape[0], p(tables.nodes), tables.nodes.shape[0], *tail)
     elif inject_bug is not None:

@@ -3,8 +3,8 @@
 The megakernel path (the port's default): render -> render_pass ->
 ops.cuda.megakernel.trace_paths. Rays are fed in compact screen blocks
 (`_block_order`), traced by the megakernel (K1 with the front-culled K3,
-or K7 when the front's tables pass the shared-memory budget, or the brute
-K2 without the BVH; `render_pass(bvh=)` takes the BVH walk K8),
+or the BVH walk K8 when the front's tables pass the shared-memory budget
+(`prepare_scene`), or the brute K2 without the BVH),
 accumulated in slot space over sample chunks and unpermuted once per
 frame (`blocks_to_image`). The block order lives on the device: its pixel
 columns, rows and gather are uploaded once per shape and device
@@ -40,7 +40,7 @@ from raytracingproject_tpu_torch.materials import ScatterDraws, draw_scatter, sc
 from raytracingproject_tpu_torch.ops.cuda.depth_tail import (
     trace_paths_segmented, trace_paths_twophase,
 )
-from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE, trace_paths
+from raytracingproject_tpu_torch.ops.cuda.megakernel import TILE, BVHTables, trace_paths
 from raytracingproject_tpu_torch.ops.intersect import closest_hit
 from raytracingproject_tpu_torch.ops.vecmath import normalize
 from raytracingproject_tpu_torch.scene import Scene
@@ -373,13 +373,19 @@ def blocks_to_image(slot_rad: torch.Tensor, width: int, height: int,
 
 
 def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
-    """(scene, front) for the megakernel path: the scene on the render
-    device, in BVH leaf order with its front tables when `use_bvh` is on;
-    else as given, front None. The front is a FrontTables (K3) while its
-    tables fit the card's shared memory (with `two_phase` or
-    `depth_segment`, beside the front segment's live list), ordered
-    near-to-far from the camera; past that a FrontTablesHBM (K7), in leaf
-    order as the JAX package builds it."""
+    """(scene, tables) for the megakernel path: the scene on the render
+    device, in BVH leaf order with the closest hit's tables when `use_bvh`
+    is on; else as given, tables None.
+
+    The tables are a FrontTables (K3) while the front fits the card's
+    shared memory (with `two_phase` or `depth_segment`, beside the front
+    segment's live list), ordered near-to-far from the camera. Past that
+    they are the BVHTables of the same tree (K8, the BVH walk; `render`
+    passes them as `render_pass(bvh=)`), and a scene whose
+    `front_bytes_floor` already passes the budget is refused before any
+    front is built. A tree the walk cannot take (`BVHRefused`) gets a
+    FrontTablesHBM (K7), in leaf order as the JAX package builds it.
+    Counted: one `routes.*` a call, and each refused front."""
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
     from raytracingproject_tpu_torch.ops.cuda import megakernel as mk
 
@@ -402,9 +408,20 @@ def prepare_scene(scene: Scene, camera: Camera, settings: RenderSettings):
             with span("rtp.prep.front"):
                 front = mk.front_tables(scene, bvh, order_point=op, repack=rp,
                                         smem_budget=budget)
+            count("routes.front")
+            return scene, front
         except mk.FrontOverBudget:
-            with span("rtp.prep.front_hbm"):
-                front = mk.front_tables_hbm(scene, bvh)
+            count("front_refusals")
+        try:
+            with span("rtp.prep.bvh_nodes"):
+                tables = mk.bvh_tables(bvh, device)
+            count("routes.bvh")
+            return scene, tables
+        except mk.BVHRefused:
+            pass
+        with span("rtp.prep.front_hbm"):
+            front = mk.front_tables_hbm(scene, bvh)
+        count("routes.front_hbm")
         return scene, front
 
 
@@ -461,6 +478,8 @@ def render(
         bvh = front = None
         if use_megakernel:
             scene, front = prepare_scene(scene, camera, settings)
+            if isinstance(front, BVHTables):
+                bvh, front = front, None
         else:
             scene, bvh = prepare_oracle_scene(scene, settings)
         if sky_texture is not None:

@@ -20,6 +20,7 @@ import torch
 
 from raytracingproject_tpu_torch.camera import Camera
 from raytracingproject_tpu_torch.config import RenderSettings
+from raytracingproject_tpu_torch.ops.cuda.megakernel import BVHTables
 from raytracingproject_tpu_torch.render import (
     prepare_oracle_scene, prepare_scene, render_pass,
 )
@@ -84,6 +85,8 @@ def render_checkpointed(
     bvh = front = None
     if settings.use_megakernel:
         scene, front = prepare_scene(scene, camera, settings)
+        if isinstance(front, BVHTables):
+            bvh, front = front, None
         dtype = torch.float32
     else:
         scene, bvh = prepare_oracle_scene(scene, settings)

@@ -32,9 +32,12 @@ from torch.autograd import profiler as _autograd_profiler
 # a host read of a device value. `host_syncs` counts `sync` spans,
 # `upload_bytes` the host arrays copied to the device, `collectives` the
 # torch.distributed calls of parallel/ and `collective_bytes` the bytes of
-# this rank's tensor in each.
+# this rank's tensor in each; `routes.*` the closest hit each
+# `render.prepare_scene` picks (K3's front, K8's tree, K7's front),
+# `front_refusals` the shared-memory fronts it refused.
 COUNTS = {"frames": 0, "passes": 0, "host_syncs": 0, "upload_bytes": 0, "collectives": 0,
-          "collective_bytes": 0}
+          "collective_bytes": 0, "routes.front": 0, "routes.bvh": 0, "routes.front_hbm": 0,
+          "front_refusals": 0}
 
 _OFF = contextlib.nullcontext()
 

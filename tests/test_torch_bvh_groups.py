@@ -288,3 +288,20 @@ def test_bvh_tables_are_built_once_per_tree():
     assert grown is not first
     assert torch.equal(grown.nodes.view(torch.float32)[1:, 12:15],
                        first.nodes.view(torch.float32)[1:, 12:15] + 1.0)
+
+
+def test_sphere_major_table_is_built_once_per_scene():
+    """The sphere-major table K8 reads is built once for a scene passed
+    pass after pass; a scene changed in place, or another scene object,
+    gets a table of its own, equal to a fresh build."""
+    scene = make_random_scene(40, seed=2)
+    cpu = torch.device("cpu")
+    first = mk._sphere_major(scene, cpu)
+    assert torch.equal(first, mk.scene_table(scene).t()) and first.shape == (40, mk.N_ROWS)
+    assert mk._sphere_major(scene, cpu) is first
+    scene.albedo.mul_(0.5)  # a materials step in place: its table is built anew
+    halved = mk._sphere_major(scene, cpu)
+    assert halved is not first and torch.equal(halved, mk.scene_table(scene).t())
+    other = scene.take(torch.arange(40))
+    assert mk._sphere_major(other, cpu) is not halved
+    assert torch.equal(mk._sphere_major(other, cpu), halved)

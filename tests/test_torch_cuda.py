@@ -589,9 +589,9 @@ def test_brute_route_on_the_cover_scene_matches_plain(cuda_device, kind):
 
 
 def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
-    """Past the shared-memory budget `render(use_bvh=True)` goes through K7
-    and `make_fast_train_step(bvh=)` through K5's bvh core, from a CPU scene
-    and with no device given."""
+    """Past the shared-memory budget `render(use_bvh=True)` goes through K8
+    (the BVH walk) and `make_fast_train_step(bvh=)` through K5's bvh core,
+    from a CPU scene and with no device given."""
     from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
     from raytracingproject_tpu_torch.grad import make_fast_train_step
     from raytracingproject_tpu_torch.render import render
@@ -602,7 +602,8 @@ def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
     mk.reset_launches()
     img = render(scene, camera)
     ref = render(scene, camera, settings=RenderSettings(use_bvh=False))
-    assert mk.LAUNCHES["front_hbm"] > 0 and mk.LAUNCHES["brute_chunked"] > 0
+    assert mk.LAUNCHES["bvh"] > 0 and mk.LAUNCHES["brute_chunked"] > 0
+    assert mk.LAUNCHES["front_hbm"] == 0
     assert img.is_cuda and torch.isfinite(img).all()
     assert abs(img.mean().item() - ref.mean().item()) <= 0.05 * ref.mean().item()
     tree = build_bvh(scene, leaf_size=8)
@@ -610,6 +611,52 @@ def test_large_scene_render_and_train_step_run_on_the_card(cuda_device):
                                              trainable=("albedo", "fuzz", "ior"))
     params, opt, loss, grads = step(params, opt, None, ref)
     assert params.albedo.is_cuda and torch.isfinite(loss) and mk.LAUNCHES["record_bvh"] == 1
+
+
+def test_render_past_shared_memory_equals_k7_ray_for_ray(cuda_device):
+    """make_random_scene(50000, seed=3) at the preview's camera (400x225,
+    depth 50, 3 spp): `prepare_scene` returns K8's tables over the tree it
+    built, `render` launches K8 once a pass and K7 never, and K8 gives
+    K7's radiance (a FrontTablesHBM over the same tree) on the same rays
+    and seeds ray for ray, ties aside, and the same frame from the same
+    generator."""
+    from raytracingproject_tpu_torch.bvh import build_bvh, reorder_scene
+    from raytracingproject_tpu_torch.render import render
+    from raytracingproject_tpu_torch.scene import make_random_scene
+
+    camera = Camera(**dict(COVER, image_width=400, samples_per_pixel=3, max_depth=50))
+    settings = RenderSettings(device=cuda_device)
+    scene_cpu = make_random_scene(50000, seed=3)
+    scene, tables = prepare_scene(scene_cpu, camera, settings)
+    assert isinstance(tables, mk.BVHTables)
+    tree = build_bvh(scene_cpu, leaf_size=8)
+    assert torch.equal(scene.radius.cpu(), reorder_scene(scene_cpu, tree).radius)
+    hbm = mk.front_tables_hbm(scene, tree)
+    w, h = camera.image_size()
+    derived = camera.derive(torch.float32, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    differ = total = 0
+    for seed in (101, 202, 303):
+        o, d, t = _slot_rays(derived, w, h, 1, gen, None)
+        k8 = mk.trace_paths(o, d, t, scene, seed, 50, bvh=tables)
+        k7 = mk.trace_paths(o, d, t, None, seed, 50, front=hbm)
+        assert torch.isfinite(k8).all()
+        differ += int((k8 != k7).any(dim=1).sum())
+        total += o.shape[0]
+    assert differ <= 1e-4 * total, (differ, total)
+
+    def k7_tracer(o, d, t, _scene, seed, depth, bvh=None, front=None, **kw):
+        return mk.trace_paths(o, d, t, None, seed, depth, front=hbm, **kw)
+
+    frame_gen = lambda: torch.Generator(device=cuda_device).manual_seed(5)  # noqa: E731
+    mk.reset_launches()
+    img = render(scene_cpu, camera, frame_gen(), settings)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["bvh"] == 3 and mk.LAUNCHES["front_hbm"] == 0
+    img7 = render(scene_cpu, camera, frame_gen(), settings, tracer=k7_tracer)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["front_hbm"] == 3
+    assert (img != img7).any(dim=-1).double().mean().item() <= 1e-3
 
 
 # ---- record_miss on the five monolithic modes, K6 and the depth-tail pipelines ----

@@ -199,8 +199,8 @@ def test_groups_equal_plain_front_on_several_words(g_size):
 @pytest.mark.parametrize("g_size", [1, 8, 32])
 def test_groups_equal_plain_front_with_super_words(g_size):
     """A front of more than 576 subtrees (super-words). Its padded table
-    exceeds the card's shared memory, so the kernel never meets one (such a
-    scene takes K7); the partition is held all the same."""
+    exceeds the card's shared memory, so the kernel never meets one (`render`
+    takes K8 for such a scene); the partition is held all the same."""
     scene, front = _front(make_random_scene(5000, seed=3), 1, leaf_size=4, max_nodes=600,
                           budget=False)
     assert front.ff.shape[1] // WORD > WORD

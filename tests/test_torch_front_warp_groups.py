@@ -23,7 +23,7 @@ super-words, on exact ties, on parked rays and on `sub_block` and
 `word_earlyout` fronts. The kernels themselves are held against the plain
 version on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
-Also here: the routes `prepare_scene` takes (K3 up to 3,000 spheres, K7
+Also here: the routes `prepare_scene` takes (K3 up to 3,000 spheres, K8
 past them; the 3,000-sphere front fits the shared memory alone, not beside
 the front segment's live list) and `probes.pair_counts.front_counts`'s own
 pairs against the plain version's mask.
@@ -284,11 +284,11 @@ BENCH = dict(aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=4, max_
     (lambda: make_cover_scene(0), mk.FrontTables),
     (lambda: make_random_scene(2000, seed=3), mk.FrontTables),
     (lambda: make_random_scene(3000, seed=3), mk.FrontTables),
-    (lambda: make_random_scene(5000, seed=3), mk.FrontTablesHBM),
+    (lambda: make_random_scene(5000, seed=3), mk.BVHTables),
 ], ids=["cover", "2000", "3000", "5000"])
 def test_render_takes_the_same_front_as_before(scene_of, kind):
     """The route `prepare_scene` picks at the bench shape: K3 (a FrontTables
-    in shared memory) up to 3,000 spheres, K7 (a FrontTablesHBM) at 5,000;
+    in shared memory) up to 3,000 spheres, K8 (the tree's BVHTables) at 5,000;
     K3's shared-memory budget is the card's 227 KB."""
     assert mk.SMEM_BUDGET_BYTES == 232448
     _, front = prepare_scene(scene_of(), Camera(**BENCH), RenderSettings(device="cpu"))

@@ -337,24 +337,122 @@ def test_train_step_with_bvh_moves_only_materials():
 
 def test_render_takes_the_hbm_route_past_the_budget(monkeypatch):
     """With the shared-memory budget set below the scene's tables,
-    `prepare_scene` falls through to `front_tables_hbm` (leaf order, as the
-    JAX `render` does), and the image mean stays within 5% of the brute
-    route's."""
+    `prepare_scene` returns the BVHTables of its own tree (K8, the BVH
+    walk), and `render` traces through them: from the same draws, the
+    image of the same rays traced through `front_tables_hbm`'s K7 twin up
+    to ties, and its mean within 5% of the brute route's."""
     scene = pscene.make_random_scene(300, seed=5)
     cam = Camera(**dict(CAM, image_width=48, samples_per_pixel=4))
     settings = RenderSettings(device="cpu")
     _, front = prepare_scene(scene, cam, settings)
     assert isinstance(front, mk.FrontTables)
     monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 8192)
-    rs, front = prepare_scene(scene, cam, settings)
-    assert isinstance(front, mk.FrontTablesHBM)
+    rs, tables = prepare_scene(scene, cam, settings)
+    assert isinstance(tables, mk.BVHTables)
     tree = pbvh.build_bvh(scene, leaf_size=8)
-    want = mk.front_tables_hbm(pbvh.reorder_scene(scene, tree), tree)
-    assert torch.equal(front.remap, want.remap) and torch.equal(front.ff, want.ff)
-    img = render(scene, cam, settings=settings)
+    assert torch.equal(tables.nodes, mk.bvh_tables(tree, "cpu").nodes)
+    hbm = mk.front_tables_hbm(pbvh.reorder_scene(scene, tree), tree)
+
+    def k7(o, d, t, _scene, seed, depth, bvh=None, front=None, **kw):
+        assert isinstance(bvh, mk.BVHTables) and front is None  # render took K8's route
+        return mk.trace_paths(o, d, t, None, seed, depth, front=hbm, **kw)
+
+    gen = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    img = render(scene, cam, gen(), settings)
+    img7 = render(scene, cam, gen(), settings, tracer=k7)
+    assert (img != img7).any(dim=-1).double().mean().item() <= 1e-2
     ref = render(scene, cam, settings=RenderSettings(device="cpu", use_bvh=False))
     assert img.shape == ref.shape and torch.isfinite(img).all()
     assert abs(img.mean().item() - ref.mean().item()) <= 0.05 * ref.mean().item()
+
+
+@pytest.mark.parametrize("tail", [False, True], ids=["alone", "tail"])
+@pytest.mark.parametrize("n_spheres", [2900, 3100, 3300, 3500, 3632, 3633, 3700])
+def test_front_bytes_floor_never_refuses_a_front_that_fits(n_spheres, tail):
+    """Around the threshold (3,632 spheres of 64 B fill the 232,448 B
+    budget), with and without the depth tail's live list beside the
+    tables: the early bound is at most the bytes the front reaches when
+    built with no budget, so `front_tables` refuses a scene exactly when
+    its built front would pass the budget."""
+    scene = pscene.make_random_scene(n_spheres, seed=3)
+    tree = pbvh.build_bvh(scene, leaf_size=8)
+    rs = pbvh.reorder_scene(scene, tree)
+    kw = dict(order_point=(13.0, 2.0, 3.0), repack=1)
+    front = mk.front_tables(rs, tree, smem_budget=None, **kw)
+    built = 4 * sum(getattr(front, f).numel() for f in ("sph", "ff", "fi", "wf", "sf"))
+    assert mk.front_bytes_floor(n_spheres) == 64 * n_spheres <= built
+    budget = mk.SMEM_BUDGET_BYTES - (mk.SEGMENT_LIST_BYTES if tail else 0)
+    if built <= budget:
+        assert torch.equal(mk.front_tables(rs, tree, smem_budget=budget, **kw).sph, front.sph)
+    else:
+        with pytest.raises(mk.FrontOverBudget):
+            mk.front_tables(rs, tree, smem_budget=budget, **kw)
+
+
+def test_no_front_is_built_past_the_bound(monkeypatch):
+    """A scene past `front_bytes_floor` builds no front: with the front cut
+    (`bvh_front`), the table read (`scene_table`) and K7's builder all
+    raising, `prepare_scene` still returns K8's tables."""
+    from raytracingproject_tpu_torch.utils import profiling
+
+    scene = pscene.make_random_scene(4000, seed=3)
+    assert mk.front_bytes_floor(scene.num_spheres) > mk.SMEM_BUDGET_BYTES
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a front was built past the bound")
+
+    for mod, name in ((pbvh, "bvh_front"), (mk, "scene_table"), (mk, "front_tables_hbm")):
+        monkeypatch.setattr(mod, name, refuse)
+    profiling.reset_counters()
+    rs, tables = prepare_scene(scene, Camera(**CAM), RenderSettings(device="cpu"))
+    assert isinstance(tables, mk.BVHTables) and rs.num_spheres == 4000
+    c = profiling.counters()
+    assert (c["front_refusals"], c["routes.bvh"], c["routes.front"]) == (1, 1, 0)
+    profiling.reset_counters()
+
+
+def test_prepare_scene_falls_back_to_k7_past_the_stack(monkeypatch):
+    """A tree the walk refuses (here: deeper than a stack of one entry)
+    keeps the global-memory front (K7), in leaf order as the JAX `render`
+    builds it, and `render` traces through it."""
+    from raytracingproject_tpu_torch.utils import profiling
+
+    scene = pscene.make_random_scene(300, seed=5)
+    cam = Camera(**dict(CAM, image_width=24, samples_per_pixel=2))
+    monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 8192)
+    monkeypatch.setattr(mk, "BVH_STACK", 1)
+    tree = pbvh.build_bvh(scene, leaf_size=8)
+    with pytest.raises(mk.BVHRefused, match="depth"):
+        mk.bvh_tables(tree, "cpu")
+    profiling.reset_counters()
+    rs, front = prepare_scene(scene, cam, RenderSettings(device="cpu"))
+    assert isinstance(front, mk.FrontTablesHBM)
+    want = mk.front_tables_hbm(pbvh.reorder_scene(scene, tree), tree)
+    assert torch.equal(front.remap, want.remap) and torch.equal(front.ff, want.ff)
+    c = profiling.counters()
+    assert (c["front_refusals"], c["routes.front_hbm"], c["routes.bvh"]) == (1, 1, 0)
+    profiling.reset_counters()
+    img = render(scene, cam, settings=RenderSettings(device="cpu"))
+    assert torch.isfinite(img).all()
+
+
+def test_render_past_the_budget_under_inference_mode(monkeypatch):
+    """Tensors made under torch.inference_mode keep no version counter:
+    the route past the budget builds K8's node records (and the sphere
+    table K8 reads) without caching them, and renders the frame that
+    `render` gives outside it."""
+    scene = pscene.make_random_scene(300, seed=5)
+    cam = Camera(**dict(CAM, image_width=24, samples_per_pixel=2))
+    monkeypatch.setattr(mk, "SMEM_BUDGET_BYTES", 8192)
+    settings = RenderSettings(device="cpu")
+    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    want = render(scene, cam, gen(), settings)
+    with torch.inference_mode():
+        got = render(scene, cam, gen(), settings)
+        small = pscene.make_random_scene(40, seed=2)
+        tab = mk._sphere_major(small, torch.device("cpu"))
+        assert torch.equal(tab, mk.scene_table(small).t())
+    assert torch.equal(got, want)
 
 
 def test_prepare_scene_falls_through_only_when_over_budget(monkeypatch):

@@ -226,7 +226,9 @@ def test_unported_options_raise(monkeypatch):
     cam = pcamera.Camera(**THREE)
     scene = pscene.make_three_sphere_scene()
     with monkeypatch.context() as m:
-        m.setattr(pmk, "SMEM_BUDGET_BYTES", 0)  # every front goes to global memory (K7)
+        # every front passes shared memory and the walk refuses every tree: K7
+        m.setattr(pmk, "SMEM_BUDGET_BYTES", 0)
+        m.setattr(pmk, "BVH_STACK", -1)
         with pytest.raises(ValueError, match="FrontTablesHBM"):
             prender(scene, cam, settings=RenderSettings(device="cpu", depth_segment=2))
     # use_pallas is the oracle loop's closest hit: with the megakernel it is refused

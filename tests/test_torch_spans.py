@@ -226,7 +226,10 @@ def test_counts_of_a_render():
     # seeds, the two uploads and at least one table read
     assert c["host_syncs"] >= PASSES + 3
     assert set(profiling.COUNTS) == {"frames", "passes", "host_syncs", "upload_bytes",
-                                     "collectives", "collective_bytes"}
+                                     "collectives", "collective_bytes", "routes.front",
+                                     "routes.bvh", "routes.front_hbm", "front_refusals"}
+    # the cover's front fits shared memory: K3's route, nothing refused
+    assert c["routes.front"] == 1 and c["routes.bvh"] == c["front_refusals"] == 0
     assert c["collectives"] == c["collective_bytes"] == 0  # a render on one device
     # the plain versions launch no kernel
     assert c["launches.front"] == 0 and "launches.closest_hit" in c
@@ -249,20 +252,41 @@ def test_counts_of_a_warm_render():
     assert c["host_syncs"] == cold["host_syncs"] - 2 >= PASSES + 1
 
 
-def test_front_over_budget_counts_one_refusal():
-    """A scene whose front passes shared memory (3,500 spheres) builds the
-    shared-memory front, is refused and builds the global-memory one: the
-    trace counts the refusal as one `rtp.prep.front` span followed by one
-    `rtp.prep.front_hbm` span, both in the scene's prep."""
-    scene = make_random_scene(3500, seed=3)
+def _refused_once(n_spheres: int) -> bool:
+    """Prepare make_random_scene(n_spheres) under the profiler: one
+    `rtp.prep.front` span, then one `rtp.prep.bvh_nodes` (K8's node
+    records), both in the scene's prep, no K7 front, one refusal and one
+    `routes.bvh` counted. Returns whether a table was read inside the
+    front's span."""
+    scene = make_random_scene(n_spheres, seed=3)
     ev = profiled(lambda: prepare_scene(scene, CAM, rt.RenderSettings(device="cpu")))
     n = names(ev)
-    assert n.count("rtp.prep.front") == 1 and n.count("rtp.prep.front_hbm") == 1
-    (front_end,) = [e for name, _, e, _ in ev if name == "rtp.prep.front"]
-    (hbm_start,) = [s for name, s, _, _ in ev if name == "rtp.prep.front_hbm"]
-    assert front_end <= hbm_start
+    assert n.count("rtp.prep.front") == 1 and n.count("rtp.prep.bvh_nodes") == 1
+    assert "rtp.prep.front_hbm" not in n
+    ((front_start, front_end),) = [(s, e) for name, s, e, _ in ev if name == "rtp.prep.front"]
+    (nodes_start,) = [s for name, s, _, _ in ev if name == "rtp.prep.bvh_nodes"]
+    assert front_end <= nodes_start
     assert inside(ev, "rtp.prepare_scene", "rtp.prep.front")
-    assert inside(ev, "rtp.prepare_scene", "rtp.prep.front_hbm")
+    assert inside(ev, "rtp.prepare_scene", "rtp.prep.bvh_nodes")
+    c = profiling.counters()
+    assert (c["front_refusals"], c["routes.bvh"], c["routes.front"]) == (1, 1, 0)
+    return any(name == "rtp.sync.table" and front_start <= s and e <= front_end
+               for name, s, e, _ in ev)
+
+
+def test_front_over_budget_counts_one_refusal():
+    """A scene whose front passes shared memory takes the BVH walk after one
+    refusal (`_refused_once`). 4,000 spheres at 64 B each already pass the
+    budget, so the refusal comes before any front is built: no table is
+    read in the front's span."""
+    assert not _refused_once(4000)
+
+
+def test_front_refused_once_built_takes_the_walk():
+    """3,500 spheres fall under the early bound: the front is built (the
+    table read in its span), refused, and the scene takes the BVH walk
+    (`_refused_once`)."""
+    assert _refused_once(3500)
 
 
 def test_cli_trace_writes_the_spans(tmp_path, capsys):
